@@ -3,20 +3,35 @@
 
     python3 chip_smoke.py            # from the repository root; needs one card
 
-Phases, each of which fails the run on error:
+Phases, each of which fails the run on error (each prints its seconds):
   1. device and build: prints the card's name and power limit, builds every
-     CUDA kernel of the main path from csrc/ with nvcc;
-  2. kernel vs plain: at RMAT scale 18 (edge factor 16, seed 42) runs the
+     CUDA kernel from csrc/ with nvcc (one nvcc per source, all at once);
+  2. K1 vs plain: at RMAT scale 18 (edge factor 16, seed 42) runs the
      bitmap pull K1 and its plain PyTorch version on three frontiers (the top
      hub, the hub's level-2 frontier, a seeded 20% frontier); counts must be
      equal (tolerance 0: both are int32 counts). Times the kernel, the plain
      version and torch.sparse CSR · frontier (a yardstick only; the package
      never calls it) with CUDA events, and computes the kernel's bound;
-  3. main path: pull-only BFS through graphblast_tpu_torch.algorithms.bfs
+  3. BFS main path: pull-only BFS through graphblast_tpu_torch.algorithms.bfs
      from the 8 highest-degree sources; levels must equal the NumPy golden
      and K1 must have launched once per BFS iteration. Prints ms/run (median
      over reps, synchronized) and GTEPS over reached edges;
-  4. prints {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
+  4. value pull (K2's call site) at RMAT scale 18: the CSR plan with the
+     stored values and a seeded standard-normal x; the kernel must agree with
+     its plain version within 1e-5 * max|y_plain| and be bitwise equal to a
+     second launch. Times the kernel, the plain version and torch.mv on the
+     same CSR (a yardstick only), computes the bound, and times the kernel
+     on the longest row alone (one warp walks it);
+  5. PageRank main path: graphblast_tpu_torch.algorithms.pr (fused, alpha
+     0.85, eps 1e-8) at RMAT scale 18 against the port's NumPy golden at its
+     fixed point (eps 1e-14); requires sum |p - p_gold| <= 1e-4 and a relative
+     error <= 1e-3 on the 100 top-ranked vertices, and one value-pull launch
+     per iteration. Prints the iterations, ms per pr() call, the plan build
+     and the loop, ms per iteration, pr_iters_per_s and the kernel's share;
+  6. value pull in K3's regime: a seeded uniform random CSR built on the
+     card, 2^24 rows and columns, 8 edges a row, so that x (64 MB) exceeds
+     the 50 MB L2; the same checks and timings as phase 4;
+  7. prints {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
 
 Exits non-zero, printing no result, when CUDA is unavailable or the package
 is missing.
@@ -28,6 +43,7 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM published memory rate
 RMAT18_N, RMAT18_NNZ = 262_144, 7_610_284
+PR_ALPHA, PR_EPS = 0.85, 1e-8
 
 
 def _event_ms(fn, reps: int) -> float:
@@ -43,6 +59,31 @@ def _event_ms(fn, reps: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _wrappers():
+    from graphblast_tpu_torch.ops.kernels.bitmap_pull import spmv_bitmap_pull
+    from graphblast_tpu_torch.ops.kernels.value_pull import spmv_value_pull
+
+    return {"bitmap_pull": spmv_bitmap_pull, "value_pull": spmv_value_pull}
+
+
+def _reset_counts():
+    for fn in _wrappers().values():
+        fn.launches = 0
+
+
+def _read_counts() -> dict:
+    return {name: fn.launches for name, fn in _wrappers().items()}
+
+
+def _median_and_tail(times):
+    """(median, q, q-th percentile) with q the highest percentile that has
+    ten samples beyond it."""
+    import numpy as np
+
+    q = 100.0 * (1 - 10 / len(times))
+    return float(np.median(times)), q, float(np.percentile(times, q))
 
 
 def phase_device_and_build():
@@ -119,13 +160,15 @@ def phase_main_path(A, sources, goldens, reps: int = 10):
     import torch
 
     import graphblast_tpu_torch as gt
-    from graphblast_tpu_torch.ops.kernels.bitmap_pull import spmv_bitmap_pull
 
     desc = gt.BFS_TUNED.replace(mxv_mode=gt.Direction.PULLONLY)
     bfs = gt.algorithms.bfs
-    spmv_bitmap_pull.launches = 0
+    _reset_counts()
     levels = [bfs(A, int(s), desc).to_numpy() for s in sources]
-    launches = spmv_bitmap_pull.launches
+    counts = _read_counts()
+    launches = counts.pop("bitmap_pull")
+    if any(counts.values()):
+        raise AssertionError(f"BFS launched other kernels: {counts}")
     iters = [int(v.max()) for v in levels]   # one K1 launch per iteration
     for s, v, want in zip(sources, levels, goldens):
         if v.shape != (A.nrows,) or not np.isfinite(v).all():
@@ -161,6 +204,152 @@ def phase_main_path(A, sources, goldens, reps: int = 10):
     return launches, per_s, iters
 
 
+def phase_value_pull(tag, plan, x, plain_reps: int):
+    """The value pull against its plain version and itself, timed beside
+    the plain version and torch.mv on the same CSR (a yardstick only)."""
+    import torch
+
+    from graphblast_tpu_torch.ops.kernels.value_pull import (
+        build_plan, spmv_value_pull, spmv_value_pull_plain)
+
+    nnz = int(plan.ptr[-1])
+    y = spmv_value_pull(plan, x)
+    y_again = spmv_value_pull(plan, x)
+    y_plain = spmv_value_pull_plain(plan, x)
+    lib_mat = torch.sparse_csr_tensor(plan.ptr, plan.ind[:nnz],
+                                      plan.val[:nnz],
+                                      size=(plan.n_out, plan.n_in),
+                                      check_invariants=False)
+    y_lib = torch.mv(lib_mat, x)
+    torch.cuda.synchronize()
+    if y.shape != (plan.n_out,) or not bool(torch.isfinite(y).all()):
+        raise AssertionError(f"{tag}: bad output")
+    scale = float(y_plain.abs().max())
+    err = float((y - y_plain).abs().max())
+    if not err <= 1e-5 * scale:
+        raise AssertionError(f"{tag}: max |y - y_plain| = {err} > 1e-5 * "
+                             f"{scale}")
+    if not torch.equal(y, y_again):
+        raise AssertionError(f"{tag}: two launches differ")
+    lib_err = float((y_lib - y_plain).abs().max())
+    bound_bytes = 8 * nnz + 4 * (plan.n_out + 1) + 4 * plan.n_in \
+        + 4 * plan.n_out
+    bound_ms = bound_bytes / HBM_BYTES_PER_S * 1e3
+    ms = _event_ms(lambda: spmv_value_pull(plan, x), 200)
+    plain_ms = _event_ms(lambda: spmv_value_pull_plain(plan, x), plain_reps)
+    lib_ms = _event_ms(lambda: torch.mv(lib_mat, x), 50)
+    print(f"[{tag}] n_out={plan.n_out} n_in={plan.n_in} nnz={nnz}; "
+          f"max|y_plain| {scale:.6g}, kernel max abs err {err:.6g} "
+          f"(rel {err / scale:.3g}, bar 1e-5), bitwise equal to a second "
+          f"launch; torch.mv max abs err {lib_err:.6g}")
+    print(f"[{tag}] kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, torch.mv "
+          f"{lib_ms:.6f} ms, bound {bound_bytes} B -> {bound_ms:.6f} ms at "
+          f"3.35 TB/s ({100 * bound_ms / ms:.1f}% of it)")
+    # the longest row alone: one warp walks it, so its time is a floor
+    # under the whole call's
+    deg = plan.ptr[1:] - plan.ptr[:-1]
+    i = int(torch.argmax(deg))
+    b, e = int(plan.ptr[i]), int(plan.ptr[i + 1])
+    row = build_plan(torch.tensor([0, e - b], dtype=plan.ptr.dtype,
+                                  device=x.device),
+                     plan.ind[b:e], plan.val[b:e], 1, plan.n_in)
+    row_ms = _event_ms(lambda: spmv_value_pull(row, x), 200)
+    print(f"[{tag}] longest row ({e - b} edges) alone: {row_ms:.6f} ms, "
+          f"{100 * row_ms / ms:.1f}% of the whole call")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                library_ms=lib_ms)
+
+
+def phase_pagerank(A, reps: int = 40):
+    """PageRank through the entry point, against the port's golden at its
+    fixed point; then the call, its host plan build and its loop, timed."""
+    import numpy as np
+    import torch
+
+    import graphblast_tpu_torch as gt
+    from graphblast_tpu_torch.algorithms.pr import _pr_fused, prepare_pr_plan
+    from graphblast_tpu_torch.ops.kernels.value_pull import spmv_value_pull
+
+    t0 = time.perf_counter()
+    gold = gt.algorithms.pr_cpu(A, PR_ALPHA, eps=1e-14, max_niter=300)
+    print(f"[pr] NumPy golden in {time.perf_counter() - t0:.2f} s")
+
+    _reset_counts()
+    p = gt.algorithms.pr(A, alpha=PR_ALPHA, eps=PR_EPS).to_numpy()
+    counts = _read_counts()
+    launches = counts.pop("value_pull")
+    if any(counts.values()):
+        raise AssertionError(f"PageRank launched other kernels: {counts}")
+    if p.shape != (A.nrows,) or not np.isfinite(p).all():
+        raise AssertionError("PageRank: bad rank array")
+    l1 = float(np.abs(p.astype(np.float64) - gold).sum())
+    top = np.argsort(gold)[::-1][:100]
+    top_rel = float((np.abs(p[top] - gold[top]) / gold[top]).max())
+    if not (l1 <= 1e-4 and top_rel <= 1e-3):
+        raise AssertionError(f"PageRank vs golden: L1 {l1} (bar 1e-4), "
+                             f"top-100 rel {top_rel} (bar 1e-3)")
+    # the loop is deterministic: a second run gives the iteration count
+    plan = prepare_pr_plan(A, PR_ALPHA)
+    p2, iters, err = _pr_fused(A, plan, alpha=PR_ALPHA, eps=PR_EPS,
+                               max_niter=gt.DEFAULT.max_niter)
+    if not np.array_equal(p2.cpu().numpy(), p):
+        raise AssertionError("PageRank: two runs differ")
+    if launches != iters or launches == 0:
+        raise AssertionError(f"value pull launched {launches} times in "
+                             f"{iters} PageRank iterations")
+    print(f"[pr] rmat18 alpha {PR_ALPHA} eps {PR_EPS}: {iters} iterations, "
+          f"last err {err:.3e}; sum|p - p_gold| {l1:.3e} (bar 1e-4), top-100 "
+          f"max rel err {top_rel:.3e} (bar 1e-3), sum p {p.sum():.6f}; "
+          f"value-pull launches {launches}")
+
+    def timed(fn, n):
+        times = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return _median_and_tail(times)
+
+    call_s, q, call_tail = timed(
+        lambda: gt.algorithms.pr(A, alpha=PR_ALPHA, eps=PR_EPS), reps)
+    plan_s, _, _ = timed(lambda: prepare_pr_plan(A, PR_ALPHA), 10)
+    loop_s, q_loop, loop_tail = timed(
+        lambda: _pr_fused(A, plan, alpha=PR_ALPHA, eps=PR_EPS,
+                          max_niter=gt.DEFAULT.max_niter), reps)
+    k_ms = _event_ms(lambda: spmv_value_pull(plan, p2), 200)
+    it_ms = loop_s * 1e3 / iters
+    print(f"[pr] pr() call {call_s * 1e3:.6f} ms median, p{q:g} "
+          f"{call_tail * 1e3:.6f} ms, {reps} runs; host plan build "
+          f"(prepare_pr_plan) {plan_s * 1e3:.6f} ms median of 10; loop "
+          f"{loop_s * 1e3:.6f} ms median, p{q_loop:g} {loop_tail * 1e3:.6f} "
+          f"ms, {reps} runs")
+    print(f"[pr] {it_ms:.6f} ms/iteration in the loop, pr_iters_per_s "
+          f"{iters / loop_s:.2f} (loop) {iters / call_s:.2f} (whole call); "
+          f"kernel {k_ms:.6f} ms x {iters} = {k_ms * iters:.6f} ms, "
+          f"{100 * k_ms * iters / (loop_s * 1e3):.2f}% of the loop, "
+          f"{100 * k_ms * iters / (call_s * 1e3):.2f}% of the call; host and "
+          f"other ops {it_ms - k_ms:.6f} ms/iteration")
+    return launches
+
+
+def _random_csr(n: int, deg: int, seed: int, device: str = "cuda"):
+    """A seeded uniform random CSR made on `device`: n rows and columns,
+    `deg` edges a row, standard-normal values; and a standard-normal x."""
+    import torch
+
+    from graphblast_tpu_torch.ops.kernels.value_pull import build_plan
+
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    ptr = torch.arange(0, n * deg + 1, deg, dtype=torch.int32, device=device)
+    ind = torch.randint(0, n, (n * deg,), generator=g, dtype=torch.int32,
+                        device=device)
+    val = torch.randn(n * deg, generator=g, device=device)
+    x = torch.randn(n, generator=g, device=device)
+    return build_plan(ptr, ind, val, n, n), x
+
+
 def main() -> int:
     import torch
 
@@ -173,8 +362,11 @@ def main() -> int:
     import graphblast_tpu_torch  # noqa: F401  (fails alone in a directory)
     from graphblast_tpu_torch.algorithms.reference import bfs_cpu
     from graphblast_tpu_torch.io.rmat import rmat_matrix
+    from graphblast_tpu_torch.ops.kernels.value_pull import plan_for
 
+    t0 = time.perf_counter()
     phase_device_and_build()
+    print(f"[phase] device and build {time.perf_counter() - t0:.2f} s")
 
     t0 = time.perf_counter()
     A = rmat_matrix(18, 16, seed=42, device="cuda")
@@ -186,7 +378,12 @@ def main() -> int:
     sources = np.argsort(deg)[::-1][:8].astype(np.int64)
     goldens = [bfs_cpu(A, int(s)) for s in sources]
 
+    print(f"[phase] graph and goldens {time.perf_counter() - t0:.2f} s")
+
+    t0 = time.perf_counter()
     k1, bound_ms = phase_kernel_vs_plain(A, goldens[0], int(sources[0]))
+    print(f"[phase] K1 vs plain {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
     launches, per_s, iters = phase_main_path(A, sources, goldens)
 
     main_row = k1["hub_level2"]
@@ -194,6 +391,23 @@ def main() -> int:
     print(f"[bfs] K1 time per run ({iters[0]} launches x "
           f"{main_row['ms']:.6f} ms) = {k1_ms:.6f} ms, "
           f"{100 * k1_ms / (per_s * 1e3):.2f}% of the median run")
+    print(f"[phase] BFS {time.perf_counter() - t0:.2f} s")
+
+    t0 = time.perf_counter()
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        A.ncols).astype(np.float32)).cuda()
+    k2 = phase_value_pull("K2 rmat18", plan_for(A), x, plain_reps=20)
+    print(f"[phase] value pull at rmat18 {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    pr_launches = phase_pagerank(A)
+    print(f"[phase] PageRank {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    del A
+    plan, x = _random_csr(1 << 24, 8, seed=42)
+    k3 = phase_value_pull("K3 regime 2^24", plan, x, plain_reps=5)
+    del plan, x
+    print(f"[phase] value pull at 2^24 rows {time.perf_counter() - t0:.2f} s")
+
     kernels = [{
         "name": "bitmap_pull",
         "route": "cuda",
@@ -207,6 +421,17 @@ def main() -> int:
         "bound_by": "bytes",
         "library_ms": main_row["library_ms"],
     }]
+    # one kernel serves both TPU call sites; `launches` is its count in the
+    # PageRank run, which at rmat18 is K2's call site
+    for name, replaces, row in (
+            ("value_pull", "graphblast_tpu/ops/pallas/bilinear.py:305", k2),
+            ("value_pull_beyond_l2",
+             "graphblast_tpu/ops/pallas/bilinear.py:1287", k3)):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "graphblast_tpu_torch/csrc/value_pull.cu",
+            "replaces": replaces, "launches": pr_launches,
+            "bound_by": "bytes", **row})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,9 +10,11 @@ plain PyTorch version that CPU tensors run.
 Entry points run on "cuda" unless the caller passes `device=` (the tests
 pass device="cpu"); a missing card raises.
 
-Ported so far (slice 1): the core types, the semiring catalog, the
-descriptor, ingest (mmio, cache, rmat), Matrix and Vector, the pull-only
-mxv_dual and BFS over the bitmap-pull kernel K1.
+Ported so far: the core types, the semiring catalog, the descriptor,
+ingest (mmio, cache, rmat), Matrix and Vector, the pull-only mxv_dual and
+BFS over the bitmap-pull kernel K1 (slice 1); PageRank over the value-pull
+kernel that replaces K2 and K3, with the three operations of its matrix
+prep and the dimension checks (slice 2).
 """
 
 from .types import Direction, INDEX_DTYPE, LoadBalanceMode, SparseFormat, Storage
@@ -24,12 +26,21 @@ from .semiring import (
     BinaryOp,
     LogicalOrAndSemiring,
     Monoid,
+    PlusDividesSemiring,
+    PlusMonoid,
+    PlusMultipliesSemiring,
     Semiring,
     extract_add,
     extract_mul,
 )
 from .matrix import Matrix
 from .vector import Vector
+from .operations import (
+    eWiseMult_matrix_scalar,
+    reduce_matrix_to_vector,
+    scale_matrix_rows,
+)
 from . import algorithms
+from .algorithms import pr, pr_cpu, prepare_pr_matrix
 
 __version__ = "0.1.0"

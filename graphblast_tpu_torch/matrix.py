@@ -69,6 +69,10 @@ class Matrix:
         return int(arr.shape[0])
 
     @property
+    def shape(self) -> tuple:
+        return (self.nrows, self.ncols)
+
+    @property
     def dtype(self) -> torch.dtype:
         return (self.val if self.val is not None else self.csc_val).dtype
 
@@ -216,12 +220,24 @@ class Matrix:
     # -- host-side extraction -------------------------------------------------
     def host_csr(self):
         """(row_ptr int64, col_ind int32, val) of the stored entries, on the
-        host: the kept copy where there is one, else fetched."""
+        host: the kept copy where there is one, else fetched; None without
+        a CSR."""
         if self._host_csr is not None:
             return self._host_csr
-        ptr = self.row_ptr.cpu().numpy().astype(np.int64)
-        return (ptr, self.col_ind[: self.nvals].cpu().numpy(),
-                self.val[: self.nvals].cpu().numpy())
+        return self._fetch(self.row_ptr, self.col_ind, self.val)
+
+    def host_csc(self):
+        """(col_ptr int64, csc_row_ind int32, csc_val), as host_csr."""
+        if self._host_csc is not None:
+            return self._host_csc
+        return self._fetch(self.col_ptr, self.csc_row_ind, self.csc_val)
+
+    def _fetch(self, ptr, ind, val):
+        if ptr is None:
+            return None
+        return (ptr.cpu().numpy().astype(np.int64),
+                ind[: self.nvals].cpu().numpy(),
+                val[: self.nvals].cpu().numpy())
 
     def __repr__(self):
         return (f"Matrix({self.nrows}x{self.ncols}, nvals={self.nvals}, "

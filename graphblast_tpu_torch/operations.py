@@ -1,0 +1,90 @@
+"""GraphBLAS operations (counterpart of graphblast_tpu/operations.py;
+reference: graphblas/operations.hpp).
+
+Ported so far: the three operations PageRank's matrix prep composes
+(`prepare_pr_matrix`, reference example/gpr.cu:82-90): the row reduce
+`reduce_matrix_to_vector`, `eWiseMult_matrix_scalar` and
+`scale_matrix_rows`. The rest of the surface is ROADMAP queue 1 item 10.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import dimension as dim
+from .descriptor import DEFAULT, Descriptor
+from .matrix import Matrix
+from .semiring import BinaryOp, Monoid, Semiring, extract_add, extract_mul
+from .types import Storage
+from .vector import Vector
+
+# monoid name -> scatter_reduce reduction; the logical monoids reduce the
+# 0/1 truth of each value
+_ROW_REDUCE = {"PlusMonoid": "sum", "MultipliesMonoid": "prod",
+               "MinimumMonoid": "amin", "MaximumMonoid": "amax",
+               "LogicalOrMonoid": "amax", "LogicalAndMonoid": "amin"}
+
+
+def _binop_of(op, use_mul: bool) -> BinaryOp:
+    if isinstance(op, Semiring):
+        return extract_mul(op) if use_mul else extract_add(op).op
+    if isinstance(op, Monoid):
+        return op.op
+    return op
+
+
+def reduce_matrix_to_vector(A: Matrix, monoid: Monoid,
+                            desc: Descriptor = DEFAULT) -> Vector:
+    """matrix → vector row reduce (reference: operations.hpp:620-641): the
+    monoid over each row's stored values, its identity on empty rows."""
+    how = _ROW_REDUCE.get(monoid.name)
+    if how is None:
+        raise NotImplementedError(
+            f"row reduce over {monoid.name} is not ported (only the "
+            f"associative monoids {sorted(_ROW_REDUCE)}): ROADMAP queue 1 "
+            "item 10")
+    if A.row_ptr is None:
+        raise ValueError("reduce_matrix_to_vector needs A's CSR")
+    vals = A.val[: A.nvals]
+    rows = A.row_ind[: A.nvals].long()
+    if monoid.name.startswith("Logical"):
+        vals = (vals != 0).to(vals.dtype)
+    out = torch.full((A.nrows,), monoid.identity(vals.dtype).item(),
+                     dtype=vals.dtype, device=vals.device)
+    out = out.scatter_reduce(0, rows, vals, how, include_self=False)
+    return Vector(A.nrows, Storage.DENSE, dense=out)
+
+
+def _scale_vals(A: Matrix, fn, breaks_symmetry: bool) -> Matrix:
+    """fn(val, row_ids, col_ids) → new values, applied to the padded CSR and
+    CSC value arrays, each with its own index arrays (csc_row_ind carries
+    the row id of each CSC-ordered entry) even where they alias the CSR's
+    through structural symmetry: index-dependent scaling breaks value
+    symmetry, so the result keeps its own CSC values."""
+    new_val = fn(A.val, A.row_ind, A.col_ind) if A.val is not None else None
+    new_csc = (fn(A.csc_val, A.csc_row_ind, A.csc_col_ind)
+               if A.csc_val is not None else None)
+    return Matrix(A.nrows, A.ncols, A.nvals, A.row_ptr, A.col_ind, A.row_ind,
+                  new_val, A.col_ptr, A.csc_row_ind, A.csc_col_ind, new_csc,
+                  format=A.format,
+                  symmetric=A.symmetric and not breaks_symmetry)
+
+
+def eWiseMult_matrix_scalar(A: Matrix, op, value) -> Matrix:
+    """A' = A ⊗ c elementwise over stored values."""
+    binop = _binop_of(op, use_mul=True)
+    return _scale_vals(
+        A, lambda v, r, c: binop(v, torch.tensor(value, dtype=v.dtype)),
+        breaks_symmetry=False)
+
+
+def scale_matrix_rows(A: Matrix, vec: Vector, op) -> Matrix:
+    """A'[i,j] = op(A[i,j], vec[i]) (reference: eWiseMultRowInner). Padding
+    entries carry the row sentinel nrows in row_ind and read vec[n-1]."""
+    dim.check_row_size(A, vec, "scaleRows", "vec")
+    binop = _binop_of(op, use_mul=True)
+    vd = vec.to_dense(0).dense
+
+    def fn(v, r, c):
+        return binop(v, vd[r.clamp(max=vec.n - 1).long()]).to(v.dtype)
+
+    return _scale_vals(A, fn, breaks_symmetry=True)

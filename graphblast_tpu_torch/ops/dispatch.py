@@ -3,11 +3,13 @@ graphblast_tpu/ops/dispatch.py; reference: backend/cuda/operations.hpp:82-327
 and the direction heuristic, backend/cuda/vector.hpp:292-323).
 
 Ported so far: the DualFrontier carry, the direction heuristic, and the
-PULLONLY branch of `mxv_dual` over a bitmap plan (the structure-only
-LogicalOrAnd pull that BFS runs). Push, and therefore PUSHONLY and PUSHPULL,
-is ROADMAP queue 1 item 8; the plan-less pull (`spmv_pull`) comes with
-kernels K5 and K6. Both raise NotImplementedError here rather than run
-another path.
+PULLONLY branches of `mxv_dual` over a plan (dispatch.py:261-283 of the JAX
+package): the structure-only LogicalOrAnd pull over a bitmap plan (K1, BFS)
+or a unit-valued value plan, and the PlusMultiplies pull over a value plan
+(K2/K3). Push, and therefore PUSHONLY and PUSHPULL, is ROADMAP queue 1
+item 8; the min/max semirings over a plan wait for K4, and the plan-less
+pull (`spmv_pull`) for K5 and K6. They raise NotImplementedError here
+rather than run another path.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ from ..semiring import Semiring
 from ..types import INDEX_DTYPE, Direction
 from ..vector import dense_from_sparse, sparse_from_dense
 from .kernels.bitmap_pull import BitmapPlan, pack_bitmap, spmv_bitmap_pull
+from .kernels.value_pull import ValuePlan, spmv_value_pull
 from .spmv import mask_pass
 
 PUSH_TODO = ("push (PUSHONLY / PUSHPULL) is not ported yet: ROADMAP queue 1 "
@@ -90,10 +93,11 @@ def mxv_dual(A: Matrix, f: DualFrontier, semiring: Semiring, identity, *,
     DualFrontier and whether push ran (reference: operations.hpp:108-199
     vxm + convert()).
 
-    Only the pull branch exists: `mode` must resolve to PULLONLY, the
-    semiring must be LogicalOrAnd with structure_only, and `pull_plan` must
-    be a BitmapPlan of the pull orientation (CSC for vxm, CSR for mxv). The
-    JAX signature's push workspace arguments (edge_cap, sort_push,
+    Only the pull branch exists: `mode` must resolve to PULLONLY and
+    `pull_plan` must be a plan of the pull orientation (CSC for vxm, CSR for
+    mxv): a BitmapPlan for the structure-only LogicalOrAnd pull, or a
+    ValuePlan for that pull (unit values only) or the PlusMultiplies pull.
+    The JAX signature's push workspace arguments (edge_cap, sort_push,
     tier_divisors, lazy) and `postprocess` come with push."""
     mode = mode if mode is not None else Direction.PUSHPULL
     n_out = A.ncols if transpose else A.nrows
@@ -105,19 +109,34 @@ def mxv_dual(A: Matrix, f: DualFrontier, semiring: Semiring, identity, *,
         mode = Direction.PUSHONLY
     if mode != Direction.PULLONLY:
         raise NotImplementedError(PUSH_TODO)
-    if not (structure_only and semiring.name == "LogicalOrAnd"
-            and isinstance(pull_plan, BitmapPlan)):
+    or_pull = structure_only and semiring.name == "LogicalOrAnd"
+    if isinstance(pull_plan, ValuePlan):
+        if not (or_pull or (not structure_only
+                            and semiring.name == "PlusMultiplies")):
+            raise NotImplementedError(
+                f"the {semiring.name} pull over a value plan is not ported: "
+                "the min/max semirings wait for kernel K4 (ROADMAP queue 2)")
+        if or_pull and not pull_plan.unit_vals:
+            # count>0 is the fused-or result only when every edge value is
+            # 1: cancelling weights could sum to 0 for a reached vertex
+            raise ValueError("the LogicalOrAnd pull needs a bitmap plan or a "
+                             "unit-valued (ones=True) value plan")
+    elif not (or_pull and isinstance(pull_plan, BitmapPlan)):
         raise NotImplementedError(
-            "only the structure-only LogicalOrAnd pull over a bitmap plan is "
-            "ported; the plan-less spmv_pull waits for kernels K5 and K6 "
-            "(ROADMAP queue 2)")
+            "only the pulls over a bitmap or value plan are ported; the "
+            "plan-less spmv_pull waits for kernels K5 and K6 (ROADMAP queue "
+            "2)")
     if pull_plan.n_out != n_out:
         raise ValueError(f"plan has {pull_plan.n_out} output rows, the "
                          f"{'vxm' if transpose else 'mxv'} pull needs {n_out}")
 
-    # count>0 is the fused-or result: the bitmap plan ignores edge values
-    cnt = spmv_bitmap_pull(pull_plan, pack_bitmap(f.dense))
-    y = (cnt > 0).to(f.dense.dtype)
+    if isinstance(pull_plan, BitmapPlan):
+        # the bitmap plan ignores edge values
+        cnt = spmv_bitmap_pull(pull_plan, pack_bitmap(f.dense))
+    else:   # the kernel computes in float32, as the JAX kernel does
+        cnt = spmv_value_pull(pull_plan, f.dense.to(torch.float32))
+    # count>0 is the fused-or result
+    y = (cnt > 0 if or_pull else cnt).to(f.dense.dtype)
     if mask_dense is not None:
         y = y.masked_fill(~mask_pass(mask_dense, mask_scmp),
                           semiring.identity(y.dtype).item())

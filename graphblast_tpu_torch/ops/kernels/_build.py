@@ -2,15 +2,15 @@
 
 Each source under graphblast_tpu_torch/csrc/ compiles on its own into a
 shared library with a plain C interface, in graphblast_tpu_torch/_build/
-(not tracked by git). The library's file name carries a hash of the
-sources and flags, so an edited source is rebuilt and a current library is
-reused. `build()` starts one nvcc per missing library, all at once, and
+(not tracked by git). The library's file name carries a hash of its own
+source and the flags, so an edited source is rebuilt, a current library is
+reused, and adding or editing one source leaves the others' libraries as
+they are. `build()` starts one nvcc per missing library, all at once, and
 waits for all of them. Nothing here runs at import time.
 """
 from __future__ import annotations
 
 import ctypes
-import glob
 import hashlib
 import os
 import shutil
@@ -25,7 +25,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # library name -> its source in csrc/
-SOURCES = {"bitmap_pull": "bitmap_pull.cu"}
+SOURCES = {"bitmap_pull": "bitmap_pull.cu", "value_pull": "value_pull.cu"}
 
 _loaded: dict = {}
 
@@ -42,9 +42,8 @@ def nvcc() -> str:
 
 def library_path(name: str) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu*"))):
-        with open(path, "rb") as f:
-            h.update(f.read())
+    with open(os.path.join(CSRC_DIR, SOURCES[name]), "rb") as f:
+        h.update(f.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
 
 

@@ -9,6 +9,7 @@ import torch
 
 import graphblast_tpu_torch as tgb
 from graphblast_tpu_torch.ops.kernels import bitmap_pull as bp
+from graphblast_tpu_torch.ops.kernels import value_pull as vp
 
 pytestmark = pytest.mark.cuda
 
@@ -54,3 +55,69 @@ def test_bfs_on_the_card_matches_golden(cuda):
     got = tgb.algorithms.bfs(A, s, desc).to_numpy()
     np.testing.assert_array_equal(got, tgb.algorithms.bfs_cpu(A, s))
     assert bp.spmv_bitmap_pull.launches - launches == int(got.max())
+
+
+@pytest.mark.parametrize("n_out,n_in,m,hub", [
+    (500, 700, 3000, 0), (20000, 9000, 1, 0), (1, 33, 0, 0),
+    (3000, 100000, 200000, 0), (300, 5000, 9000, 6000)])
+@pytest.mark.parametrize("unit", [False, True])
+def test_value_pull_matches_plain_on_the_card(cuda, n_out, n_in, m, hub,
+                                              unit):
+    """The value-pull kernel vs its plain version within 1e-5 * max|y| (the
+    bar of tests/test_pallas.py; the kernel sums in float32, the plain
+    version in float64), and bitwise equal to a second launch. `hub` edges
+    go to one row; the edge arrays carry padding past ptr[n_out]."""
+    rng = np.random.default_rng(n_out + m + unit)
+    rows = np.sort(np.r_[rng.integers(0, n_out, m), np.full(hub, n_out // 2)])
+    cols = rng.integers(0, n_in, len(rows))
+    ptr = np.zeros(n_out + 1, np.int64)
+    np.add.at(ptr, rows + 1, 1)
+    ptr = np.cumsum(ptr)
+    pad = np.zeros(128, np.int64)
+    val = None if unit else torch.from_numpy(
+        rng.standard_normal(len(rows) + 128).astype(np.float32)).to(cuda)
+    plan = vp.build_plan(torch.from_numpy(ptr.astype(np.int32)).to(cuda),
+                         torch.from_numpy(np.r_[cols, pad].astype(np.int32))
+                         .to(cuda), val, n_out, n_in)
+    x = torch.from_numpy(rng.standard_normal(n_in).astype(np.float32)).to(cuda)
+    launches = vp.spmv_value_pull.launches
+    y = vp.spmv_value_pull(plan, x)
+    y2 = vp.spmv_value_pull(plan, x)
+    torch.cuda.synchronize()
+    assert vp.spmv_value_pull.launches == launches + 2
+    want = vp.spmv_value_pull_plain(plan, x)
+    assert y.shape == (n_out,) and y.dtype == torch.float32
+    assert float((y - want).abs().max()) <= 1e-5 * max(
+        float(want.abs().max()), 1e-30)
+    assert torch.equal(y, y2)
+
+
+def test_value_pull_refuses_what_the_kernel_does_not_take(cuda):
+    plan = vp.build_plan(torch.tensor([0, 1], dtype=torch.int32, device=cuda),
+                         torch.tensor([0], dtype=torch.int32, device=cuda),
+                         None, 1, 4)
+    with pytest.raises(ValueError):
+        vp.spmv_value_pull(plan, torch.zeros(8, device=cuda)[::2])
+    with pytest.raises(TypeError):
+        vp.spmv_value_pull(plan, torch.zeros(4, device=cuda,
+                                             dtype=torch.float64))
+    with pytest.raises(ValueError):
+        vp.spmv_value_pull(plan, torch.zeros(4))
+
+
+def test_pr_on_the_card_matches_golden(cuda):
+    """PageRank on the card vs the port's NumPy golden at its fixed point
+    (rtol 1e-3 / atol 1e-6, as tests/test_algorithms.py), one value-pull
+    launch per iteration."""
+    from graphblast_tpu_torch.algorithms.pr import _pr_fused, prepare_pr_plan
+    from graphblast_tpu_torch.io.rmat import rmat_matrix
+
+    A = rmat_matrix(12, 16, seed=42, device=cuda)
+    launches = vp.spmv_value_pull.launches
+    got = tgb.algorithms.pr(A, eps=1e-10).to_numpy()
+    launches = vp.spmv_value_pull.launches - launches
+    want = tgb.algorithms.pr_cpu(A, 0.85, eps=1e-14, max_niter=300)
+    np.testing.assert_allclose(got, want, rtol=1e-3, atol=1e-6)
+    _, iters, err = _pr_fused(A, prepare_pr_plan(A), alpha=0.85, eps=1e-10,
+                              max_niter=tgb.DEFAULT.max_niter)
+    assert launches == iters > 0 and err <= 1e-10

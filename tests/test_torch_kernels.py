@@ -1,10 +1,12 @@
 """The port's kernel modules against the JAX package (graphblast_tpu_torch).
 
-K1, the bitmap pull, runs here as its plain PyTorch version (CPU tensors);
-the same inputs, made with NumPy from a seed, go through the Pallas kernel
-in interpret mode and through a NumPy count. Counts are integers, so every
-comparison is exact. The CUDA kernel itself is held against the plain
-version on the card by tests/test_torch_cuda.py and chip_smoke.py.
+K1, the bitmap pull, and the value pull that replaces K2 and K3 run here as
+their plain PyTorch versions (CPU tensors); the same inputs, made with NumPy
+from a seed, go through the Pallas kernels in interpret mode and through a
+NumPy golden. Counts are integers, so those comparisons are exact; value
+sums are held to 1e-5 of max|y|, the bar of tests/test_pallas.py. The CUDA
+kernels themselves are held against the plain versions on the card by
+tests/test_torch_cuda.py and chip_smoke.py.
 """
 import os
 import subprocess
@@ -16,6 +18,7 @@ import pytest
 import torch
 
 from graphblast_tpu_torch.ops.kernels import bitmap_pull as bp
+from graphblast_tpu_torch.ops.kernels import value_pull as vp
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -148,23 +151,202 @@ def test_bitmap_pull_checks_its_inputs():
     assert bp.spmv_bitmap_pull.launches == launches   # plain runs count 0
 
 
+# the smoke shapes of tests/test_pallas.py::test_spmv_bilinear and
+# ::test_spmv_bilinear_dma (the cases not marked slow)
+VALUE_CASES = [(500, 700, 3000), (9000, 5000, 1), (100, 100, 0),
+               (20000, 9000, 1)]
+
+
+def _value_case(n_out, n_in, m, seed=5):
+    rng = np.random.default_rng(seed)
+    ptr, rows, cols = _csr(rng, n_out, n_in, m)
+    vals = rng.standard_normal(m).astype(np.float32)
+    x = rng.standard_normal(n_in).astype(np.float32)
+    return ptr, rows, cols, vals, x
+
+
+def _value_plan(ptr, cols, vals, n_out, n_in):
+    return vp.build_plan(torch.from_numpy(ptr.astype(np.int32)),
+                         torch.from_numpy(cols.astype(np.int32)),
+                         None if vals is None else torch.from_numpy(vals),
+                         n_out, n_in)
+
+
+def _golden(rows, cols, vals, x, n_out):
+    y = np.zeros(n_out, np.float64)
+    np.add.at(y, rows, vals.astype(np.float64) * x[cols].astype(np.float64))
+    return y
+
+
+@pytest.mark.parametrize("jax_kernel", ["pack1", "pack2", "dma"])
+@pytest.mark.parametrize("n_out,n_in,m", VALUE_CASES)
+def test_value_pull_matches_pallas(n_out, n_in, m, jax_kernel):
+    """The plain value pull vs K2 (build_plan, pack 1 and 2) and K3
+    (build_plan_f32dma) in interpret mode, within 1e-5 * max|y|."""
+    from graphblast_tpu.ops.pallas.bilinear import (build_plan,
+                                                    build_plan_f32dma,
+                                                    spmv_bilinear,
+                                                    spmv_bilinear_dma)
+
+    ptr, rows, cols, vals, x = _value_case(n_out, n_in, m)
+    if jax_kernel == "dma":
+        want = spmv_bilinear_dma(
+            build_plan_f32dma(ptr, cols, vals, n_out, n_in), jnp.asarray(x),
+            interpret=True)
+    else:
+        want = spmv_bilinear(
+            build_plan(ptr, cols, vals, n_out, n_in,
+                       pack=int(jax_kernel[-1])), jnp.asarray(x),
+            interpret=True)
+    want = np.asarray(want)
+    got = vp.spmv_value_pull(_value_plan(ptr, cols, vals, n_out, n_in),
+                             torch.from_numpy(x))
+    assert got.dtype == torch.float32 and got.shape == (n_out,)
+    gold = _golden(rows, cols, vals, x, n_out)
+    den = max(np.abs(gold).max(initial=0.0), 1e-9)
+    assert np.abs(got.numpy() - want).max(initial=0.0) <= 1e-5 * den
+    assert np.abs(got.numpy() - gold).max(initial=0.0) <= 1e-5 * den
+
+
+@pytest.mark.parametrize("case", [
+    _random_case(100, 50, 0),
+    _random_case(0, 64, 0),
+    _random_case(700, 33, 5000),
+    _hub_case,
+], ids=["empty", "no_rows", "n_in_33", "hubs"])
+def test_unit_value_plan_counts_as_the_bitmap_pull(case):
+    """A unit-valued plan on a 0/1 frontier gives K1's counts exactly."""
+    rng = np.random.default_rng(13)
+    n_out, n_in, rows, cols = case(rng)
+    ptr = np.zeros(n_out + 1, np.int64)
+    np.add.at(ptr, rows + 1, 1)
+    ptr = np.cumsum(ptr)
+    f = (rng.random(n_in) < 0.3).astype(np.float32)
+    unit = _value_plan(ptr, cols, None, n_out, n_in)
+    assert unit.unit_vals
+    got = vp.spmv_value_pull(unit, torch.from_numpy(f))
+    want = bp.spmv_bitmap_pull(_plan(ptr, cols, n_out, n_in),
+                               bp.pack_bitmap(torch.from_numpy(f)))
+    np.testing.assert_array_equal(got.numpy(), want.numpy().astype(np.float32))
+
+
+def test_value_pull_reads_only_the_rows_edges():
+    """Padding past ptr[n_out] (as the Matrix's TILE padding) is never read,
+    and rows with no edges give 0."""
+    ptr = np.array([0, 2, 2, 3], np.int64)
+    cols = np.array([1, 0, 2, 1, 1, 1])             # 3 padding entries
+    vals = np.array([2.0, 3.0, -1.0, 1e9, 1e9, 1e9], np.float32)
+    x = np.array([1.0, 10.0, 100.0], np.float32)
+    y = vp.spmv_value_pull(_value_plan(ptr, cols, vals, 3, 3),
+                           torch.from_numpy(x))
+    np.testing.assert_array_equal(y.numpy(), [23.0, 0.0, -100.0])
+
+
+def test_value_plan_for_orientation_and_cache():
+    """plan_for reads the CSR for mxv and the CSC for vxm, caches under
+    csr/csc (+ /ones), never caches a host_val plan, and gives None for a
+    missing orientation (the semantics of bilinear.py plan_for)."""
+    from graphblast_tpu_torch import Matrix
+    from graphblast_tpu_torch.types import SparseFormat
+
+    rows, cols = np.array([0, 0, 1, 3]), np.array([1, 2, 2, 0])
+    vals = np.array([2.0, 3.0, 5.0, 7.0])
+    A = Matrix.from_coo(rows, cols, vals, 4, 5, device="cpu")
+    x = torch.tensor([1.0, 10.0, 100.0, 1000.0])       # over rows
+    pt = vp.plan_for(A, transpose=True)
+    assert (pt.n_out, pt.n_in, pt.unit_vals) == (5, 4, False)
+    np.testing.assert_array_equal(vp.spmv_value_pull(pt, x).numpy(),
+                                  [7000.0, 2.0, 53.0, 0.0, 0.0])
+    assert vp.plan_for(A, transpose=True) is pt
+    ones = vp.plan_for(A, transpose=True, ones=True)
+    assert ones.unit_vals and ones is not pt
+    assert set(A._plans) >= {"csc", "csc/ones"}
+    np.testing.assert_array_equal(vp.spmv_value_pull(ones, x).numpy(),
+                                  [1000.0, 1.0, 11.0, 0.0, 0.0])
+    pc = vp.plan_for(A)
+    assert (pc.n_out, pc.n_in) == (4, 5) and A._plans["csr"] is pc
+    np.testing.assert_array_equal(
+        vp.spmv_value_pull(pc, torch.arange(5, dtype=torch.float32)).numpy(),
+        [8.0, 10.0, 0.0, 0.0])
+    host = vp.plan_for(A, transpose=True, host_val=np.ones(4, np.float32))
+    assert host.val.dtype == torch.float32 and host is not vp.plan_for(
+        A, transpose=True, host_val=np.ones(4, np.float32))
+    C = Matrix.from_coo(rows, cols, vals, 4, 5, fmt=SparseFormat.CSRONLY,
+                        device="cpu")
+    assert vp.plan_for(C, transpose=True) is None
+    assert vp.plan_for(C) is not None
+
+
+def test_value_pull_checks_its_inputs():
+    ptr = np.array([0, 2, 3], np.int64)
+    cols = np.array([0, 40, 7])
+    vals = np.ones(3, np.float32)
+    plan = _value_plan(ptr, cols, vals, 2, 41)
+    with pytest.raises(ValueError):          # x of the wrong length
+        vp.spmv_value_pull(plan, torch.zeros(40))
+    with pytest.raises(TypeError):           # x not float32
+        vp.spmv_value_pull(plan, torch.zeros(41, dtype=torch.float64))
+    with pytest.raises(ValueError):          # x not contiguous
+        vp.spmv_value_pull(plan, torch.zeros(82)[::2])
+    with pytest.raises(ValueError):   # a device with no kernel and no plain
+        meta = vp.ValuePlan(2, 41, plan.ptr.to("meta"), plan.ind.to("meta"),
+                            plan.val.to("meta"))
+        vp.spmv_value_pull(meta, torch.zeros(41, device="meta"))
+    with pytest.raises(ValueError):          # column id beyond n_in
+        _value_plan(ptr, cols, vals, 2, 40)
+    with pytest.raises(ValueError):          # too few values
+        _value_plan(ptr, cols, vals[:2], 2, 41)
+    with pytest.raises(ValueError):          # ptr decreasing
+        _value_plan(np.array([0, 3, 2]), cols, vals, 2, 41)
+    with pytest.raises(TypeError):           # int64 index arrays
+        vp.build_plan(torch.from_numpy(ptr), torch.from_numpy(cols), None,
+                      2, 41)
+    launches = vp.spmv_value_pull.launches
+    vp.spmv_value_pull(plan, torch.zeros(41))
+    assert vp.spmv_value_pull.launches == launches   # plain runs count 0
+    empty = _value_plan(np.zeros(1, np.int64), np.zeros(0), None, 0, 41)
+    assert vp.spmv_value_pull(empty, torch.zeros(41)).shape == (0,)
+
+
+def test_library_name_hashes_its_own_source(tmp_path, monkeypatch):
+    """Editing or adding one CUDA source renames only its own library, so
+    the others are not rebuilt."""
+    from graphblast_tpu_torch.ops.kernels import _build
+
+    for src in _build.SOURCES.values():
+        (tmp_path / src).write_text(
+            open(os.path.join(_build.CSRC_DIR, src)).read())
+    monkeypatch.setattr(_build, "CSRC_DIR", str(tmp_path))
+    before = {n: _build.library_path(n) for n in _build.SOURCES}
+    (tmp_path / "value_pull.cu").write_text("// edited\n")
+    (tmp_path / "other.cu").write_text("// a new source\n")
+    monkeypatch.setitem(_build.SOURCES, "other", "other.cu")
+    assert _build.library_path("bitmap_pull") == before["bitmap_pull"]
+    assert _build.library_path("value_pull") != before["value_pull"]
+    assert len({_build.library_path(n) for n in _build.SOURCES}) == 3
+
+
 PORT_MODULES = [
     "graphblast_tpu_torch",
     "graphblast_tpu_torch.types",
     "graphblast_tpu_torch.semiring",
     "graphblast_tpu_torch.config",
     "graphblast_tpu_torch.descriptor",
+    "graphblast_tpu_torch.dimension",
     "graphblast_tpu_torch.io.mmio",
     "graphblast_tpu_torch.io.cache",
     "graphblast_tpu_torch.io.rmat",
     "graphblast_tpu_torch.matrix",
     "graphblast_tpu_torch.vector",
+    "graphblast_tpu_torch.operations",
     "graphblast_tpu_torch.ops.spmv",
     "graphblast_tpu_torch.ops.dispatch",
     "graphblast_tpu_torch.ops.kernels._build",
     "graphblast_tpu_torch.ops.kernels.bitmap_pull",
+    "graphblast_tpu_torch.ops.kernels.value_pull",
     "graphblast_tpu_torch.algorithms",
     "graphblast_tpu_torch.algorithms.bfs",
+    "graphblast_tpu_torch.algorithms.pr",
     "graphblast_tpu_torch.algorithms.common",
     "graphblast_tpu_torch.algorithms.reference",
     "chip_smoke",
@@ -183,6 +365,8 @@ A = grid_matrix(6, device="cpu")
 desc = gt.BFS_TUNED.replace(mxv_mode=gt.Direction.PULLONLY)
 v = gt.algorithms.bfs(A, 0, desc).to_numpy()
 assert np.array_equal(v, gt.algorithms.bfs_cpu(A, 0)), v
+p = gt.algorithms.pr(A, eps=1e-9).to_numpy()
+assert np.allclose(p, gt.algorithms.pr_cpu(A, eps=1e-12), rtol=1e-3), p
 assert not any(m == "jax" or m.startswith(("jax.", "graphblast_tpu."))
                for m in sys.modules if sys.modules[m] is not None)
 print("ok")
@@ -190,8 +374,8 @@ print("ok")
 
 
 def test_port_never_imports_jax():
-    """Every port module, chip_smoke.py and a BFS run, with jax and
-    graphblast_tpu blocked in a fresh interpreter."""
+    """Every port module, chip_smoke.py, a BFS and a PageRank run, with jax
+    and graphblast_tpu blocked in a fresh interpreter."""
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c",
                           _BLOCKED.format(mods=PORT_MODULES)],
