@@ -28,10 +28,28 @@ Phases, each of which fails the run on error (each prints its seconds):
      error <= 1e-3 on the 100 top-ranked vertices, and one value-pull launch
      per iteration. Prints the iterations, ms per pr() call, the plan build
      and the loop, ms per iteration, pr_iters_per_s and the kernel's share;
-  6. value pull in K3's regime: a seeded uniform random CSR built on the
+  6. K4, the monoid pull, at RMAT scale 18 for its four semirings:
+     MinimumPlus over the CSC with seeded weights in [0.5, 2) and x 40%
+     FLT_MAX, the rest uniform in [0, 5) (SSSP's call site);
+     MinimumSelectSecond over the unit-valued CSR with x the float32 ids
+     (CC's); MinimumMultiplies and MaximumMultiplies over the weighted CSC
+     with a uniform x. Each must be torch.equal to its plain version
+     (tolerance 0) and to a second launch, finite, of shape (n_out,). Times
+     the kernel and the plain version with CUDA events, computes the bound,
+     and times the longest row alone;
+  7. SSSP main path: graphblast_tpu_torch.algorithms.sssp pull-only from
+     the 8 highest-degree sources; distances must equal the port's NumPy
+     golden exactly and K4 must have launched once per iteration, no other
+     kernel at all. Prints ms/run (median and tail over 80 synchronized
+     runs), the iterations, GTEPS over reached edges and K4's share;
+  8. CC main path: graphblast_tpu_torch.algorithms.cc; labels must equal
+     the port's golden and pass verify_cc, with one K4 launch per
+     iteration. Prints ms/run (median and tail over 40 runs), the
+     iterations, the component count, cc_gteps and K4's share;
+  9. value pull in K3's regime: a seeded uniform random CSR built on the
      card, 2^24 rows and columns, 8 edges a row, so that x (64 MB) exceeds
      the 50 MB L2; the same checks and timings as phase 4;
-  7. prints {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
+  10. prints {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
 
 Exits non-zero, printing no result, when CUDA is unavailable or the package
 is missing.
@@ -63,9 +81,11 @@ def _event_ms(fn, reps: int) -> float:
 
 def _wrappers():
     from graphblast_tpu_torch.ops.kernels.bitmap_pull import spmv_bitmap_pull
+    from graphblast_tpu_torch.ops.kernels.monoid_pull import spmv_monoid
     from graphblast_tpu_torch.ops.kernels.value_pull import spmv_value_pull
 
-    return {"bitmap_pull": spmv_bitmap_pull, "value_pull": spmv_value_pull}
+    return {"bitmap_pull": spmv_bitmap_pull, "value_pull": spmv_value_pull,
+            "monoid_pull": spmv_monoid}
 
 
 def _reset_counts():
@@ -101,6 +121,30 @@ def phase_device_and_build():
                 print(f"[build] {name}: {line.strip()}")
     print(f"[build] {sorted(reports) or 'all current'} in "
           f"{time.perf_counter() - t0:.2f} s")
+
+
+def _timed_runs(fn, n: int):
+    """(median s, q, q-th percentile s) of n synchronized calls of fn."""
+    import torch
+
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return _median_and_tail(times)
+
+
+def _only_kernel(name: str) -> int:
+    """The launch count of kernel `name` since _reset_counts(); raises if
+    another kernel launched."""
+    counts = _read_counts()
+    launches = counts.pop(name)
+    if any(counts.values()):
+        raise AssertionError(f"the {name} path launched other kernels: "
+                             f"{counts}")
+    return launches
 
 
 def phase_kernel_vs_plain(A, golden_hub, hub):
@@ -157,7 +201,6 @@ def phase_kernel_vs_plain(A, golden_hub, hub):
 
 def phase_main_path(A, sources, goldens, reps: int = 10):
     import numpy as np
-    import torch
 
     import graphblast_tpu_torch as gt
 
@@ -165,10 +208,7 @@ def phase_main_path(A, sources, goldens, reps: int = 10):
     bfs = gt.algorithms.bfs
     _reset_counts()
     levels = [bfs(A, int(s), desc).to_numpy() for s in sources]
-    counts = _read_counts()
-    launches = counts.pop("bitmap_pull")
-    if any(counts.values()):
-        raise AssertionError(f"BFS launched other kernels: {counts}")
+    launches = _only_kernel("bitmap_pull")
     iters = [int(v.max()) for v in levels]   # one K1 launch per iteration
     for s, v, want in zip(sources, levels, goldens):
         if v.shape != (A.nrows,) or not np.isfinite(v).all():
@@ -182,22 +222,14 @@ def phase_main_path(A, sources, goldens, reps: int = 10):
     print(f"[bfs] {len(sources)} sources: levels == NumPy golden; "
           f"iterations {iters}; K1 launches {launches}")
 
-    times = []
-    for _ in range(reps):
-        for s in sources:
-            t0 = time.perf_counter()
-            bfs(A, int(s), desc)
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-    per_s = float(np.median(times))
-    # the highest percentile with at least ten samples beyond it
-    q = 100.0 * (1 - 10 / len(times))
-    tail_s = float(np.percentile(times, q))
+    srcs = iter([int(s) for s in sources] * reps)
+    per_s, q, tail_s = _timed_runs(lambda: bfs(A, next(srcs), desc),
+                                   len(sources) * reps)
     deg = np.diff(A.host_csr()[0])
     reached_edges = int(deg[levels[0] != 0].sum())
     reached = int((levels[0] != 0).sum())
     print(f"[bfs] pull-only rmat18: {per_s * 1e3:.6f} ms/run median, "
-          f"p{q:g} {tail_s * 1e3:.6f} ms, {len(times)} runs "
+          f"p{q:g} {tail_s * 1e3:.6f} ms, {len(sources) * reps} runs "
           f"({len(sources)} sources x {reps}); reached {reached} vertices, "
           f"{reached_edges} edges; {reached_edges / per_s / 1e9:.6f} GTEPS "
           f"at the median; {iters[0]} iterations")
@@ -264,7 +296,6 @@ def phase_pagerank(A, reps: int = 40):
     """PageRank through the entry point, against the port's golden at its
     fixed point; then the call, its host plan build and its loop, timed."""
     import numpy as np
-    import torch
 
     import graphblast_tpu_torch as gt
     from graphblast_tpu_torch.algorithms.pr import _pr_fused, prepare_pr_plan
@@ -276,10 +307,7 @@ def phase_pagerank(A, reps: int = 40):
 
     _reset_counts()
     p = gt.algorithms.pr(A, alpha=PR_ALPHA, eps=PR_EPS).to_numpy()
-    counts = _read_counts()
-    launches = counts.pop("value_pull")
-    if any(counts.values()):
-        raise AssertionError(f"PageRank launched other kernels: {counts}")
+    launches = _only_kernel("value_pull")
     if p.shape != (A.nrows,) or not np.isfinite(p).all():
         raise AssertionError("PageRank: bad rank array")
     l1 = float(np.abs(p.astype(np.float64) - gold).sum())
@@ -302,19 +330,10 @@ def phase_pagerank(A, reps: int = 40):
           f"max rel err {top_rel:.3e} (bar 1e-3), sum p {p.sum():.6f}; "
           f"value-pull launches {launches}")
 
-    def timed(fn, n):
-        times = []
-        for _ in range(n):
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-        return _median_and_tail(times)
-
-    call_s, q, call_tail = timed(
+    call_s, q, call_tail = _timed_runs(
         lambda: gt.algorithms.pr(A, alpha=PR_ALPHA, eps=PR_EPS), reps)
-    plan_s, _, _ = timed(lambda: prepare_pr_plan(A, PR_ALPHA), 10)
-    loop_s, q_loop, loop_tail = timed(
+    plan_s, _, _ = _timed_runs(lambda: prepare_pr_plan(A, PR_ALPHA), 10)
+    loop_s, q_loop, loop_tail = _timed_runs(
         lambda: _pr_fused(A, plan, alpha=PR_ALPHA, eps=PR_EPS,
                           max_niter=gt.DEFAULT.max_niter), reps)
     k_ms = _event_ms(lambda: spmv_value_pull(plan, p2), 200)
@@ -330,6 +349,169 @@ def phase_pagerank(A, reps: int = 40):
           f"{100 * k_ms * iters / (loop_s * 1e3):.2f}% of the loop, "
           f"{100 * k_ms * iters / (call_s * 1e3):.2f}% of the call; host and "
           f"other ops {it_ms - k_ms:.6f} ms/iteration")
+    return launches
+
+
+def phase_monoid_pull(A):
+    """K4 at RMAT scale 18 for each semiring of its map, against its plain
+    version (tolerance 0) and a second launch; times and bounds."""
+    import numpy as np
+    import torch
+
+    import graphblast_tpu_torch as gt
+    from graphblast_tpu_torch.ops.kernels.monoid_pull import (
+        FLT_MAX, build_plan_monoid, plan_for_monoid, spmv_monoid,
+        spmv_monoid_plain)
+
+    n = A.nrows
+    rng = np.random.default_rng(7)
+    w = torch.from_numpy(rng.uniform(0.5, 2.0, A.nvals).astype(
+        np.float32)).cuda()
+    csc = build_plan_monoid(A.col_ptr, A.csc_row_ind, w, n, n)
+    x_sssp = np.where(rng.random(n) < 0.4, np.float32(FLT_MAX),
+                      rng.uniform(0.0, 5.0, n)).astype(np.float32)
+    x_uniform = rng.uniform(0.0, 5.0, n).astype(np.float32)
+    cases = [
+        ("min_plus", gt.MinimumPlusSemiring, csc, x_sssp),
+        ("min_select_second", gt.MinimumSelectSecondSemiring,
+         plan_for_monoid(A, ones=True), np.arange(n, dtype=np.float32)),
+        ("min_mul", gt.MinimumMultipliesSemiring, csc, x_uniform),
+        ("max_mul", gt.MaximumMultipliesSemiring, csc, x_uniform),
+    ]
+    rows = {}
+    for name, sr, plan, x_np in cases:
+        x = torch.from_numpy(x_np).cuda()
+        nnz = int(plan.ptr[-1])
+        y = spmv_monoid(plan, x, sr)
+        y_again = spmv_monoid(plan, x, sr)
+        y_plain = spmv_monoid_plain(plan, x, sr)
+        torch.cuda.synchronize()
+        if y.shape != (plan.n_out,) or not bool(torch.isfinite(y).all()):
+            raise AssertionError(f"K4 {name}: bad output")
+        err = float((y - y_plain).abs().max())
+        if not torch.equal(y, y_plain):
+            raise AssertionError(f"K4 {name} != plain: max diff {err}")
+        if not torch.equal(y, y_again):
+            raise AssertionError(f"K4 {name}: two launches differ")
+        # ind, val (none on the unit plan), ptr, x and y, each once
+        vals = 0 if plan.val is None else 4
+        bound_bytes = (4 + vals) * nnz + 4 * (plan.n_out + 1) \
+            + 4 * plan.n_in + 4 * plan.n_out
+        bound_ms = bound_bytes / HBM_BYTES_PER_S * 1e3
+        ms = _event_ms(lambda: spmv_monoid(plan, x, sr), 200)
+        plain_ms = _event_ms(lambda: spmv_monoid_plain(plan, x, sr), 20)
+        deg = plan.ptr[1:] - plan.ptr[:-1]
+        i = int(torch.argmax(deg))
+        b, e = int(plan.ptr[i]), int(plan.ptr[i + 1])
+        row = build_plan_monoid(
+            torch.tensor([0, e - b], dtype=plan.ptr.dtype, device=x.device),
+            plan.ind[b:e], None if plan.val is None else plan.val[b:e], 1,
+            plan.n_in)
+        row_ms = _event_ms(lambda: spmv_monoid(row, x, sr), 200)
+        identity = int((y == float(sr.identity(torch.float32))).sum())
+        print(f"[K4 {name}] n_out={plan.n_out} n_in={plan.n_in} nnz={nnz}; "
+              f"equal to plain (max diff {err}) and to a second launch; "
+              f"{identity} rows at the identity")
+        print(f"[K4 {name}] kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, "
+              f"bound {bound_bytes} B -> {bound_ms:.6f} ms at 3.35 TB/s "
+              f"({100 * bound_ms / ms:.1f}% of it); longest row ({e - b} "
+              f"edges) alone {row_ms:.6f} ms, {100 * row_ms / ms:.1f}% of "
+              "the whole call")
+        rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                          bound_ms=bound_ms, library_ms=None)
+    return rows
+
+
+def phase_sssp(A, sources, k4_ms: float, reps: int = 10):
+    """Pull-only SSSP through the entry point from the hub sources, against
+    the port's golden, one K4 launch per iteration; then timed."""
+    import numpy as np
+
+    import graphblast_tpu_torch as gt
+    from graphblast_tpu_torch.algorithms.sssp import _sssp_fused
+    from graphblast_tpu_torch.ops.kernels.monoid_pull import (
+        FLT_MAX, plan_for_monoid)
+
+    desc = gt.DEFAULT.replace(mxv_mode=gt.Direction.PULLONLY)
+    t0 = time.perf_counter()
+    goldens = [gt.algorithms.sssp_cpu(A, int(s)) for s in sources]
+    print(f"[sssp] NumPy goldens in {time.perf_counter() - t0:.2f} s")
+    _reset_counts()
+    dists = [gt.algorithms.sssp(A, int(s), desc).to_numpy() for s in sources]
+    launches = _only_kernel("monoid_pull")
+    plan = plan_for_monoid(A, transpose=True)
+    iters = [_sssp_fused(A, int(s), plan, switchpoint=desc.switchpoint,
+                         mode=desc.mxv_mode, max_niter=desc.max_niter)[1]
+             for s in sources]
+    for s, d, want in zip(sources, dists, goldens):
+        if d.shape != (A.nrows,) or not np.isfinite(d).all():
+            raise AssertionError(f"SSSP from {s}: bad distance array")
+        bad = int((d != want).sum())
+        if bad:
+            raise AssertionError(f"SSSP from {s}: {bad} distances != golden")
+    if launches != sum(iters) or launches == 0:
+        raise AssertionError(f"K4 launched {launches} times in {sum(iters)} "
+                             "SSSP iterations")
+    print(f"[sssp] {len(sources)} sources: distances == NumPy golden; "
+          f"iterations {iters}; K4 launches {launches}")
+    srcs = iter([int(s) for s in sources] * reps)
+    per_s, q, tail_s = _timed_runs(
+        lambda: gt.algorithms.sssp(A, next(srcs), desc),
+        len(sources) * reps)
+    deg = np.diff(A.host_csr()[0])
+    reached = dists[0] < FLT_MAX
+    reached_edges = int(deg[reached].sum())
+    k4 = iters[0] * k4_ms
+    print(f"[sssp] pull-only rmat18: {per_s * 1e3:.6f} ms/run median, "
+          f"p{q:g} {tail_s * 1e3:.6f} ms, {len(sources) * reps} runs "
+          f"({len(sources)} sources x {reps}); reached {int(reached.sum())} "
+          f"vertices, {reached_edges} edges; "
+          f"{reached_edges / per_s / 1e9:.6f} GTEPS at the median; "
+          f"{iters[0]} iterations")
+    print(f"[sssp] K4 time per run ({iters[0]} launches x {k4_ms:.6f} ms, "
+          f"min_plus above) = {k4:.6f} ms, {100 * k4 / (per_s * 1e3):.2f}% "
+          "of the median run")
+    return launches
+
+
+def phase_cc(A, k4_ms: float, reps: int = 40):
+    """FastSV CC through the entry point against the port's golden and
+    verify_cc, one K4 launch per iteration; then timed."""
+    import numpy as np
+
+    import graphblast_tpu_torch as gt
+    from graphblast_tpu_torch.algorithms.cc import _cc_fused
+    from graphblast_tpu_torch.ops.kernels.monoid_pull import plan_for_monoid
+
+    t0 = time.perf_counter()
+    golden = gt.algorithms.cc_cpu(A)
+    print(f"[cc] NumPy golden in {time.perf_counter() - t0:.2f} s")
+    _reset_counts()
+    labels = gt.algorithms.cc(A).to_numpy()
+    launches = _only_kernel("monoid_pull")
+    _, iters = _cc_fused(A, plan_for_monoid(A, ones=True),
+                         max_niter=gt.DEFAULT.max_niter)
+    if labels.shape != (A.nrows,):
+        raise AssertionError("CC: bad label array")
+    bad = int((labels != golden).sum())
+    if bad or not gt.algorithms.verify_cc(A, labels):
+        raise AssertionError(f"CC: {bad} labels != golden, or verify_cc "
+                             "fails")
+    if launches != iters or launches == 0:
+        raise AssertionError(f"K4 launched {launches} times in {iters} CC "
+                             "iterations")
+    comps = len(np.unique(labels))
+    print(f"[cc] rmat18: labels == NumPy golden, verify_cc holds; {comps} "
+          f"components; {iters} iterations; K4 launches {launches}")
+    per_s, q, tail_s = _timed_runs(lambda: gt.algorithms.cc(A), reps)
+    k4 = iters * k4_ms
+    print(f"[cc] {per_s * 1e3:.6f} ms/run median, p{q:g} "
+          f"{tail_s * 1e3:.6f} ms, {reps} runs; cc_gteps "
+          f"{A.nvals * iters / per_s / 1e9:.6f} (nvals x iterations / "
+          f"median)")
+    print(f"[cc] K4 time per run ({iters} launches x {k4_ms:.6f} ms, "
+          f"min_select_second above) = {k4:.6f} ms, "
+          f"{100 * k4 / (per_s * 1e3):.2f}% of the median run")
     return launches
 
 
@@ -402,6 +584,15 @@ def main() -> int:
     pr_launches = phase_pagerank(A)
     print(f"[phase] PageRank {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
+    k4 = phase_monoid_pull(A)
+    print(f"[phase] K4 vs plain at rmat18 {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    sssp_launches = phase_sssp(A, sources, k4["min_plus"]["ms"])
+    print(f"[phase] SSSP {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    cc_launches = phase_cc(A, k4["min_select_second"]["ms"])
+    print(f"[phase] CC {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
     del A
     plan, x = _random_csr(1 << 24, 8, seed=42)
     k3 = phase_value_pull("K3 regime 2^24", plan, x, plain_reps=5)
@@ -432,6 +623,14 @@ def main() -> int:
             "source": "graphblast_tpu_torch/csrc/value_pull.cu",
             "replaces": replaces, "launches": pr_launches,
             "bound_by": "bytes", **row})
+    # one kernel, two call sites of the main paths: SSSP's and CC's
+    for name, launches in (("min_plus", sssp_launches),
+                           ("min_select_second", cc_launches)):
+        kernels.append({
+            "name": f"monoid_pull_{name}", "route": "cuda",
+            "source": "graphblast_tpu_torch/csrc/monoid_pull.cu",
+            "replaces": "graphblast_tpu/ops/pallas/monopull.py:172",
+            "launches": launches, "bound_by": "bytes", **k4[name]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

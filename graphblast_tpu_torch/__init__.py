@@ -14,7 +14,9 @@ Ported so far: the core types, the semiring catalog, the descriptor,
 ingest (mmio, cache, rmat), Matrix and Vector, the pull-only mxv_dual and
 BFS over the bitmap-pull kernel K1 (slice 1); PageRank over the value-pull
 kernel that replaces K2 and K3, with the three operations of its matrix
-prep and the dimension checks (slice 2).
+prep and the dimension checks (slice 2); pull-only SSSP and FastSV CC over
+the min/max monoid-pull kernel K4, with the postprocess epilogue of
+mxv_dual (slice 3).
 """
 
 from .types import Direction, INDEX_DTYPE, LoadBalanceMode, SparseFormat, Storage
@@ -25,6 +27,10 @@ from .semiring import (
     ALL_SEMIRINGS,
     BinaryOp,
     LogicalOrAndSemiring,
+    MaximumMultipliesSemiring,
+    MinimumMultipliesSemiring,
+    MinimumPlusSemiring,
+    MinimumSelectSecondSemiring,
     Monoid,
     PlusDividesSemiring,
     PlusMonoid,
@@ -41,6 +47,7 @@ from .operations import (
     scale_matrix_rows,
 )
 from . import algorithms
-from .algorithms import pr, pr_cpu, prepare_pr_matrix
+from .algorithms import (cc, cc_cpu, pr, pr_cpu, prepare_pr_matrix, sssp,
+                         sssp_cpu, verify_cc)
 
 __version__ = "0.1.0"

@@ -1,6 +1,8 @@
-"""Algorithm library. Ported so far: BFS (pull-only), PageRank and their
-NumPy goldens."""
+"""Algorithm library. Ported so far: BFS (pull-only), PageRank, SSSP
+(pull-only) and CC (FastSV), with their NumPy goldens."""
 
 from .bfs import bfs, bfs_cpu
+from .cc import cc, cc_cpu, verify_cc
 from .pr import pr, pr_cpu, prepare_pr_matrix
+from .sssp import sssp, sssp_cpu
 from . import reference

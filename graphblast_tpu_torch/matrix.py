@@ -217,6 +217,15 @@ class Matrix:
         return Matrix.from_coo(rows, cols, vals, nrows, ncols, dtype=dtype,
                                device=device, **kw)
 
+    def pull_csr(self, transpose: bool = False) -> tuple:
+        """(n_out, n_in, ptr, ind, val) of one pull orientation: the CSR for
+        the mxv pull (y = A·x), the CSC for the vxm pull (transpose=True,
+        y = Aᵀ·x). ptr is None when A lacks that orientation."""
+        if transpose:
+            return (self.ncols, self.nrows, self.col_ptr, self.csc_row_ind,
+                    self.csc_val)
+        return self.nrows, self.ncols, self.row_ptr, self.col_ind, self.val
+
     # -- host-side extraction -------------------------------------------------
     def host_csr(self):
         """(row_ptr int64, col_ind int32, val) of the stored entries, on the

@@ -3,18 +3,19 @@ graphblast_tpu/ops/dispatch.py; reference: backend/cuda/operations.hpp:82-327
 and the direction heuristic, backend/cuda/vector.hpp:292-323).
 
 Ported so far: the DualFrontier carry, the direction heuristic, and the
-PULLONLY branches of `mxv_dual` over a plan (dispatch.py:261-283 of the JAX
+PULLONLY branches of `mxv_dual` over a plan (dispatch.py:255-283 of the JAX
 package): the structure-only LogicalOrAnd pull over a bitmap plan (K1, BFS)
-or a unit-valued value plan, and the PlusMultiplies pull over a value plan
-(K2/K3). Push, and therefore PUSHONLY and PUSHPULL, is ROADMAP queue 1
-item 8; the min/max semirings over a plan wait for K4, and the plan-less
-pull (`spmv_pull`) for K5 and K6. They raise NotImplementedError here
+or a unit-valued value plan, the PlusMultiplies pull over a value plan
+(K2/K3), and the min/max semirings of the monoid pull over a monoid plan
+(K4, SSSP), with the `postprocess` epilogue. Push, and therefore PUSHONLY
+and PUSHPULL, is ROADMAP queue 1 item 8, and the plan-less pull
+(`spmv_pull`) waits for K5 and K6. They raise NotImplementedError here
 rather than run another path.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
@@ -23,6 +24,7 @@ from ..semiring import Semiring
 from ..types import INDEX_DTYPE, Direction
 from ..vector import dense_from_sparse, sparse_from_dense
 from .kernels.bitmap_pull import BitmapPlan, pack_bitmap, spmv_bitmap_pull
+from .kernels.monoid_pull import MonoidPlan, monoid_supported, spmv_monoid
 from .kernels.value_pull import ValuePlan, spmv_value_pull
 from .spmv import mask_pass
 
@@ -88,17 +90,21 @@ def mxv_dual(A: Matrix, f: DualFrontier, semiring: Semiring, identity, *,
              transpose: bool = False,
              mask_dense: Optional[torch.Tensor] = None,
              mask_scmp: bool = False, structure_only: bool = False,
-             switchpoint: float = 0.01, mode=None, pull_plan=None):
+             switchpoint: float = 0.01, mode=None, pull_plan=None,
+             postprocess: Optional[Callable] = None):
     """One y = A ⊗ f (or fᵀ ⊗ A when transpose), returning a new
     DualFrontier and whether push ran (reference: operations.hpp:108-199
     vxm + convert()).
 
     Only the pull branch exists: `mode` must resolve to PULLONLY and
     `pull_plan` must be a plan of the pull orientation (CSC for vxm, CSR for
-    mxv): a BitmapPlan for the structure-only LogicalOrAnd pull, or a
-    ValuePlan for that pull (unit values only) or the PlusMultiplies pull.
-    The JAX signature's push workspace arguments (edge_cap, sort_push,
-    tier_divisors, lazy) and `postprocess` come with push."""
+    mxv): a BitmapPlan for the structure-only LogicalOrAnd pull, a ValuePlan
+    for that pull (unit values only) or the PlusMultiplies pull, or a
+    MonoidPlan for a min/max semiring of SEMIRING_MAP over a float32
+    frontier. `postprocess(y)` runs after the mask and before the count of
+    non-identity entries, as in the JAX PULLONLY branch. The JAX signature's
+    push workspace arguments (edge_cap, sort_push, tier_divisors, lazy,
+    postprocess_sparse) come with push."""
     mode = mode if mode is not None else Direction.PUSHPULL
     n_out = A.ncols if transpose else A.nrows
     pull_ptr = A.col_ptr if transpose else A.row_ptr
@@ -110,12 +116,24 @@ def mxv_dual(A: Matrix, f: DualFrontier, semiring: Semiring, identity, *,
     if mode != Direction.PULLONLY:
         raise NotImplementedError(PUSH_TODO)
     or_pull = structure_only and semiring.name == "LogicalOrAnd"
-    if isinstance(pull_plan, ValuePlan):
+    if isinstance(pull_plan, MonoidPlan):
+        missing = [why for why, bad in (
+            ("a pull that reads values (structure_only is set)",
+             structure_only),
+            (f"a semiring of SEMIRING_MAP ({semiring.name} is not)",
+             not monoid_supported(semiring)),
+            (f"a float32 frontier ({f.dense.dtype} given)",
+             f.dense.dtype != torch.float32)) if bad]
+        if missing:
+            raise NotImplementedError("the monoid pull needs "
+                                      + " and ".join(missing))
+    elif isinstance(pull_plan, ValuePlan):
         if not (or_pull or (not structure_only
                             and semiring.name == "PlusMultiplies")):
             raise NotImplementedError(
                 f"the {semiring.name} pull over a value plan is not ported: "
-                "the min/max semirings wait for kernel K4 (ROADMAP queue 2)")
+                "the min/max semirings run over a MonoidPlan "
+                "(plan_for_monoid, K4 of ROADMAP queue 2)")
         if or_pull and not pull_plan.unit_vals:
             # count>0 is the fused-or result only when every edge value is
             # 1: cancelling weights could sum to 0 for a reached vertex
@@ -123,23 +141,28 @@ def mxv_dual(A: Matrix, f: DualFrontier, semiring: Semiring, identity, *,
                              "unit-valued (ones=True) value plan")
     elif not (or_pull and isinstance(pull_plan, BitmapPlan)):
         raise NotImplementedError(
-            "only the pulls over a bitmap or value plan are ported; the "
-            "plan-less spmv_pull waits for kernels K5 and K6 (ROADMAP queue "
-            "2)")
+            "only the pulls over a bitmap, value or monoid plan are ported; "
+            "the plan-less spmv_pull waits for kernels K5 and K6 (ROADMAP "
+            "queue 2)")
     if pull_plan.n_out != n_out:
         raise ValueError(f"plan has {pull_plan.n_out} output rows, the "
                          f"{'vxm' if transpose else 'mxv'} pull needs {n_out}")
 
-    if isinstance(pull_plan, BitmapPlan):
-        # the bitmap plan ignores edge values
-        cnt = spmv_bitmap_pull(pull_plan, pack_bitmap(f.dense))
-    else:   # the kernel computes in float32, as the JAX kernel does
-        cnt = spmv_value_pull(pull_plan, f.dense.to(torch.float32))
-    # count>0 is the fused-or result
-    y = (cnt > 0 if or_pull else cnt).to(f.dense.dtype)
+    if isinstance(pull_plan, MonoidPlan):
+        y = spmv_monoid(pull_plan, f.dense, semiring)
+    else:
+        if isinstance(pull_plan, BitmapPlan):
+            # the bitmap plan ignores edge values
+            cnt = spmv_bitmap_pull(pull_plan, pack_bitmap(f.dense))
+        else:   # the kernel computes in float32, as the JAX kernel does
+            cnt = spmv_value_pull(pull_plan, f.dense.to(torch.float32))
+        # count>0 is the fused-or result
+        y = (cnt > 0 if or_pull else cnt).to(f.dense.dtype)
     if mask_dense is not None:
         y = y.masked_fill(~mask_pass(mask_dense, mask_scmp),
                           semiring.identity(y.dtype).item())
+    if postprocess is not None:
+        y = postprocess(y)
     # pull-only loops skip re-sparsifying: only push reads sind/sval
     nv = (y != identity).sum().to(INDEX_DTYPE)
     use_sparse, ratio = update_direction(nv, n_out, f.ratio, f.use_sparse,

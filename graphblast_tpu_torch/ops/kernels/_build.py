@@ -25,7 +25,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # library name -> its source in csrc/
-SOURCES = {"bitmap_pull": "bitmap_pull.cu", "value_pull": "value_pull.cu"}
+SOURCES = {"bitmap_pull": "bitmap_pull.cu", "value_pull": "value_pull.cu",
+           "monoid_pull": "monoid_pull.cu"}
 
 _loaded: dict = {}
 

@@ -25,8 +25,9 @@ import dataclasses
 
 import torch
 
-from ...types import INDEX_DTYPE, round_up
+from ...types import round_up
 from . import _build
+from .value_pull import check_csr
 
 _SIGNATURES = {
     "gb_bitmap_pull": ([ctypes.c_void_p] * 4 + [ctypes.c_int,
@@ -62,28 +63,17 @@ class BitmapPlan:
 
 def build_plan_bitmap(ptr: torch.Tensor, ind: torch.Tensor, n_out: int,
                       n_in: int) -> BitmapPlan:
-    """Check a CSR and wrap it as a plan (the kernel trusts these bounds)."""
-    if ptr.dtype != INDEX_DTYPE or ind.dtype != INDEX_DTYPE:
-        raise TypeError("bitmap plan arrays must be int32")
-    if ptr.device != ind.device or ptr.dim() != 1 or ind.dim() != 1:
-        raise ValueError("ptr and ind must be 1-D tensors on one device")
-    if ptr.shape[0] != n_out + 1:
-        raise ValueError(f"ptr has {ptr.shape[0]} entries, want {n_out + 1}")
-    m = int(ptr[-1])
-    if m > ind.shape[0] or int(ptr[0]) != 0:
-        raise ValueError("ptr does not index into ind")
-    if m and not 0 <= int(ind[:m].min()) <= int(ind[:m].max()) < n_in:
-        raise ValueError(f"column ids outside [0, {n_in})")
-    return BitmapPlan(n_out, n_in, ptr.contiguous(), ind.contiguous())
+    """Check a CSR (value_pull.check_csr; the kernel trusts these bounds)
+    and wrap it as a plan."""
+    ptr, ind, _ = check_csr(ptr, ind, None, n_out, n_in)
+    return BitmapPlan(n_out, n_in, ptr, ind)
 
 
 def plan_for_bitmap(A, transpose: bool = False):
     """Cached BitmapPlan for struconly pulls of Matrix `A`: the CSR for the
     mxv pull, the CSC for the vxm pull (transpose=True). None when A lacks
     that orientation."""
-    n_out, n_in = (A.ncols, A.nrows) if transpose else (A.nrows, A.ncols)
-    ptr, ind = ((A.col_ptr, A.csc_row_ind) if transpose
-                else (A.row_ptr, A.col_ind))
+    n_out, n_in, ptr, ind, _ = A.pull_csr(transpose)
     if ptr is None:
         return None
     key = ("csc" if transpose else "csr") + "/bitmap"

@@ -57,13 +57,14 @@ class ValuePlan:
         return self.val is None
 
 
-def build_plan(ptr: torch.Tensor, ind: torch.Tensor,
-               val: Optional[torch.Tensor], n_out: int,
-               n_in: int) -> ValuePlan:
-    """Check a CSR and wrap it as a plan (the kernel trusts these bounds).
-    `val=None` means all ones; other values are kept as float32."""
+def check_csr(ptr: torch.Tensor, ind: torch.Tensor,
+              val: Optional[torch.Tensor], n_out: int, n_in: int) -> tuple:
+    """Check a pull-orientation CSR, which the value and monoid kernels
+    trust: int32 ptr (n_out+1,) non-decreasing from 0, ind with at least
+    ptr[n_out] entries, all < n_in, and val (None: all ones) of the same
+    reach. Returns (ptr, ind, val) contiguous, val as float32."""
     if ptr.dtype != INDEX_DTYPE or ind.dtype != INDEX_DTYPE:
-        raise TypeError("value plan index arrays must be int32")
+        raise TypeError("plan index arrays must be int32")
     if ptr.device != ind.device or ptr.dim() != 1 or ind.dim() != 1:
         raise ValueError("ptr and ind must be 1-D tensors on one device")
     if ptr.shape[0] != n_out + 1:
@@ -80,7 +81,15 @@ def build_plan(ptr: torch.Tensor, ind: torch.Tensor,
             raise ValueError(f"val must be 1-D on {ptr.device} with at "
                              f"least {m} entries")
         val = val.to(torch.float32).contiguous()
-    return ValuePlan(n_out, n_in, ptr.contiguous(), ind.contiguous(), val)
+    return ptr.contiguous(), ind.contiguous(), val
+
+
+def build_plan(ptr: torch.Tensor, ind: torch.Tensor,
+               val: Optional[torch.Tensor], n_out: int,
+               n_in: int) -> ValuePlan:
+    """Check a CSR and wrap it as a plan (the kernel trusts these bounds).
+    `val=None` means all ones; other values are kept as float32."""
+    return ValuePlan(n_out, n_in, *check_csr(ptr, ind, val, n_out, n_in))
 
 
 def plan_for(A, transpose: bool = False,
@@ -92,9 +101,7 @@ def plan_for(A, transpose: bool = False,
     orientation. `host_val` (NumPy, in the orientation's edge order)
     replaces the stored values, as PageRank's α/outdegree scaling does, and
     such a plan is never cached. `ones=True` gives a unit-valued plan."""
-    n_out, n_in = (A.ncols, A.nrows) if transpose else (A.nrows, A.ncols)
-    ptr, ind, val = ((A.col_ptr, A.csc_row_ind, A.csc_val) if transpose
-                     else (A.row_ptr, A.col_ind, A.val))
+    n_out, n_in, ptr, ind, val = A.pull_csr(transpose)
     if ptr is None:
         return None
     key = ("csc" if transpose else "csr") + ("/ones" if ones else "")
@@ -125,7 +132,9 @@ def spmv_value_pull_plain(plan: ValuePlan, x: torch.Tensor) -> torch.Tensor:
     return y.index_add_(0, rows, prod).to(torch.float32)
 
 
-def _check(plan: ValuePlan, x: torch.Tensor):
+def check_x(plan, x: torch.Tensor):
+    """x as a kernel over `plan` takes it: contiguous 1-D float32 of
+    length plan.n_in, on the plan's device."""
     if x.dtype != torch.float32 or x.dim() != 1:
         raise TypeError("x must be a 1-D float32 tensor")
     if x.shape[0] != plan.n_in:
@@ -141,7 +150,7 @@ def spmv_value_pull(plan: ValuePlan, x: torch.Tensor) -> torch.Tensor:
     """y = A·x over Plus-Times for the plan's orientation (float32,
     (n_out,)). CPU tensors run the plain version; CUDA tensors launch the
     kernel on the current stream, or raise."""
-    _check(plan, x)
+    check_x(plan, x)
     if x.device.type == "cpu":
         return spmv_value_pull_plain(plan, x)
     if x.device.type != "cuda":

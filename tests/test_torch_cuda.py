@@ -9,6 +9,7 @@ import torch
 
 import graphblast_tpu_torch as tgb
 from graphblast_tpu_torch.ops.kernels import bitmap_pull as bp
+from graphblast_tpu_torch.ops.kernels import monoid_pull as mp
 from graphblast_tpu_torch.ops.kernels import value_pull as vp
 
 pytestmark = pytest.mark.cuda
@@ -121,3 +122,79 @@ def test_pr_on_the_card_matches_golden(cuda):
     _, iters, err = _pr_fused(A, prepare_pr_plan(A), alpha=0.85, eps=1e-10,
                               max_niter=tgb.DEFAULT.max_niter)
     assert launches == iters > 0 and err <= 1e-10
+
+
+MONOID_SEMIRINGS = ["MinimumPlus", "MinimumMultiplies", "MinimumSelectSecond",
+                    "MaximumMultiplies"]
+
+
+@pytest.mark.parametrize("n_out,n_in,m,hub", [
+    (300, 300, 2500, 0), (20000, 9000, 1, 0), (1, 33, 0, 0),
+    (3000, 100000, 200000, 0), (300, 5000, 9000, 6000)])
+@pytest.mark.parametrize("name", MONOID_SEMIRINGS)
+@pytest.mark.parametrize("unit", [False, True])
+def test_monoid_pull_matches_plain_on_the_card(cuda, n_out, n_in, m, hub,
+                                               name, unit):
+    """K4 vs its plain version, tolerance 0 (min and max pick one product,
+    each product one float32 operation, on both), and bitwise equal to a
+    second launch. x has 40% FLT_MAX entries, values may be negative and
+    1e38 large so that products overflow and saturate; `hub` edges go to
+    one row; the edge arrays carry padding past ptr[n_out]."""
+    rng = np.random.default_rng(n_out + m + unit)
+    rows = np.sort(np.r_[rng.integers(0, n_out, m), np.full(hub, n_out // 2)])
+    cols = rng.integers(0, n_in, len(rows))
+    ptr = np.zeros(n_out + 1, np.int64)
+    np.add.at(ptr, rows + 1, 1)
+    ptr = np.cumsum(ptr)
+    pad = np.zeros(128, np.int64)
+    vals = rng.uniform(-2.0, 2.0, len(rows) + 128).astype(np.float32)
+    vals[::97] = 1e38
+    val = None if unit else torch.from_numpy(vals).to(cuda)
+    plan = mp.build_plan_monoid(
+        torch.from_numpy(ptr.astype(np.int32)).to(cuda),
+        torch.from_numpy(np.r_[cols, pad].astype(np.int32)).to(cuda), val,
+        n_out, n_in)
+    maxf = np.float32(np.finfo(np.float32).max)
+    x = np.where(rng.random(n_in) < 0.4, maxf,
+                 rng.uniform(-5.0, 5.0, n_in)).astype(np.float32)
+    x = torch.from_numpy(x).to(cuda)
+    sr = getattr(tgb.semiring, f"{name}Semiring")
+    launches = mp.spmv_monoid.launches
+    y = mp.spmv_monoid(plan, x, sr)
+    y2 = mp.spmv_monoid(plan, x, sr)
+    torch.cuda.synchronize()
+    assert mp.spmv_monoid.launches == launches + 2
+    assert y.shape == (n_out,) and y.dtype == torch.float32
+    assert bool(torch.isfinite(y).all())
+    assert torch.equal(y, mp.spmv_monoid_plain(plan, x, sr))
+    assert torch.equal(y, y2)
+    cpu = mp.build_plan_monoid(plan.ptr.cpu(), plan.ind.cpu(),
+                               None if unit else plan.val.cpu(), n_out, n_in)
+    assert torch.equal(y.cpu(), mp.spmv_monoid(cpu, x.cpu(), sr))
+
+
+def test_sssp_and_cc_on_the_card_match_golden(cuda):
+    """SSSP from the hub and CC at RMAT scale 12 on the card equal the
+    port's goldens, with one K4 launch per iteration and no other kernel."""
+    from graphblast_tpu_torch.algorithms.cc import _cc_fused
+    from graphblast_tpu_torch.algorithms.sssp import _sssp_fused
+    from graphblast_tpu_torch.io.rmat import rmat_matrix
+
+    A = rmat_matrix(12, 16, seed=42, device=cuda)
+    s = int(np.argmax(np.diff(A.host_csr()[0])))
+    desc = tgb.DEFAULT.replace(mxv_mode=tgb.Direction.PULLONLY)
+    others = bp.spmv_bitmap_pull.launches + vp.spmv_value_pull.launches
+    launches = mp.spmv_monoid.launches
+    dist = tgb.algorithms.sssp(A, s, desc).to_numpy()
+    k_sssp = mp.spmv_monoid.launches - launches
+    labels = tgb.algorithms.cc(A).to_numpy()
+    k_cc = mp.spmv_monoid.launches - launches - k_sssp
+    assert bp.spmv_bitmap_pull.launches + vp.spmv_value_pull.launches == others
+    np.testing.assert_array_equal(dist, tgb.algorithms.sssp_cpu(A, s))
+    np.testing.assert_array_equal(labels, tgb.algorithms.cc_cpu(A))
+    assert tgb.algorithms.verify_cc(A, labels)
+    _, it = _sssp_fused(A, s, mp.plan_for_monoid(A, transpose=True),
+                        switchpoint=0.01, mode=tgb.Direction.PULLONLY,
+                        max_niter=1000)
+    _, it_cc = _cc_fused(A, mp.plan_for_monoid(A, ones=True), max_niter=1000)
+    assert k_sssp == it > 0 and k_cc == it_cc > 0

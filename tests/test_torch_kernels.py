@@ -1,11 +1,11 @@
 """The port's kernel modules against the JAX package (graphblast_tpu_torch).
 
 K1, the bitmap pull, and the value pull that replaces K2 and K3 run here as
-their plain PyTorch versions (CPU tensors); the same inputs, made with NumPy
-from a seed, go through the Pallas kernels in interpret mode and through a
-NumPy golden. Counts are integers, so those comparisons are exact; value
-sums are held to 1e-5 of max|y|, the bar of tests/test_pallas.py. The CUDA
-kernels themselves are held against the plain versions on the card by
+their plain PyTorch versions (CPU tensors; K4 is in test_torch_monoid.py);
+the same inputs, made with NumPy from a seed, go through the Pallas kernels
+in interpret mode and through a NumPy golden. Counts are integers, so those
+comparisons are exact; value sums are held to 1e-5 of max|y|, the bar of
+tests/test_pallas.py. The CUDA kernels themselves are held against the plain versions on the card by
 tests/test_torch_cuda.py and chip_smoke.py.
 """
 import os
@@ -323,7 +323,8 @@ def test_library_name_hashes_its_own_source(tmp_path, monkeypatch):
     monkeypatch.setitem(_build.SOURCES, "other", "other.cu")
     assert _build.library_path("bitmap_pull") == before["bitmap_pull"]
     assert _build.library_path("value_pull") != before["value_pull"]
-    assert len({_build.library_path(n) for n in _build.SOURCES}) == 3
+    assert len({_build.library_path(n) for n in _build.SOURCES}) == len(
+        _build.SOURCES)
 
 
 PORT_MODULES = [
@@ -344,9 +345,12 @@ PORT_MODULES = [
     "graphblast_tpu_torch.ops.kernels._build",
     "graphblast_tpu_torch.ops.kernels.bitmap_pull",
     "graphblast_tpu_torch.ops.kernels.value_pull",
+    "graphblast_tpu_torch.ops.kernels.monoid_pull",
     "graphblast_tpu_torch.algorithms",
     "graphblast_tpu_torch.algorithms.bfs",
     "graphblast_tpu_torch.algorithms.pr",
+    "graphblast_tpu_torch.algorithms.sssp",
+    "graphblast_tpu_torch.algorithms.cc",
     "graphblast_tpu_torch.algorithms.common",
     "graphblast_tpu_torch.algorithms.reference",
     "chip_smoke",
@@ -367,6 +371,10 @@ v = gt.algorithms.bfs(A, 0, desc).to_numpy()
 assert np.array_equal(v, gt.algorithms.bfs_cpu(A, 0)), v
 p = gt.algorithms.pr(A, eps=1e-9).to_numpy()
 assert np.allclose(p, gt.algorithms.pr_cpu(A, eps=1e-12), rtol=1e-3), p
+d = gt.algorithms.sssp(A, 0, gt.DEFAULT.replace(mxv_mode=gt.Direction.PULLONLY))
+assert np.array_equal(d.to_numpy(), gt.algorithms.sssp_cpu(A, 0)), d
+c = gt.algorithms.cc(A).to_numpy()
+assert np.array_equal(c, gt.algorithms.cc_cpu(A)) and gt.verify_cc(A, c), c
 assert not any(m == "jax" or m.startswith(("jax.", "graphblast_tpu."))
                for m in sys.modules if sys.modules[m] is not None)
 print("ok")
@@ -374,8 +382,8 @@ print("ok")
 
 
 def test_port_never_imports_jax():
-    """Every port module, chip_smoke.py, a BFS and a PageRank run, with jax
-    and graphblast_tpu blocked in a fresh interpreter."""
+    """Every port module, chip_smoke.py, a BFS, a PageRank, an SSSP and a CC
+    run, with jax and graphblast_tpu blocked in a fresh interpreter."""
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c",
                           _BLOCKED.format(mods=PORT_MODULES)],
