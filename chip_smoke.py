@@ -46,10 +46,39 @@ Phases, each of which fails the run on error (each prints its seconds):
      the port's golden and pass verify_cc, with one K4 launch per
      iteration. Prints ms/run (median and tail over 40 runs), the
      iterations, the component count, cc_gteps and K4's share;
-  9. value pull in K3's regime: a seeded uniform random CSR built on the
+  9. K6, the gather, at RMAT scale 18 in three cases: a float32 table of n
+     at the CSC's row ids (MIS's gather of x, m = nnz_pad), an int32 table
+     of nnz_pad at the sorted row boundaries col_ptr - 1 (m = n + 1), and
+     the packed frontier words (8,192, the small-table class) at the row
+     ids >> 5. Each must be torch.equal to its plain version and to a
+     second launch. Times the kernel, the plain version and
+     torch.index_select (a yardstick only) with CUDA events, and computes
+     the bound;
+  10. K5, the or-pull prefix count, over the CSC's row ids with the hub's
+     level-2 frontier and a seeded 20% frontier: torch.equal to its plain
+     version and to a second launch; timed, with its bound;
+  11. stepped BFS, which pulls with no plan: from the 8 hubs, levels equal
+     to the NumPy golden, one K5 and one K6 launch (at the row boundaries)
+     per iteration and no other kernel; ms/run as phase 3;
+  12. MIS through graphblast_tpu_torch.algorithms.mis: verify_mis holds,
+     K6 launches 2 times a round at the column ids and 2 at the segment
+     tails or row boundaries, and no other kernel launches; rounds, set
+     size and ms/run (median and tail over 40 calls); a round's parts timed
+     alone and a torch.profiler trace of one call (device busy time, idle
+     share, costliest kernels);
+  13. graph colouring through graphblast_tpu_torch.algorithms.gc: "is"
+     (a K6 launch at the column ids and one at the tails a round) and "jp"
+     with max_colors above the colours of "is" (2 and 2 a round), each
+     timed over 10 calls; "mis" checked once (2 and 2 a round of each
+     colour's MIS). verify_gc holds for each;
+  14. CC without a plan (the route of n >= 2^24) on the rmat18 graph:
+     labels equal to the golden and verify_cc, a K6 launch at the column
+     ids and one at the tails an iteration, and no other kernel; ms/run
+     (40 calls) beside phase 8's;
+  15. value pull in K3's regime: a seeded uniform random CSR built on the
      card, 2^24 rows and columns, 8 edges a row, so that x (64 MB) exceeds
      the 50 MB L2; the same checks and timings as phase 4;
-  10. prints {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
+  16. prints {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
 
 Exits non-zero, printing no result, when CUDA is unavailable or the package
 is missing.
@@ -79,31 +108,91 @@ def _event_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _device_profile(fn, reps: int):
+    """(device µs by kernel name, wall ms) of `reps` synchronized calls of
+    fn under torch.profiler: the kernels' own events only, not the host ops
+    that launched them; an empty table when the trace holds no device
+    time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    table = {}
+    # the kernels' own events; a host op's device time repeats theirs
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:     # older releases name it after CUDA
+            us = getattr(e, "self_cuda_time_total", 0)
+        if us > 0:
+            table[e.key] = table.get(e.key, 0.0) + us
+    busy_ms = sum(table.values()) / 1e3
+    if busy_ms > wall_ms:
+        raise AssertionError(f"torch.profiler: device busy {busy_ms} ms in "
+                             f"a wall time of {wall_ms} ms; its events "
+                             "count some device time twice")
+    return table, wall_ms
+
+
+def _device_ms(fn, reps: int, names) -> str:
+    """Device ms per call of fn spent in kernels whose names contain one of
+    `names`, from a torch.profiler trace, or "not measured"."""
+    table, _ = _device_profile(fn, reps)
+    us = sum(v for k, v in table.items() if any(n in k for n in names))
+    return f"{us / reps / 1e3:.6f} ms" if us else "not measured"
+
+
 def _wrappers():
     from graphblast_tpu_torch.ops.kernels.bitmap_pull import spmv_bitmap_pull
+    from graphblast_tpu_torch.ops.kernels.gather import gather_1d
     from graphblast_tpu_torch.ops.kernels.monoid_pull import spmv_monoid
+    from graphblast_tpu_torch.ops.kernels.orpull import orpull_bit_csum
     from graphblast_tpu_torch.ops.kernels.value_pull import spmv_value_pull
 
     return {"bitmap_pull": spmv_bitmap_pull, "value_pull": spmv_value_pull,
-            "monoid_pull": spmv_monoid}
+            "monoid_pull": spmv_monoid, "gather": gather_1d,
+            "orpull_csum": orpull_bit_csum}
 
 
 def _reset_counts():
     for fn in _wrappers().values():
         fn.launches = 0
+    _wrappers()["gather"].sorted_launches = 0
 
 
 def _read_counts() -> dict:
-    return {name: fn.launches for name, fn in _wrappers().items()}
+    """Launches by kernel since _reset_counts(), K6's by call-site class:
+    gather_x at the column ids, gather_boundary at the ascending segment
+    tails and row boundaries (`take(..., sorted=True)`)."""
+    counts = {name: fn.launches for name, fn in _wrappers().items()}
+    gather = counts.pop("gather")
+    counts["gather_boundary"] = _wrappers()["gather"].sorted_launches
+    counts["gather_x"] = gather - counts["gather_boundary"]
+    return counts
 
 
 def _median_and_tail(times):
-    """(median, q, q-th percentile) with q the highest percentile that has
-    ten samples beyond it."""
+    """(median s, the tail as text): the highest percentile q that has ten
+    samples beyond it, "p{q} {ms} ms". With 20 samples or fewer that
+    percentile is the median or below, and the text says there is no
+    tail."""
     import numpy as np
 
+    median = float(np.median(times))
+    if len(times) <= 20:
+        return median, f"no tail ({len(times)} runs)"
     q = 100.0 * (1 - 10 / len(times))
-    return float(np.median(times)), q, float(np.percentile(times, q))
+    return median, f"p{q:g} {float(np.percentile(times, q)) * 1e3:.6f} ms"
 
 
 def phase_device_and_build():
@@ -124,7 +213,7 @@ def phase_device_and_build():
 
 
 def _timed_runs(fn, n: int):
-    """(median s, q, q-th percentile s) of n synchronized calls of fn."""
+    """(median s, tail text) of n synchronized calls of fn."""
     import torch
 
     times = []
@@ -136,15 +225,15 @@ def _timed_runs(fn, n: int):
     return _median_and_tail(times)
 
 
-def _only_kernel(name: str) -> int:
-    """The launch count of kernel `name` since _reset_counts(); raises if
-    another kernel launched."""
-    counts = _read_counts()
-    launches = counts.pop(name)
-    if any(counts.values()):
-        raise AssertionError(f"the {name} path launched other kernels: "
-                             f"{counts}")
-    return launches
+def _expect_launches(path: str, expected: dict, counts=None) -> dict:
+    """`counts`, by default the launch counts since _reset_counts(); raises
+    unless each kernel named in `expected` launched exactly that often and
+    no other kernel launched."""
+    counts = _read_counts() if counts is None else counts
+    want = {name: expected.get(name, 0) for name in counts}
+    if counts != want or not any(want.values()):
+        raise AssertionError(f"{path} launched {counts}, expected {want}")
+    return counts
 
 
 def phase_kernel_vs_plain(A, golden_hub, hub):
@@ -208,28 +297,26 @@ def phase_main_path(A, sources, goldens, reps: int = 10):
     bfs = gt.algorithms.bfs
     _reset_counts()
     levels = [bfs(A, int(s), desc).to_numpy() for s in sources]
-    launches = _only_kernel("bitmap_pull")
     iters = [int(v.max()) for v in levels]   # one K1 launch per iteration
+    launches = _expect_launches("BFS", {"bitmap_pull": sum(iters)})[
+        "bitmap_pull"]
     for s, v, want in zip(sources, levels, goldens):
         if v.shape != (A.nrows,) or not np.isfinite(v).all():
             raise AssertionError(f"BFS from {s}: bad levels array")
         bad = int((v != want).sum())
         if bad:
             raise AssertionError(f"BFS from {s}: {bad} levels != golden")
-    if launches != sum(iters) or launches == 0:
-        raise AssertionError(f"K1 launched {launches} times in "
-                             f"{sum(iters)} BFS iterations")
     print(f"[bfs] {len(sources)} sources: levels == NumPy golden; "
           f"iterations {iters}; K1 launches {launches}")
 
     srcs = iter([int(s) for s in sources] * reps)
-    per_s, q, tail_s = _timed_runs(lambda: bfs(A, next(srcs), desc),
+    per_s, tail = _timed_runs(lambda: bfs(A, next(srcs), desc),
                                    len(sources) * reps)
     deg = np.diff(A.host_csr()[0])
     reached_edges = int(deg[levels[0] != 0].sum())
     reached = int((levels[0] != 0).sum())
     print(f"[bfs] pull-only rmat18: {per_s * 1e3:.6f} ms/run median, "
-          f"p{q:g} {tail_s * 1e3:.6f} ms, {len(sources) * reps} runs "
+          f"{tail}, {len(sources) * reps} runs "
           f"({len(sources)} sources x {reps}); reached {reached} vertices, "
           f"{reached_edges} edges; {reached_edges / per_s / 1e9:.6f} GTEPS "
           f"at the median; {iters[0]} iterations")
@@ -307,7 +394,7 @@ def phase_pagerank(A, reps: int = 40):
 
     _reset_counts()
     p = gt.algorithms.pr(A, alpha=PR_ALPHA, eps=PR_EPS).to_numpy()
-    launches = _only_kernel("value_pull")
+    counts = _read_counts()
     if p.shape != (A.nrows,) or not np.isfinite(p).all():
         raise AssertionError("PageRank: bad rank array")
     l1 = float(np.abs(p.astype(np.float64) - gold).sum())
@@ -322,27 +409,25 @@ def phase_pagerank(A, reps: int = 40):
                                max_niter=gt.DEFAULT.max_niter)
     if not np.array_equal(p2.cpu().numpy(), p):
         raise AssertionError("PageRank: two runs differ")
-    if launches != iters or launches == 0:
-        raise AssertionError(f"value pull launched {launches} times in "
-                             f"{iters} PageRank iterations")
+    launches = _expect_launches("PageRank", {"value_pull": iters}, counts)[
+        "value_pull"]
     print(f"[pr] rmat18 alpha {PR_ALPHA} eps {PR_EPS}: {iters} iterations, "
           f"last err {err:.3e}; sum|p - p_gold| {l1:.3e} (bar 1e-4), top-100 "
           f"max rel err {top_rel:.3e} (bar 1e-3), sum p {p.sum():.6f}; "
           f"value-pull launches {launches}")
 
-    call_s, q, call_tail = _timed_runs(
+    call_s, call_tail = _timed_runs(
         lambda: gt.algorithms.pr(A, alpha=PR_ALPHA, eps=PR_EPS), reps)
-    plan_s, _, _ = _timed_runs(lambda: prepare_pr_plan(A, PR_ALPHA), 10)
-    loop_s, q_loop, loop_tail = _timed_runs(
+    plan_s, _ = _timed_runs(lambda: prepare_pr_plan(A, PR_ALPHA), 10)
+    loop_s, loop_tail = _timed_runs(
         lambda: _pr_fused(A, plan, alpha=PR_ALPHA, eps=PR_EPS,
                           max_niter=gt.DEFAULT.max_niter), reps)
     k_ms = _event_ms(lambda: spmv_value_pull(plan, p2), 200)
     it_ms = loop_s * 1e3 / iters
-    print(f"[pr] pr() call {call_s * 1e3:.6f} ms median, p{q:g} "
-          f"{call_tail * 1e3:.6f} ms, {reps} runs; host plan build "
+    print(f"[pr] pr() call {call_s * 1e3:.6f} ms median, {call_tail}, "
+          f"{reps} runs; host plan build "
           f"(prepare_pr_plan) {plan_s * 1e3:.6f} ms median of 10; loop "
-          f"{loop_s * 1e3:.6f} ms median, p{q_loop:g} {loop_tail * 1e3:.6f} "
-          f"ms, {reps} runs")
+          f"{loop_s * 1e3:.6f} ms median, {loop_tail}, {reps} runs")
     print(f"[pr] {it_ms:.6f} ms/iteration in the loop, pr_iters_per_s "
           f"{iters / loop_s:.2f} (loop) {iters / call_s:.2f} (whole call); "
           f"kernel {k_ms:.6f} ms x {iters} = {k_ms * iters:.6f} ms, "
@@ -438,7 +523,7 @@ def phase_sssp(A, sources, k4_ms: float, reps: int = 10):
     print(f"[sssp] NumPy goldens in {time.perf_counter() - t0:.2f} s")
     _reset_counts()
     dists = [gt.algorithms.sssp(A, int(s), desc).to_numpy() for s in sources]
-    launches = _only_kernel("monoid_pull")
+    counts = _read_counts()
     plan = plan_for_monoid(A, transpose=True)
     iters = [_sssp_fused(A, int(s), plan, switchpoint=desc.switchpoint,
                          mode=desc.mxv_mode, max_niter=desc.max_niter)[1]
@@ -449,13 +534,12 @@ def phase_sssp(A, sources, k4_ms: float, reps: int = 10):
         bad = int((d != want).sum())
         if bad:
             raise AssertionError(f"SSSP from {s}: {bad} distances != golden")
-    if launches != sum(iters) or launches == 0:
-        raise AssertionError(f"K4 launched {launches} times in {sum(iters)} "
-                             "SSSP iterations")
+    launches = _expect_launches("SSSP", {"monoid_pull": sum(iters)}, counts)[
+        "monoid_pull"]
     print(f"[sssp] {len(sources)} sources: distances == NumPy golden; "
           f"iterations {iters}; K4 launches {launches}")
     srcs = iter([int(s) for s in sources] * reps)
-    per_s, q, tail_s = _timed_runs(
+    per_s, tail = _timed_runs(
         lambda: gt.algorithms.sssp(A, next(srcs), desc),
         len(sources) * reps)
     deg = np.diff(A.host_csr()[0])
@@ -463,7 +547,7 @@ def phase_sssp(A, sources, k4_ms: float, reps: int = 10):
     reached_edges = int(deg[reached].sum())
     k4 = iters[0] * k4_ms
     print(f"[sssp] pull-only rmat18: {per_s * 1e3:.6f} ms/run median, "
-          f"p{q:g} {tail_s * 1e3:.6f} ms, {len(sources) * reps} runs "
+          f"{tail}, {len(sources) * reps} runs "
           f"({len(sources)} sources x {reps}); reached {int(reached.sum())} "
           f"vertices, {reached_edges} edges; "
           f"{reached_edges / per_s / 1e9:.6f} GTEPS at the median; "
@@ -488,7 +572,7 @@ def phase_cc(A, k4_ms: float, reps: int = 40):
     print(f"[cc] NumPy golden in {time.perf_counter() - t0:.2f} s")
     _reset_counts()
     labels = gt.algorithms.cc(A).to_numpy()
-    launches = _only_kernel("monoid_pull")
+    counts = _read_counts()
     _, iters = _cc_fused(A, plan_for_monoid(A, ones=True),
                          max_niter=gt.DEFAULT.max_niter)
     if labels.shape != (A.nrows,):
@@ -497,22 +581,339 @@ def phase_cc(A, k4_ms: float, reps: int = 40):
     if bad or not gt.algorithms.verify_cc(A, labels):
         raise AssertionError(f"CC: {bad} labels != golden, or verify_cc "
                              "fails")
-    if launches != iters or launches == 0:
-        raise AssertionError(f"K4 launched {launches} times in {iters} CC "
-                             "iterations")
+    launches = _expect_launches("CC", {"monoid_pull": iters}, counts)[
+        "monoid_pull"]
     comps = len(np.unique(labels))
     print(f"[cc] rmat18: labels == NumPy golden, verify_cc holds; {comps} "
           f"components; {iters} iterations; K4 launches {launches}")
-    per_s, q, tail_s = _timed_runs(lambda: gt.algorithms.cc(A), reps)
+    per_s, tail = _timed_runs(lambda: gt.algorithms.cc(A), reps)
     k4 = iters * k4_ms
-    print(f"[cc] {per_s * 1e3:.6f} ms/run median, p{q:g} "
-          f"{tail_s * 1e3:.6f} ms, {reps} runs; cc_gteps "
+    print(f"[cc] {per_s * 1e3:.6f} ms/run median, {tail}, {reps} runs; "
+          f"cc_gteps "
           f"{A.nvals * iters / per_s / 1e9:.6f} (nvals x iterations / "
           f"median)")
     print(f"[cc] K4 time per run ({iters} launches x {k4_ms:.6f} ms, "
           f"min_select_second above) = {k4:.6f} ms, "
           f"{100 * k4 / (per_s * 1e3):.2f}% of the median run")
-    return launches
+    return launches, golden, per_s
+
+
+def phase_gather(A):
+    """K6 at RMAT scale 18 at its three call-site classes, against its plain
+    version (tolerance 0) and a second launch; times and bounds."""
+    import numpy as np
+    import torch
+
+    from graphblast_tpu_torch.ops.kernels.bitmap_pull import pack_bitmap
+    from graphblast_tpu_torch.ops.kernels.gather import (gather_1d,
+                                                         gather_1d_plain)
+
+    n = A.nrows
+    rng = np.random.default_rng(11)
+    x = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).cuda()
+    csum = torch.from_numpy(np.cumsum(rng.random(A.nnz_pad) < 0.2).astype(
+        np.int32)).cuda()
+    words = pack_bitmap(torch.from_numpy(
+        (rng.random(n) < 0.2).astype(np.float32)).cuda())
+    cases = [
+        ("x", x, A.csc_row_ind.contiguous()),
+        ("boundary", csum, (A.col_ptr - 1).clamp(min=0).contiguous()),
+        ("words", words, (A.csc_row_ind >> 5).contiguous()),
+    ]
+    rows = {}
+    for name, table, idx in cases:
+        m, nt = idx.shape[0], table.shape[0]
+        y = gather_1d(table, idx)
+        y_again = gather_1d(table, idx)
+        y_plain = gather_1d_plain(table, idx)
+        y_lib = torch.index_select(table, 0, idx)
+        torch.cuda.synchronize()
+        if y.shape != (m,) or y.dtype != table.dtype:
+            raise AssertionError(f"K6 {name}: bad output")
+        err = float((y.double() - y_plain.double()).abs().max())
+        if not torch.equal(y, y_plain):
+            raise AssertionError(f"K6 {name} != plain: max diff {err}")
+        if not (torch.equal(y, y_again) and torch.equal(y, y_lib)):
+            raise AssertionError(f"K6 {name}: differs from a second launch "
+                                 "or from torch.index_select")
+        # idx read, y written, and the table entries it can touch, once
+        bound_bytes = 4 * (2 * m + min(nt, m))
+        bound_ms = bound_bytes / HBM_BYTES_PER_S * 1e3
+        ms = _event_ms(lambda: gather_1d(table, idx), 200)
+        plain_ms = _event_ms(lambda: gather_1d_plain(table, idx), 20)
+        lib_ms = _event_ms(lambda: torch.index_select(table, 0, idx), 200)
+        dev = _device_ms(lambda: gather_1d(table, idx), 50,
+                         ["gather_kernel"])
+        print(f"[K6 {name}] table {nt} x {table.dtype}, m={m}; equal to "
+              f"plain (max diff {err}), to a second launch and to "
+              "torch.index_select")
+        print(f"[K6 {name}] kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, "
+              f"torch.index_select {lib_ms:.6f} ms, bound {bound_bytes} B "
+              f"-> {bound_ms:.6f} ms at 3.35 TB/s "
+              f"({100 * bound_ms / ms:.1f}% of it); device time alone "
+              f"(torch.profiler) {dev}")
+        rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                          bound_ms=bound_ms, library_ms=lib_ms)
+    return rows
+
+
+def phase_orpull(A, golden_hub):
+    """K5 over the CSC's row ids at RMAT scale 18 on two frontiers, against
+    its plain version (tolerance 0) and a second launch; times and bound."""
+    import numpy as np
+    import torch
+
+    from graphblast_tpu_torch.ops.kernels.bitmap_pull import pack_bitmap
+    from graphblast_tpu_torch.ops.kernels.orpull import (
+        orpull_bit_csum, orpull_bit_csum_plain)
+
+    n = A.nrows
+    col = A.csc_row_ind.contiguous()
+    m = col.shape[0]
+    frontiers = {
+        "hub_level2": (golden_hub == 2).astype(np.float32),
+        "random20": (np.random.RandomState(42).rand(n) < 0.2).astype(
+            np.float32),
+    }
+    rows = {}
+    for name, f_np in frontiers.items():
+        words = pack_bitmap(torch.from_numpy(f_np).cuda())
+        c = orpull_bit_csum(words, col)
+        c_again = orpull_bit_csum(words, col)
+        c_plain = orpull_bit_csum_plain(words, col)
+        torch.cuda.synchronize()
+        if c.shape != (m,) or c.dtype != torch.int32:
+            raise AssertionError(f"K5 {name}: bad output")
+        err = int((c.long() - c_plain.long()).abs().max())
+        if not torch.equal(c, c_plain):
+            raise AssertionError(f"K5 {name} != plain: max diff {err}")
+        if not torch.equal(c, c_again):
+            raise AssertionError(f"K5 {name}: two launches differ")
+        # col_ind read, csum written and the bitmap read, once
+        bound_bytes = 4 * (2 * m + words.shape[0])
+        bound_ms = bound_bytes / HBM_BYTES_PER_S * 1e3
+        ms = _event_ms(lambda: orpull_bit_csum(words, col), 200)
+        plain_ms = _event_ms(lambda: orpull_bit_csum_plain(words, col), 20)
+        dev = _device_ms(lambda: orpull_bit_csum(words, col), 50,
+                         ["tile_count", "tile_offsets", "tile_scan"])
+        print(f"[K5 {name}] m={m} words={words.shape[0]} frontier="
+              f"{int(f_np.sum())} csum[-1]={int(c[-1])}; equal to plain "
+              f"(max diff {err}) and to a second launch")
+        print(f"[K5 {name}] kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, "
+              f"bound {bound_bytes} B -> {bound_ms:.6f} ms at 3.35 TB/s "
+              f"({100 * bound_ms / ms:.1f}% of it); device time of its "
+              f"three launches (torch.profiler) {dev}")
+        rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                          bound_ms=bound_ms, library_ms=None)
+    return rows
+
+
+def phase_stepped_bfs(A, sources, goldens, reps: int = 10):
+    """Stepped BFS, which pulls with no plan (K5, then the boundary gather
+    K6), from the hub sources against the golden; then timed."""
+    import numpy as np
+
+    import graphblast_tpu_torch as gt
+
+    desc = gt.BFS_TUNED.replace(mxv_mode=gt.Direction.PULLONLY, timing=0)
+    bfs = gt.algorithms.bfs
+    _reset_counts()
+    levels = [bfs(A, int(s), desc, mode="stepped").to_numpy()
+              for s in sources]
+    iters = [int(v.max()) for v in levels]
+    counts = _expect_launches("stepped BFS", {"orpull_csum": sum(iters),
+                                              "gather_boundary": sum(iters)})
+    for s, v, want in zip(sources, levels, goldens):
+        if v.shape != (A.nrows,) or not np.isfinite(v).all():
+            raise AssertionError(f"stepped BFS from {s}: bad levels array")
+        bad = int((v != want).sum())
+        if bad:
+            raise AssertionError(f"stepped BFS from {s}: {bad} levels != "
+                                 "golden")
+    print(f"[bfs stepped] {len(sources)} sources: levels == NumPy golden; "
+          f"iterations {iters}; launches {counts}")
+    srcs = iter([int(s) for s in sources] * reps)
+    per_s, tail = _timed_runs(
+        lambda: bfs(A, next(srcs), desc, mode="stepped"),
+        len(sources) * reps)
+    deg = np.diff(A.host_csr()[0])
+    reached_edges = int(deg[levels[0] != 0].sum())
+    print(f"[bfs stepped] plan-less pull rmat18: {per_s * 1e3:.6f} ms/run "
+          f"median, {tail}, {len(sources) * reps} runs; "
+          f"{reached_edges / per_s / 1e9:.6f} GTEPS at the median; "
+          f"{iters[0]} iterations")
+    return counts, per_s
+
+
+def phase_mis(A, seed: int = 1, reps: int = 40):
+    """MIS through the entry point: verify_mis, two K6 launches a round at
+    the column ids and two at the tails or boundaries, no other kernel;
+    then timed."""
+    import importlib
+
+    import numpy as np
+
+    import graphblast_tpu_torch as gt
+
+    mis_mod = importlib.import_module("graphblast_tpu_torch.algorithms.mis")
+    _reset_counts()
+    v = gt.algorithms.mis(A, seed=seed).to_numpy()
+    launches = _read_counts()
+    # the loop is deterministic: a second run with the same weights gives
+    # the round count
+    w0 = mis_mod.random_weights(A.nrows, seed, "cuda")
+    v2, rounds = mis_mod._mis_fused(A, w0, max_niter=gt.DEFAULT.max_niter)
+    counts = _expect_launches("MIS", {"gather_x": 2 * rounds,
+                                      "gather_boundary": 2 * rounds},
+                              launches)
+    if v.shape != (A.nrows,) or not np.array_equal(v2.cpu().numpy(), v):
+        raise AssertionError("MIS: bad or unrepeatable membership array")
+    if not gt.algorithms.verify_mis(A, v):
+        rp, ci, _ = A.host_csr()
+        rows = np.repeat(np.arange(A.nrows), np.diff(rp))
+        w = w0.cpu().numpy()
+        ties = int(((w[rows] == w[ci]) & (rows != ci)).sum()) // 2
+        raise AssertionError(f"MIS: verify_mis fails ({ties} adjacent "
+                             "pairs of equal weight)")
+    per_s, tail = _timed_runs(
+        lambda: gt.algorithms.mis(A, seed=seed), reps)
+    print(f"[mis] rmat18 seed {seed}: verify_mis holds; {rounds} rounds, "
+          f"{int(v.sum())} vertices in the set; launches {counts}")
+    print(f"[mis] {per_s * 1e3:.6f} ms/run median, {tail}, {reps} runs; "
+          f"{per_s * 1e3 / rounds:.6f} ms a round")
+    _mis_breakdown(A, w0, rounds)
+    return counts, rounds, per_s
+
+
+def _mis_breakdown(A, w0, rounds: int):
+    """Where a MIS round's time goes: its two pulls and the segmented scan
+    alone (CUDA events, first-round inputs), and a torch.profiler trace of
+    one mis() call (device busy time, idle share, the costliest kernels)."""
+    import torch
+
+    import graphblast_tpu_torch as gt
+    from graphblast_tpu_torch.algorithms.common import csc_int_arrays
+    from graphblast_tpu_torch.ops.gather_dispatch import take
+    from graphblast_tpu_torch.ops.segops import (segment_heads,
+                                                 segmented_scan)
+    from graphblast_tpu_torch.ops.spmv import spmv_pull
+
+    ptr, ind, val = csc_int_arrays(A)
+    n = A.nrows
+    f = (w0 > 1 << 29).to(torch.int32)
+    edge = val * take(w0, ind)
+    heads = segment_heads(ptr, edge.shape[0])
+    max_ms = _event_ms(lambda: spmv_pull(
+        ptr, ind, val, w0, gt.MaximumMultipliesSemiring, n, mask_dense=w0),
+        20)
+    scan_ms = _event_ms(lambda: segmented_scan(
+        edge, heads, gt.semiring.MaximumMonoid), 20)
+    or_ms = _event_ms(lambda: spmv_pull(
+        ptr, ind, val, f, gt.LogicalOrAndSemiring, n, mask_dense=w0), 20)
+    print(f"[mis] a round's parts: MaximumMultiplies pull {max_ms:.6f} ms, "
+          f"of which the segmented scan alone {scan_ms:.6f} ms "
+          f"({100 * scan_ms / max_ms:.1f}%); LogicalOrAnd pull "
+          f"{or_ms:.6f} ms")
+    table, wall_ms = _device_profile(lambda: gt.algorithms.mis(A, seed=1), 1)
+    if not table:
+        print("[mis] torch.profiler: no device time in the trace; device "
+              "busy share not measured")
+        return
+    busy_ms = sum(table.values()) / 1e3
+    top = sorted(table.items(), key=lambda kv: -kv[1])[:6]
+    print(f"[mis] torch.profiler, one mis() call ({rounds} rounds): wall "
+          f"{wall_ms:.6f} ms, device busy {busy_ms:.6f} ms, idle "
+          f"{100 * (1 - busy_ms / wall_ms):.1f}%; costliest kernels: "
+          + "; ".join(f"{k[:60]} {v / 1e3:.6f} ms" for k, v in top))
+
+
+def phase_gc(A, seed: int = 1, reps: int = 10):
+    """Colouring through the entry point: "is" and "jp" checked and timed,
+    "mis" checked once; verify_gc and the K6 counts by class for each."""
+    import importlib
+
+    import numpy as np
+
+    import graphblast_tpu_torch as gt
+
+    mis_mod = importlib.import_module("graphblast_tpu_torch.algorithms.mis")
+    gc_mod = importlib.import_module("graphblast_tpu_torch.algorithms.gc")
+    max_niter = gt.DEFAULT.max_niter
+    w0 = mis_mod.random_weights(A.nrows, seed, "cuda")
+    out = {}
+    colors_is = None
+    # K6 launches a round at each of its two call-site classes
+    for algo, per_round in (("is", 1), ("jp", 2), ("mis", None)):
+        kw = {} if algo != "jp" else {"max_colors": colors_is + 1}
+        _reset_counts()
+        col = gt.algorithms.gc(A, seed=seed, algo=algo, **kw).to_numpy()
+        launches = _read_counts()
+        if algo == "is":
+            again, rounds = gc_mod._gc_is_fused(A, w0, max_niter=max_niter)
+        elif algo == "jp":
+            again, rounds = gc_mod._gc_jp_fused(A, w0, max_niter=max_niter,
+                                                **kw)
+        else:
+            again, rounds = gc_mod._gc_mis(A, w0, gt.DEFAULT)
+        colors = int(col.max())
+        if not np.array_equal(again.cpu().numpy(), col):
+            raise AssertionError(f"gc {algo}: unrepeatable colouring")
+        if not gt.algorithms.verify_gc(A, col):
+            raise AssertionError(f"gc {algo}: verify_gc fails")
+        if per_round is None:
+            # each colour's MIS, and the last, empty one, gather twice at
+            # the column ids and twice at the tails a round
+            k6 = launches["gather_x"]
+            if k6 % 2 or k6 < 2 * (colors + 1):
+                raise AssertionError(f"gc mis: {launches} K6 launches for "
+                                     f"{colors} colours")
+        else:
+            k6 = per_round * rounds
+        counts = _expect_launches(
+            f"gc {algo}", {"gather_x": k6, "gather_boundary": k6}, launches)
+        line = (f"[gc {algo}] rmat18 seed {seed}{' ' + str(kw) if kw else ''}"
+                f": verify_gc holds; {colors} colours, {rounds} "
+                f"{'colours' if algo == 'mis' else 'rounds'}; launches "
+                f"{counts}")
+        print(line)
+        if algo == "is":
+            colors_is = colors
+        if per_round is not None:
+            per_s, tail = _timed_runs(
+                lambda: gt.algorithms.gc(A, seed=seed, algo=algo, **kw),
+                reps)
+            print(f"[gc {algo}] {per_s * 1e3:.6f} ms/run median, {tail}, "
+                  f"{reps} runs; "
+                  f"{per_s * 1e3 / rounds:.6f} ms a round")
+            out[algo] = dict(counts=counts, rounds=rounds, per_s=per_s)
+    return out
+
+
+def phase_cc_plan_less(A, golden, k4_per_s: float, reps: int = 40):
+    """CC with no plan (the n >= 2^24 route) on the rmat18 graph: labels
+    equal to the golden, a K6 launch at the column ids and one at the
+    tails an iteration; then timed."""
+    import graphblast_tpu_torch as gt
+    from graphblast_tpu_torch.algorithms.cc import _cc_fused
+
+    max_niter = gt.DEFAULT.max_niter
+    _reset_counts()
+    labels, iters = _cc_fused(A, None, max_niter=max_niter)
+    counts = _expect_launches("plan-less CC", {"gather_x": iters,
+                                               "gather_boundary": iters})
+    labels = labels.cpu().numpy()
+    bad = int((labels != golden).sum())
+    if bad or not gt.algorithms.verify_cc(A, labels):
+        raise AssertionError(f"plan-less CC: {bad} labels != golden, or "
+                             "verify_cc fails")
+    per_s, tail = _timed_runs(
+        lambda: _cc_fused(A, None, max_niter=max_niter), reps)
+    print(f"[cc plan-less] rmat18: labels == NumPy golden, verify_cc holds; "
+          f"{iters} iterations; launches {counts}")
+    print(f"[cc plan-less] {per_s * 1e3:.6f} ms/run median, {tail}, "
+          f"{reps} runs; phase 8's cc() over K4 "
+          f"{k4_per_s * 1e3:.6f} ms/run ({per_s / k4_per_s:.2f}x)")
+    return counts
 
 
 def _random_csr(n: int, deg: int, seed: int, device: str = "cuda"):
@@ -590,8 +991,27 @@ def main() -> int:
     sssp_launches = phase_sssp(A, sources, k4["min_plus"]["ms"])
     print(f"[phase] SSSP {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
-    cc_launches = phase_cc(A, k4["min_select_second"]["ms"])
+    cc_launches, cc_golden, cc_per_s = phase_cc(
+        A, k4["min_select_second"]["ms"])
     print(f"[phase] CC {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    k6 = phase_gather(A)
+    print(f"[phase] K6 vs plain at rmat18 {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    k5 = phase_orpull(A, goldens[0])
+    print(f"[phase] K5 vs plain at rmat18 {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    stepped_counts, _ = phase_stepped_bfs(A, sources, goldens)
+    print(f"[phase] stepped BFS {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    mis_counts, _, _ = phase_mis(A)
+    print(f"[phase] MIS {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    phase_gc(A)
+    print(f"[phase] GC {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    phase_cc_plan_less(A, cc_golden, cc_per_s)
+    print(f"[phase] plan-less CC {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
     del A
     plan, x = _random_csr(1 << 24, 8, seed=42)
@@ -631,6 +1051,24 @@ def main() -> int:
             "source": "graphblast_tpu_torch/csrc/monoid_pull.cu",
             "replaces": "graphblast_tpu/ops/pallas/monopull.py:172",
             "launches": launches, "bound_by": "bytes", **k4[name]})
+    kernels.append({
+        "name": "orpull_csum", "route": "cuda",
+        "source": "graphblast_tpu_torch/csrc/orpull_csum.cu",
+        "replaces": "graphblast_tpu/ops/pallas/orpull.py:49",
+        "launches": stepped_counts["orpull_csum"], "bound_by": "bytes",
+        **k5["hub_level2"],
+        "max_abs_err": max(r["max_abs_err"] for r in k5.values())})
+    # one kernel serves both TPU gathers; an entry for each call-site class
+    # of the port's paths, with that class's count on the path it lies on.
+    # The packed-words class (gather_1d_small's) has no call site in the
+    # port, so phase 9's timing of it stays out of this line.
+    for name, launches in (("x", mis_counts["gather_x"]),
+                           ("boundary", stepped_counts["gather_boundary"])):
+        kernels.append({
+            "name": f"gather_{name}", "route": "cuda",
+            "source": "graphblast_tpu_torch/csrc/gather.cu",
+            "replaces": "graphblast_tpu/ops/pallas/gather.py:45",
+            "launches": launches, "bound_by": "bytes", **k6[name]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -16,7 +16,9 @@ BFS over the bitmap-pull kernel K1 (slice 1); PageRank over the value-pull
 kernel that replaces K2 and K3, with the three operations of its matrix
 prep and the dimension checks (slice 2); pull-only SSSP and FastSV CC over
 the min/max monoid-pull kernel K4, with the postprocess epilogue of
-mxv_dual (slice 3).
+mxv_dual (slice 3); the plan-less pull (spmv_pull, segops, take) over the
+or-pull prefix count K5 and the gather K6, with MIS, graph colouring,
+stepped BFS and CC at n >= 2^24 on it (slice 4).
 """
 
 from .types import Direction, INDEX_DTYPE, LoadBalanceMode, SparseFormat, Storage
@@ -47,7 +49,8 @@ from .operations import (
     scale_matrix_rows,
 )
 from . import algorithms
-from .algorithms import (cc, cc_cpu, pr, pr_cpu, prepare_pr_matrix, sssp,
-                         sssp_cpu, verify_cc)
+from .algorithms import (cc, cc_cpu, gc, gc_cpu, mis, mis_cpu, pr, pr_cpu,
+                         prepare_pr_matrix, sssp, sssp_cpu, verify_cc,
+                         verify_gc, verify_mis)
 
 __version__ = "0.1.0"

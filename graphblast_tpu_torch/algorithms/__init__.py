@@ -1,8 +1,11 @@
 """Algorithm library. Ported so far: BFS (pull-only), PageRank, SSSP
-(pull-only) and CC (FastSV), with their NumPy goldens."""
+(pull-only), CC (FastSV), MIS and graph colouring, with their NumPy
+goldens."""
 
 from .bfs import bfs, bfs_cpu
 from .cc import cc, cc_cpu, verify_cc
+from .gc import gc, gc_cpu, verify_gc
+from .mis import mis, mis_cpu, verify_mis
 from .pr import pr, pr_cpu, prepare_pr_matrix
 from .sssp import sssp, sssp_cpu
 from . import reference

@@ -9,8 +9,10 @@ Per iteration, as in the reference:
 Both modes are a Python loop over device work with one host read of `succ`
 per iteration. The JAX package's fused mode runs the loop on the device with
 no host sync; `mode="fused"` here keeps its semantics (it starts at 1, the
-loop runs while succ > 0 and it <= max_niter) and differs from "stepped"
-only in printing and timing nothing.
+loop runs while succ > 0 and it <= max_niter). As in the JAX package, the
+fused mode pulls over the bitmap plan (K1) and the stepped mode with no
+plan, through `spmv_pull` (K5 and K6); the stepped mode also prints and
+times each iteration.
 """
 from __future__ import annotations
 
@@ -64,14 +66,16 @@ def bfs(A: Matrix, source: int, desc: Descriptor = BFS_TUNED,
         mode: str = "fused") -> Vector:
     """BFS levels: source = 1, unreached = 0, float32 (reference:
     bfs.hpp:14-89; levels per SimpleReferenceBfs, test_bfs.hpp:19-22).
-    Runs on A's device. Only desc.mxv_mode == PULLONLY is ported."""
+    Runs on A's device. Only desc.mxv_mode == PULLONLY is ported. A
+    descriptor that is not structure-only pulls with no plan in both
+    modes."""
     if mode not in ("fused", "stepped"):
         raise ValueError(f"mode must be 'fused' or 'stepped', not {mode!r}")
     kw = dict(struconly=desc.structure_only, switchpoint=desc.switchpoint,
               mode=desc.mxv_mode)
     n = A.nrows
-    plan = bfs_pull_plan(A, desc)
     stepped = mode == "stepped"
+    plan = None if stepped else bfs_pull_plan(A, desc)
     timer = TightTimer()
     v = torch.zeros(n, dtype=torch.float32, device=A.device)
     f = _initial_frontier(n, source, A.device)

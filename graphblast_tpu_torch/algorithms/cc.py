@@ -12,14 +12,20 @@ Per iteration, on dense int32 vectors:
   5. termination          succ = sum(gp_temp != gp)
   6. filter               gp = INT_MAX where unchanged
 
-The select-second pull runs the monoid pull (K4) over A's unit-valued CSR
-plan on the float32 image of gp: ids below 2^24 are exact in float32,
-INT_MAX becomes 2^31 >= n, and the cast back happens on a value clamped to
-n (cc.py:51-53 of the JAX package). The hooking scatter combines by min, as
-the JAX package's does (the reference's scatter is last-write-wins). Both
-modes are a Python loop with one host read of `succ` per iteration.
+Below n = 2^24 the select-second pull runs the monoid pull (K4) over A's
+unit-valued CSR plan on the float32 image of gp: ids below 2^24 are exact in
+float32, INT_MAX becomes 2^31 >= n, and the cast back happens on a value
+clamped to n (cc.py:51-53 of the JAX package). From 2^24 on, float32 no
+longer holds every id, and the pull is the plan-less `spmv_pull` on the
+int32 gp over the CSR with int32 values (cc.py:55-56), two launches of the
+gather kernel K6 per iteration on the card. The hooking scatter combines by
+min, as the JAX package's does (the reference's scatter is
+last-write-wins). Both modes are a Python loop with one host read of `succ`
+per iteration.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -27,19 +33,28 @@ from ..descriptor import DEFAULT, Descriptor
 from ..matrix import Matrix
 from ..ops.kernels.monoid_pull import (MonoidPlan, plan_for_monoid,
                                        spmv_monoid)
+from ..ops.spmv import spmv_pull
 from ..semiring import MinimumSelectSecondSemiring
 from ..vector import Vector
 from .common import TightTimer, dense_result, print_iter_row
 
 IMAX = torch.iinfo(torch.int32).max
+# float32 holds every integer below 2^24 exactly
+EXACT_IDS = 1 << 24
 
 
-def _cc_step(A: Matrix, parent, mnp, gp, gp_t, plan: MonoidPlan):
+def _cc_step(A: Matrix, parent, mnp, gp, gp_t, pull):
+    """One FastSV iteration. `pull` is a MonoidPlan of A's CSR, or the CSR
+    as (ptr, ind, int32 val) for the plan-less pull."""
     n = A.nrows
     parent_temp = parent
     # 1) stochastic hooking: mnp_t[i] = min over j in A(i,:) of gp[j]
-    yf = spmv_monoid(plan, gp.to(torch.float32), MinimumSelectSecondSemiring)
-    mnp_t = torch.where(yf >= n, IMAX, yf.clamp(max=n).to(torch.int32))
+    if isinstance(pull, MonoidPlan):
+        yf = spmv_monoid(pull, gp.to(torch.float32),
+                         MinimumSelectSecondSemiring)
+        mnp_t = torch.where(yf >= n, IMAX, yf.clamp(max=n).to(torch.int32))
+    else:
+        mnp_t = spmv_pull(*pull, gp, MinimumSelectSecondSemiring, n)
     mnp = torch.minimum(mnp, mnp_t)
     # f[f[u]] = mngf[u], combined by min
     parent = parent.scatter_reduce(0, parent_temp.long(), mnp, "amin",
@@ -56,12 +71,16 @@ def _cc_step(A: Matrix, parent, mnp, gp, gp_t, plan: MonoidPlan):
     return parent, mnp, torch.where(diff, gp, IMAX), gp, succ
 
 
-def _cc_fused(A: Matrix, plan: MonoidPlan, *, max_niter: int,
+def _cc_fused(A: Matrix, plan: Optional[MonoidPlan], *, max_niter: int,
               timing: int = 0):
     """The FastSV loop from parent = 0..n-1: `it` starts at 1 and the loop
-    runs while succ > 0 and it <= max_niter. Returns (parent, iterations
-    run)."""
+    runs while succ > 0 and it <= max_niter. With plan None it pulls
+    without a plan, at any n. Returns (parent, iterations run)."""
     n = A.nrows
+    # the plan-less pull casts the values once per call, as JAX's
+    # _as_int_matrix does
+    pull = plan if plan is not None else (A.row_ptr, A.col_ind,
+                                          A.val.to(torch.int32))
     parent = torch.arange(n, dtype=torch.int32, device=A.device)
     mnp = gp = gp_t = parent
     timer = TightTimer()
@@ -69,7 +88,7 @@ def _cc_fused(A: Matrix, plan: MonoidPlan, *, max_niter: int,
     while succ > 0 and it <= max_niter:
         timer.start()
         parent, mnp, gp, gp_t, succ_t = _cc_step(A, parent, mnp, gp, gp_t,
-                                                 plan)
+                                                 pull)
         succ = int(succ_t)          # the one host sync of the iteration
         if timing:
             print_iter_row(it, succ, n, n, False, timer.stop(parent), timing)
@@ -84,16 +103,12 @@ def cc(A: Matrix, seed: int = 0, desc: Descriptor = DEFAULT,
     accepted for the JAX signature and unused there too."""
     if mode not in ("fused", "stepped"):
         raise ValueError(f"mode must be 'fused' or 'stepped', not {mode!r}")
-    if A.nrows >= 1 << 24:
-        raise NotImplementedError(
-            "cc at n >= 2^24 needs integer ids beyond float32's exact range, "
-            "which the JAX package pulls with the plan-less spmv_pull: not "
-            "ported yet (ROADMAP queue 1 item 4)")
-    plan = plan_for_monoid(A, transpose=False, ones=True)
-    if plan is None:
+    if A.row_ptr is None:
         raise NotImplementedError(
             "cc pulls over A's CSR; a CSC-only matrix needs push, which is "
             "not ported yet (ROADMAP queue 1 item 8)")
+    plan = (plan_for_monoid(A, transpose=False, ones=True)
+            if A.nrows < EXACT_IDS else None)
     parent, _ = _cc_fused(A, plan, max_niter=desc.max_niter,
                           timing=desc.timing if mode == "stepped" else 0)
     return dense_result(A.nrows, parent)

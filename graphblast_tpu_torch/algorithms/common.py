@@ -66,3 +66,14 @@ def print_dirinfo(nv, n, used_push, prev_push, dirinfo: bool):
 
 def dense_result(n: int, arr: torch.Tensor) -> Vector:
     return Vector(n, Storage.DENSE, dense=arr)
+
+
+def csc_int_arrays(A: Matrix) -> tuple:
+    """(ptr, ind, val as int32) of A's CSC, or of its CSR for a CSRONLY
+    matrix (col_ptr None): the reference's forced-direction idiom for that
+    format (backend/cuda/operations.hpp:131-140), the same on the symmetric
+    graphs that MIS and colouring run on. Callers cast once per call and
+    pass the arrays to every round, as JAX's jit hoists the cast."""
+    if A.col_ptr is None:
+        return A.row_ptr, A.col_ind, A.val.to(torch.int32)
+    return A.col_ptr, A.csc_row_ind, A.csc_val.to(torch.int32)

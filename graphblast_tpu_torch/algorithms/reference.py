@@ -1,8 +1,10 @@
 """NumPy golden references (counterpart of
 graphblast_tpu/algorithms/reference.py; reference:
-graphblas/algorithm/test_bfs.hpp, test_sssp.hpp, test_pr.hpp, test_cc.hpp).
-They read host CSR arrays only, and are vectorised so that they run at RMAT
-scale 18 in seconds.
+graphblas/algorithm/test_bfs.hpp, test_sssp.hpp, test_pr.hpp, test_cc.hpp,
+test_mis.hpp, test_gc.hpp). They read host CSR arrays only. All but the
+greedy MIS and colouring goldens are vectorised, so that they run at RMAT
+scale 18 in seconds; those two visit the vertices in a seeded random order,
+one at a time, as the JAX goldens do.
 """
 from __future__ import annotations
 
@@ -123,3 +125,61 @@ def verify_cc(A, labels) -> bool:
     rows = np.repeat(np.arange(n), np.diff(np.asarray(rp, np.int64)))
     labels = np.asarray(labels)
     return bool((labels[rows] == labels[np.asarray(ci, np.int64)]).all())
+
+
+def mis_cpu(A, seed: int = 0) -> np.ndarray:
+    """Greedy maximal independent set over a seeded random vertex order;
+    1 = in the set (reference: test_mis.hpp SimpleReferenceMis)."""
+    rp, ci, _, n = _csr(A)
+    state = np.zeros(n, dtype=np.int32)  # 0 unknown, 1 in set, -1 removed
+    for u in np.random.RandomState(seed).permutation(n):
+        if state[u] == 0:
+            state[u] = 1
+            nbrs = ci[rp[u]:rp[u + 1]]
+            state[nbrs] = np.where(state[nbrs] == 1, 1, -1)
+    return (state == 1).astype(np.int32)
+
+
+def _edges_without_loops(A) -> tuple:
+    """(rows, cols, n) of the CSR's edges, self-loops left out."""
+    rp, ci, _, n = _csr(A)
+    rows = np.repeat(np.arange(n), np.diff(np.asarray(rp, np.int64)))
+    cols = np.asarray(ci, np.int64)
+    keep = rows != cols
+    return rows[keep], cols[keep], n
+
+
+def verify_mis(A, in_set) -> bool:
+    """Independence and maximality (reference: test_mis.hpp
+    SimpleVerifyMis): no edge joins two members, and every vertex outside
+    the set has a neighbour in it, so an isolated vertex is a member."""
+    rows, cols, n = _edges_without_loops(A)
+    s = np.asarray(in_set) != 0
+    if (s[rows] & s[cols]).any():
+        return False
+    covered = np.zeros(n, dtype=bool)
+    covered[rows[s[cols]]] = True
+    return bool((s | covered).all())
+
+
+def gc_cpu(A, seed: int = 0) -> np.ndarray:
+    """Greedy colouring over a seeded random vertex order, colours >= 1
+    (reference: test_gc.hpp)."""
+    rp, ci, _, n = _csr(A)
+    colors = np.zeros(n, dtype=np.int32)
+    for u in np.random.RandomState(seed).permutation(n):
+        used = set(colors[ci[rp[u]:rp[u + 1]]].tolist())
+        c = 1
+        while c in used:
+            c += 1
+        colors[u] = c
+    return colors
+
+
+def verify_gc(A, colors) -> bool:
+    """A proper colouring: every vertex coloured (>= 1) and no edge joins
+    two vertices of one colour (reference: test_gc.hpp SimpleVerifyGc)."""
+    rows, cols, _ = _edges_without_loops(A)
+    colors = np.asarray(colors)
+    return bool((colors > 0).all()
+                and not (colors[rows] == colors[cols]).any())

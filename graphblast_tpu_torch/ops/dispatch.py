@@ -3,14 +3,15 @@ graphblast_tpu/ops/dispatch.py; reference: backend/cuda/operations.hpp:82-327
 and the direction heuristic, backend/cuda/vector.hpp:292-323).
 
 Ported so far: the DualFrontier carry, the direction heuristic, and the
-PULLONLY branches of `mxv_dual` over a plan (dispatch.py:255-283 of the JAX
-package): the structure-only LogicalOrAnd pull over a bitmap plan (K1, BFS)
-or a unit-valued value plan, the PlusMultiplies pull over a value plan
+PULLONLY branch of `mxv_dual` (dispatch.py:255-296 of the JAX package): over
+a plan, the structure-only LogicalOrAnd pull over a bitmap plan (K1, fused
+BFS) or a unit-valued value plan, the PlusMultiplies pull over a value plan
 (K2/K3), and the min/max semirings of the monoid pull over a monoid plan
-(K4, SSSP), with the `postprocess` epilogue. Push, and therefore PUSHONLY
-and PUSHPULL, is ROADMAP queue 1 item 8, and the plan-less pull
-(`spmv_pull`) waits for K5 and K6. They raise NotImplementedError here
-rather than run another path.
+(K4, SSSP); with no plan, `spmv_pull` over the pull orientation (K5 and K6,
+stepped BFS), as the JAX package pulls when it has no plan and no TPU; and
+the `postprocess` epilogue. Push, and therefore PUSHONLY and PUSHPULL, is
+ROADMAP queue 1 item 8: it raises NotImplementedError here rather than run
+another path.
 """
 from __future__ import annotations
 
@@ -26,7 +27,7 @@ from ..vector import dense_from_sparse, sparse_from_dense
 from .kernels.bitmap_pull import BitmapPlan, pack_bitmap, spmv_bitmap_pull
 from .kernels.monoid_pull import MonoidPlan, monoid_supported, spmv_monoid
 from .kernels.value_pull import ValuePlan, spmv_value_pull
-from .spmv import mask_pass
+from .spmv import mask_pass, spmv_pull
 
 PUSH_TODO = ("push (PUSHONLY / PUSHPULL) is not ported yet: ROADMAP queue 1 "
              "item 8; run pull-only with mode=Direction.PULLONLY")
@@ -96,18 +97,18 @@ def mxv_dual(A: Matrix, f: DualFrontier, semiring: Semiring, identity, *,
     DualFrontier and whether push ran (reference: operations.hpp:108-199
     vxm + convert()).
 
-    Only the pull branch exists: `mode` must resolve to PULLONLY and
-    `pull_plan` must be a plan of the pull orientation (CSC for vxm, CSR for
-    mxv): a BitmapPlan for the structure-only LogicalOrAnd pull, a ValuePlan
-    for that pull (unit values only) or the PlusMultiplies pull, or a
-    MonoidPlan for a min/max semiring of SEMIRING_MAP over a float32
+    Only the pull branch exists: `mode` must resolve to PULLONLY.
+    `pull_plan` is None, for `spmv_pull` over the pull orientation's arrays
+    (CSC for vxm, CSR for mxv) with any semiring, or a plan of that
+    orientation: a BitmapPlan for the structure-only LogicalOrAnd pull, a
+    ValuePlan for that pull (unit values only) or the PlusMultiplies pull,
+    or a MonoidPlan for a min/max semiring of SEMIRING_MAP over a float32
     frontier. `postprocess(y)` runs after the mask and before the count of
     non-identity entries, as in the JAX PULLONLY branch. The JAX signature's
     push workspace arguments (edge_cap, sort_push, tier_divisors, lazy,
     postprocess_sparse) come with push."""
     mode = mode if mode is not None else Direction.PUSHPULL
-    n_out = A.ncols if transpose else A.nrows
-    pull_ptr = A.col_ptr if transpose else A.row_ptr
+    n_out, _, pull_ptr, pull_ind, pull_val = A.pull_csr(transpose)
     push_ptr = A.row_ptr if transpose else A.col_ptr
     if push_ptr is None:   # one-sided storage forces one direction
         mode = Direction.PULLONLY
@@ -139,16 +140,19 @@ def mxv_dual(A: Matrix, f: DualFrontier, semiring: Semiring, identity, *,
             # 1: cancelling weights could sum to 0 for a reached vertex
             raise ValueError("the LogicalOrAnd pull needs a bitmap plan or a "
                              "unit-valued (ones=True) value plan")
-    elif not (or_pull and isinstance(pull_plan, BitmapPlan)):
+    elif pull_plan is not None and not (or_pull and isinstance(pull_plan,
+                                                               BitmapPlan)):
         raise NotImplementedError(
-            "only the pulls over a bitmap, value or monoid plan are ported; "
-            "the plan-less spmv_pull waits for kernels K5 and K6 (ROADMAP "
-            "queue 2)")
-    if pull_plan.n_out != n_out:
+            f"the {semiring.name} pull over a {type(pull_plan).__name__} "
+            "is not ported; pass no plan for spmv_pull")
+    if pull_plan is not None and pull_plan.n_out != n_out:
         raise ValueError(f"plan has {pull_plan.n_out} output rows, the "
                          f"{'vxm' if transpose else 'mxv'} pull needs {n_out}")
 
-    if isinstance(pull_plan, MonoidPlan):
+    if pull_plan is None:   # the mask is applied below, for every route
+        y = spmv_pull(pull_ptr, pull_ind, pull_val, f.dense, semiring, n_out,
+                      structure_only=structure_only)
+    elif isinstance(pull_plan, MonoidPlan):
         y = spmv_monoid(pull_plan, f.dense, semiring)
     else:
         if isinstance(pull_plan, BitmapPlan):

@@ -141,16 +141,27 @@ def test_push_modes_raise(graphs):
 
 
 def test_pull_without_a_plan_raises(graphs):
+    """The plan-less pull no longer raises: with no plan, mxv_dual runs
+    spmv_pull and gives the bitmap plan's frontier, and a BFS that is not
+    structure-only (no plan) runs; only push still raises."""
     from graphblast_tpu_torch.algorithms.bfs import _initial_frontier
     from graphblast_tpu_torch.ops.dispatch import mxv_dual
+    from graphblast_tpu_torch.ops.kernels.bitmap_pull import plan_for_bitmap
 
     _, T = graphs["chesapeake"]
     f = _initial_frontier(T.nrows, 0, T.device)
-    with pytest.raises(NotImplementedError, match="K5 and K6"):
-        mxv_dual(T, f, tgb.LogicalOrAndSemiring, 0.0, transpose=True,
-                 structure_only=True, mode=tgb.Direction.PULLONLY)
-    with pytest.raises(NotImplementedError):   # value BFS has no plan
-        bfs(T, 0, PULL.replace(structure_only=False))
+    kw = dict(transpose=True, structure_only=True,
+              mode=tgb.Direction.PULLONLY)
+    f2, _ = mxv_dual(T, f, tgb.LogicalOrAndSemiring, 0.0, **kw)
+    f1, _ = mxv_dual(T, f, tgb.LogicalOrAndSemiring, 0.0,
+                     pull_plan=plan_for_bitmap(T, transpose=True), **kw)
+    assert torch.equal(f2.dense, f1.dense) and int(f2.snvals) > 0
+    np.testing.assert_array_equal(
+        bfs(T, 0, PULL.replace(structure_only=False)).to_numpy(),
+        bfs_cpu(T, 0))
+    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+        mxv_dual(T, f, tgb.LogicalOrAndSemiring, 0.0,
+                 **dict(kw, mode=tgb.Direction.PUSHONLY))
 
 
 def test_rmat_edges_match_jax():

@@ -9,7 +9,9 @@ import torch
 
 import graphblast_tpu_torch as tgb
 from graphblast_tpu_torch.ops.kernels import bitmap_pull as bp
+from graphblast_tpu_torch.ops.kernels import gather as kg
 from graphblast_tpu_torch.ops.kernels import monoid_pull as mp
+from graphblast_tpu_torch.ops.kernels import orpull as ko
 from graphblast_tpu_torch.ops.kernels import value_pull as vp
 
 pytestmark = pytest.mark.cuda
@@ -198,3 +200,127 @@ def test_sssp_and_cc_on_the_card_match_golden(cuda):
                         max_niter=1000)
     _, it_cc = _cc_fused(A, mp.plan_for_monoid(A, ones=True), max_niter=1000)
     assert k_sssp == it > 0 and k_cc == it_cc > 0
+
+
+def _launches():
+    return {"bitmap_pull": bp.spmv_bitmap_pull.launches,
+            "value_pull": vp.spmv_value_pull.launches,
+            "monoid_pull": mp.spmv_monoid.launches,
+            "gather": kg.gather_1d.launches,
+            "gather_sorted": kg.gather_1d.sorted_launches,
+            "orpull_csum": ko.orpull_bit_csum.launches}
+
+
+def _since(before):
+    return {k: v - before[k] for k, v in _launches().items()}
+
+
+@pytest.mark.parametrize("n,m,sorted_idx,dtype", [
+    (128, 9000, False, torch.float32), (129, 9000, False, torch.int32),
+    (16384, 33000, False, torch.float32), (16384, 32768, True, torch.int32),
+    (1, 5000, False, torch.float32), (40000, 12, False, torch.int32),
+    (262144, 3_000_000, False, torch.float32),
+    (5_000_000, 1_000_001, True, torch.int32)])
+def test_gather_matches_plain_on_the_card(cuda, n, m, sorted_idx, dtype):
+    """K6 vs its plain version (tolerance 0: a copy), with out-of-range
+    indices on both sides clamped; bitwise equal to a second launch."""
+    rng = np.random.default_rng(n + m)
+    x = torch.from_numpy((rng.standard_normal(n) * 1e6).astype(np.float32))
+    x = (x if dtype == torch.float32 else x.to(torch.int32)).to(cuda)
+    idx = rng.integers(0, n, m)
+    idx[:4] = [0, n - 1, -7, n + 5]
+    if sorted_idx:
+        idx.sort()
+    idx = torch.from_numpy(idx.astype(np.int32)).to(cuda)
+    before = _launches()
+    y = kg.gather_1d(x, idx, sorted=sorted_idx)
+    y2 = kg.gather_1d(x, idx)
+    torch.cuda.synchronize()
+    assert _since(before)["gather"] == 2
+    assert _since(before)["gather_sorted"] == int(sorted_idx)
+    assert y.dtype == dtype and y.shape == (m,)
+    assert torch.equal(y, kg.gather_1d_plain(x, idx))
+    assert torch.equal(y, y2)
+    assert torch.equal(y.cpu(), kg.gather_1d(x.cpu(), idx.cpu()))
+
+
+@pytest.mark.parametrize("n,m", [(4096, 70000), (4095, 70000), (50, 257),
+                                 (262144, 7_610_368), (33, 4096),
+                                 (1000, 4097), (100000, 1)])
+@pytest.mark.parametrize("density", [0.0, 0.2, 1.0])
+def test_orpull_matches_plain_on_the_card(cuda, n, m, density):
+    """K5 vs its plain version (tolerance 0: integer counts), columns past
+    the bitmap and negative ones included; bitwise equal to a second
+    launch and to the CPU."""
+    rng = np.random.default_rng(n + m)
+    x = torch.from_numpy((rng.random(n) < density).astype(np.float32))
+    col = rng.integers(0, n, m)
+    col[: min(m, 4)] = [n, -1, n - 1, 1 << 30][: min(m, 4)]
+    col = torch.from_numpy(col.astype(np.int32)).to(cuda)
+    words = bp.pack_bitmap(x.to(cuda))
+    before = _launches()
+    c = ko.orpull_bit_csum(words, col)
+    c2 = ko.orpull_bit_csum(words, col)
+    torch.cuda.synchronize()
+    assert _since(before)["orpull_csum"] == 2
+    assert c.dtype == torch.int32 and c.shape == (m,)
+    assert torch.equal(c, ko.orpull_bit_csum_plain(words, col))
+    assert torch.equal(c, c2)
+    assert torch.equal(c.cpu(), ko.orpull_bit_csum(words.cpu(), col.cpu()))
+
+
+def test_plan_less_paths_on_the_card_match_golden(cuda):
+    """At RMAT scale 12 on the card: stepped BFS (one K5 and one K6 launch
+    per iteration, no K1), MIS (four K6 a round), colouring is (two K6 a
+    round) and jp (four), plan-less CC (two K6 an iteration), half of the
+    K6 launches at the sorted tails or boundaries in each but stepped BFS
+    (all); each checked against its golden or verifier and against the CPU
+    with the same inputs."""
+    import importlib
+
+    from graphblast_tpu_torch.algorithms.cc import _cc_fused
+    from graphblast_tpu_torch.io.rmat import rmat_matrix
+
+    tmis = importlib.import_module("graphblast_tpu_torch.algorithms.mis")
+    tgc = importlib.import_module("graphblast_tpu_torch.algorithms.gc")
+    A = rmat_matrix(12, 16, seed=42, device=cuda)
+    C = rmat_matrix(12, 16, seed=42, device="cpu")
+    s = int(np.argmax(np.diff(A.host_csr()[0])))
+    desc = tgb.BFS_TUNED.replace(mxv_mode=tgb.Direction.PULLONLY)
+    before = _launches()
+    lv = tgb.algorithms.bfs(A, s, desc, mode="stepped").to_numpy()
+    it = int(lv.max())
+    assert _since(before) == dict(bitmap_pull=0, value_pull=0,
+                                  monoid_pull=0, gather=it, gather_sorted=it,
+                                  orpull_csum=it)
+    np.testing.assert_array_equal(lv, tgb.algorithms.bfs_cpu(A, s))
+
+    w0 = tmis.random_weights(A.nrows, 3, "cpu")
+    before = _launches()
+    v, rounds = tmis._mis_fused(A, w0.to(cuda), max_niter=1000)
+    assert _since(before) == dict(bitmap_pull=0, value_pull=0,
+                                  monoid_pull=0, gather=4 * rounds,
+                                  gather_sorted=2 * rounds, orpull_csum=0)
+    assert torch.equal(v.cpu(), tmis._mis_fused(C, w0, max_niter=1000)[0])
+    assert tgb.verify_mis(A, v.cpu().numpy())
+
+    for algo, per_round in (("is", 2), ("jp", 4)):
+        before = _launches()
+        if algo == "is":
+            col, rounds = tgc._gc_is_fused(A, w0.to(cuda), max_niter=1000)
+            ref, _ = tgc._gc_is_fused(C, w0, max_niter=1000)
+        else:
+            col, rounds = tgc._gc_jp_fused(A, w0.to(cuda), max_colors=512,
+                                           max_niter=1000)
+            ref, _ = tgc._gc_jp_fused(C, w0, max_colors=512, max_niter=1000)
+        assert _since(before)["gather"] == per_round * rounds
+        assert _since(before)["gather_sorted"] == per_round * rounds // 2
+        assert torch.equal(col.cpu(), ref)
+        assert tgb.verify_gc(A, col.cpu().numpy())
+
+    before = _launches()
+    labels, iters = _cc_fused(A, None, max_niter=1000)
+    assert _since(before) == dict(bitmap_pull=0, value_pull=0,
+                                  monoid_pull=0, gather=2 * iters,
+                                  gather_sorted=iters, orpull_csum=0)
+    np.testing.assert_array_equal(labels.cpu().numpy(), tgb.cc_cpu(A))

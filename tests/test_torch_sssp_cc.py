@@ -255,11 +255,13 @@ def test_cc_stepped_prints_the_reference_rows(graphs, capsys):
 
 
 def test_cc_refuses_what_is_not_ported(graphs):
-    """At n >= 2^24 float32 ids are no longer exact: the JAX package pulls
-    with the plan-less spmv_pull there, which is not ported."""
+    """A CSC-only matrix needs push, which is not ported; an unknown mode
+    raises. (At n >= 2^24 cc takes the plan-less spmv_pull, held in
+    tests/test_torch_mis_gc.py.)"""
     _, T = graphs["test_cc"]
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        cc(dataclasses.replace(T, nrows=1 << 24))
+    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+        cc(dataclasses.replace(T, row_ptr=None, col_ind=None, row_ind=None,
+                               val=None))
     with pytest.raises(ValueError):
         cc(T, mode="async")
 
