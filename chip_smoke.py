@@ -19,15 +19,21 @@ Phases, each of which fails the run on error (each prints its seconds):
   4. value pull (K2's call site) at RMAT scale 18: the CSR plan with the
      stored values and a seeded standard-normal x; the kernel must agree with
      its plain version within 1e-5 * max|y_plain| and be bitwise equal to a
-     second launch. Times the kernel, the plain version and torch.mv on the
-     same CSR (a yardstick only), computes the bound, and times the kernel
-     on the longest row alone (one warp walks it);
+     second launch. Prints the row schedule (rows per bin, long rows,
+     chunks, blocks) and its build time on the card; times the kernel, the
+     plain version, torch.mv on the same CSR (a yardstick only) and the
+     first design's schedule, one warp a row (the same kernel with every
+     row in the medium bin), computes the bound, times the longest row
+     alone (a one-row plan, cut into chunks), each bin's blocks alone, and
+     the medium bin's rows alone by length (33-256, 257-1024, 1025-4096,
+     4097-T edges);
   5. PageRank main path: graphblast_tpu_torch.algorithms.pr (fused, alpha
      0.85, eps 1e-8) at RMAT scale 18 against the port's NumPy golden at its
      fixed point (eps 1e-14); requires sum |p - p_gold| <= 1e-4 and a relative
      error <= 1e-3 on the 100 top-ranked vertices, and one value-pull launch
-     per iteration. Prints the iterations, ms per pr() call, the plan build
-     and the loop, ms per iteration, pr_iters_per_s and the kernel's share;
+     per iteration, over the Matrix's cached CSC schedule (pr() builds none).
+     Prints the iterations, ms per pr() call, the plan build and the loop,
+     ms per iteration, pr_iters_per_s and the kernel's share;
   6. K4, the monoid pull, at RMAT scale 18 for its four semirings:
      MinimumPlus over the CSC with seeded weights in [0.5, 2) and x 40%
      FLT_MAX, the rest uniform in [0, 5) (SSSP's call site);
@@ -46,14 +52,18 @@ Phases, each of which fails the run on error (each prints its seconds):
      the port's golden and pass verify_cc, with one K4 launch per
      iteration. Prints ms/run (median and tail over 40 runs), the
      iterations, the component count, cc_gteps and K4's share;
-  9. K6, the gather, at RMAT scale 18 in three cases: a float32 table of n
+  9. K6, the gather, at RMAT scale 18 in four cases: a float32 table of n
      at the CSC's row ids (MIS's gather of x, m = nnz_pad), an int32 table
-     of nnz_pad at the sorted row boundaries col_ptr - 1 (m = n + 1), and
-     the packed frontier words (8,192, the small-table class) at the row
-     ids >> 5. Each must be torch.equal to its plain version and to a
-     second launch. Times the kernel, the plain version and
-     torch.index_select (a yardstick only) with CUDA events, and computes
-     the bound;
+     of nnz_pad at the sorted row boundaries col_ptr - 1 (m = n + 1), the
+     packed frontier words (8,192, the small-table class) at the row ids
+     >> 5, and the first case over the misaligned slice of the row ids
+     from 1 (the scalar path). Each must be torch.equal to its plain
+     version, to a second launch and to torch.index_select. Times the
+     kernel, the plain version and torch.index_select (a yardstick only)
+     with CUDA events, and computes the bound; at the row boundaries it
+     prints the [K6 launch] line: host us a call of the wrapper,
+     torch.index_select, the first launch path's lines and each of their
+     pieces over 10,000 back-to-back calls;
   10. K5, the or-pull prefix count, over the CSC's row ids with the hub's
      level-2 frontier and a seeded 20% frontier: torch.equal to its plain
      version and to a second launch; timed, with its bound;
@@ -87,6 +97,7 @@ import json
 import subprocess
 import sys
 import time
+import types
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM published memory rate
 RMAT18_N, RMAT18_NNZ = 262_144, 7_610_284
@@ -323,13 +334,58 @@ def phase_main_path(A, sources, goldens, reps: int = 10):
     return launches, per_s, iters
 
 
+def _warp_rows(plan, rows=None):
+    """The plan with a schedule that puts `rows` (all, in row order, by
+    default) in the medium bin, one warp a row, and launches nothing else.
+    With every row it is the first design's schedule: the redesigned
+    kernel then walks each row as the first design did, through perm and
+    with its own four-edge loop. With some rows it times those alone (the
+    other rows' y is left unwritten)."""
+    import dataclasses
+
+    import torch
+
+    from graphblast_tpu_torch.ops.kernels.value_pull import (N_BINS,
+                                                             RowSchedule)
+
+    dev = plan.ptr.device
+    if rows is None:
+        rows = torch.arange(plan.n_out, dtype=torch.int32, device=dev)
+    n = rows.shape[0]
+    empty = torch.zeros(0, dtype=torch.int32, device=dev)
+    blocks = -(-n // 8)
+    return dataclasses.replace(plan, sched=RowSchedule(
+        perm=rows, bin_begin=(0, 0) + (n,) * (N_BINS - 1), chunk_beg=empty,
+        block_begin=(0, 0) + (blocks,) * (N_BINS - 1)))
+
+
+def _bin_alone(plan, b: int):
+    """The plan with a schedule that launches only bin b's blocks (the
+    other rows' y is left unwritten): a bin's share of the call."""
+    import dataclasses
+
+    import numpy as np
+
+    from graphblast_tpu_torch.ops.kernels.value_pull import N_BINS
+
+    s = plan.sched
+    blocks = [s.block_begin[i + 1] - s.block_begin[i] if i == b else 0
+              for i in range(N_BINS)]
+    return dataclasses.replace(plan, sched=dataclasses.replace(
+        s, block_begin=tuple(np.cumsum([0] + blocks).tolist())))
+
+
 def phase_value_pull(tag, plan, x, plain_reps: int):
     """The value pull against its plain version and itself, timed beside
-    the plain version and torch.mv on the same CSR (a yardstick only)."""
+    the plain version, torch.mv on the same CSR (a yardstick only) and
+    the first design's schedule (one warp a row); its row schedule and the
+    schedule's build time; the longest row alone; each bin alone; and the
+    medium bin's rows alone by length."""
     import torch
 
     from graphblast_tpu_torch.ops.kernels.value_pull import (
-        build_plan, spmv_value_pull, spmv_value_pull_plain)
+        CLUSTER, LONG_ROW, build_plan, build_schedule, spmv_value_pull,
+        spmv_value_pull_plain)
 
     nnz = int(plan.ptr[-1])
     y = spmv_value_pull(plan, x)
@@ -340,32 +396,49 @@ def phase_value_pull(tag, plan, x, plain_reps: int):
                                       size=(plan.n_out, plan.n_in),
                                       check_invariants=False)
     y_lib = torch.mv(lib_mat, x)
+    old = _warp_rows(plan)
+    y_old = spmv_value_pull(old, x)
     torch.cuda.synchronize()
     if y.shape != (plan.n_out,) or not bool(torch.isfinite(y).all()):
         raise AssertionError(f"{tag}: bad output")
     scale = float(y_plain.abs().max())
     err = float((y - y_plain).abs().max())
-    if not err <= 1e-5 * scale:
-        raise AssertionError(f"{tag}: max |y - y_plain| = {err} > 1e-5 * "
-                             f"{scale}")
+    old_err = float((y_old - y_plain).abs().max())
+    if not max(err, old_err) <= 1e-5 * scale:
+        raise AssertionError(f"{tag}: max |y - y_plain| = {err} (one warp "
+                             f"a row: {old_err}) > 1e-5 * {scale}")
     if not torch.equal(y, y_again):
         raise AssertionError(f"{tag}: two launches differ")
     lib_err = float((y_lib - y_plain).abs().max())
+    s = plan.sched
+    build_s, _ = _timed_runs(lambda: build_schedule(plan.ptr), 5)
+    print(f"[{tag}] schedule: rows per bin (long, medium, <=32, <=16, <=8, "
+          f"<=4 edges) {list(s.bin_rows)}; {s.bin_rows[0]} long rows (T = "
+          f"{LONG_ROW}) in {s.n_chunks} chunks, {CLUSTER} a row (one "
+          f"cluster); "
+          f"{s.blocks} blocks; built in {build_s * 1e3:.6f} ms on the card "
+          "(median of 5)")
     bound_bytes = 8 * nnz + 4 * (plan.n_out + 1) + 4 * plan.n_in \
         + 4 * plan.n_out
     bound_ms = bound_bytes / HBM_BYTES_PER_S * 1e3
     ms = _event_ms(lambda: spmv_value_pull(plan, x), 200)
     plain_ms = _event_ms(lambda: spmv_value_pull_plain(plan, x), plain_reps)
     lib_ms = _event_ms(lambda: torch.mv(lib_mat, x), 50)
+    old_ms = _event_ms(lambda: spmv_value_pull(old, x), 200)
+    ms_again = _event_ms(lambda: spmv_value_pull(plan, x), 200)
     print(f"[{tag}] n_out={plan.n_out} n_in={plan.n_in} nnz={nnz}; "
           f"max|y_plain| {scale:.6g}, kernel max abs err {err:.6g} "
           f"(rel {err / scale:.3g}, bar 1e-5), bitwise equal to a second "
           f"launch; torch.mv max abs err {lib_err:.6g}")
-    print(f"[{tag}] kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, torch.mv "
-          f"{lib_ms:.6f} ms, bound {bound_bytes} B -> {bound_ms:.6f} ms at "
-          f"3.35 TB/s ({100 * bound_ms / ms:.1f}% of it)")
-    # the longest row alone: one warp walks it, so its time is a floor
-    # under the whole call's
+    print(f"[{tag}] kernel {ms:.6f} ms (again after the rest: "
+          f"{ms_again:.6f}), one warp a row (the first schedule, this "
+          f"kernel) {old_ms:.6f} ms ({old_ms / ms:.2f}x), plain "
+          f"{plain_ms:.6f} ms, torch.mv {lib_ms:.6f} ms "
+          f"({lib_ms / ms:.2f}x the kernel's time), bound "
+          f"{bound_bytes} B -> {bound_ms:.6f} ms at 3.35 TB/s "
+          f"({100 * bound_ms / ms:.1f}% of it)")
+    # the longest row alone, a one-row plan: a long row's chunks run on
+    # one cluster of blocks, beside the rest of the call
     deg = plan.ptr[1:] - plan.ptr[:-1]
     i = int(torch.argmax(deg))
     b, e = int(plan.ptr[i]), int(plan.ptr[i + 1])
@@ -373,8 +446,37 @@ def phase_value_pull(tag, plan, x, plain_reps: int):
                                   device=x.device),
                      plan.ind[b:e], plan.val[b:e], 1, plan.n_in)
     row_ms = _event_ms(lambda: spmv_value_pull(row, x), 200)
-    print(f"[{tag}] longest row ({e - b} edges) alone: {row_ms:.6f} ms, "
+    print(f"[{tag}] longest row ({e - b} edges) alone: {row_ms:.6f} ms in "
+          f"{row.sched.blocks} block(s) ({row.sched.n_chunks} chunks), "
           f"{100 * row_ms / ms:.1f}% of the whole call")
+    # each bin alone, with its edges
+    length = (plan.ptr[1:] - plan.ptr[:-1]).long()[s.perm.long()]
+    parts = []
+    for b, name in enumerate(("long", "medium", "<=32", "<=16", "<=8",
+                              "<=4")):
+        lo, hi = s.bin_begin[b], s.bin_begin[b + 1]
+        if hi == lo:
+            continue
+        only = _bin_alone(plan, b)
+        b_ms = _event_ms(lambda: spmv_value_pull(only, x), 200)
+        parts.append(f"{name} {int(length[lo:hi].sum())} edges "
+                     f"{b_ms:.6f} ms")
+    print(f"[{tag}] each bin alone: " + "; ".join(parts))
+    # the medium bin's rows alone by length: whether a tail of warps on
+    # rows of thousands of edges holds the bin back
+    medium = s.perm[s.bin_begin[1]:s.bin_begin[2]]
+    m_len = length[s.bin_begin[1]:s.bin_begin[2]]
+    parts = []
+    for lo, hi in ((33, 256), (257, 1024), (1025, 4096), (4097, LONG_ROW)):
+        pick = (m_len >= lo) & (m_len <= hi)
+        if not bool(pick.any()):
+            continue
+        only = _warp_rows(plan, medium[pick])
+        r_ms = _event_ms(lambda: spmv_value_pull(only, x), 200)
+        parts.append(f"{lo}-{hi} edges: {int(pick.sum())} rows, "
+                     f"{int(m_len[pick].sum())} edges, {r_ms:.6f} ms")
+    if parts:
+        print(f"[{tag}] medium rows alone by length: " + "; ".join(parts))
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 library_ms=lib_ms)
 
@@ -411,6 +513,8 @@ def phase_pagerank(A, reps: int = 40):
         raise AssertionError("PageRank: two runs differ")
     launches = _expect_launches("PageRank", {"value_pull": iters}, counts)[
         "value_pull"]
+    if plan.sched is not A._plans["csc/schedule"]:
+        raise AssertionError("PageRank: the plan built its own schedule")
     print(f"[pr] rmat18 alpha {PR_ALPHA} eps {PR_EPS}: {iters} iterations, "
           f"last err {err:.3e}; sum|p - p_gold| {l1:.3e} (bar 1e-4), top-100 "
           f"max rel err {top_rel:.3e} (bar 1e-3), sum p {p.sum():.6f}; "
@@ -598,9 +702,92 @@ def phase_cc(A, k4_ms: float, reps: int = 40):
     return launches, golden, per_s
 
 
+def _k6_launch_costs(table, idx, calls: int = 10_000):
+    """Host µs a call of K6's launch path and of each of its pieces, over
+    `calls` back-to-back calls (host clock, one synchronize at the end):
+    the wrapper, torch.index_select, the first launch path's lines
+    (rebuilt here: device objects in the check, torch.empty with a
+    device, the library lookup, a device guard, the stream object, the
+    ctypes call, two counter updates) and each piece alone."""
+    import ctypes
+
+    import torch
+
+    from graphblast_tpu_torch.ops.kernels import _build, gather
+
+    sigs = {"gb_gather": ([ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 2
+                          + [ctypes.c_void_p], ctypes.c_int)}
+    lib = _build.load("gather", sigs)
+    m, n, dev = idx.shape[0], table.shape[0], table.get_device()
+    y = torch.empty_like(idx)
+    raw_stream = torch._C._cuda_getCurrentRawStream
+    stream = raw_stream(dev)
+    args = (table.data_ptr(), idx.data_ptr(), y.data_ptr(), m, n)
+    # the first path's two counter updates, on an object of their own so
+    # that gather_1d's counts stay its launches
+    counted = types.SimpleNamespace(launches=0, sorted_launches=0)
+
+    def first_wrapper():
+        if table.device != idx.device:
+            raise ValueError
+        out = torch.empty(m, dtype=table.dtype, device=table.device)
+        lib1 = _build.load("gather", sigs)
+        with torch.cuda.device(table.device):
+            s1 = torch.cuda.current_stream().cuda_stream
+            err = lib1.gb_gather(table.data_ptr(), idx.data_ptr(),
+                                 out.data_ptr(), m, n, s1)
+        if err:
+            raise RuntimeError(err)
+        counted.launches += 1
+        counted.sorted_launches += 0
+        return out
+
+    def counters():
+        counted.launches += 1
+        counted.sorted_launches += 1
+
+    def guard():
+        with torch.cuda.device(table.device):
+            pass
+
+    pieces = [
+        ("wrapper gather_1d", lambda: gather.gather_1d(table, idx)),
+        ("torch.index_select", lambda: torch.index_select(table, 0, idx)),
+        ("first launch path", first_wrapper),
+        ("_check", lambda: gather._check(table, idx)),
+        ("x.device != idx.device", lambda: table.device != idx.device),
+        ("torch.empty(device=x.device)",
+         lambda: torch.empty(m, dtype=table.dtype, device=table.device)),
+        ("x.new_empty", lambda: table.new_empty(m)),
+        ("_build.load", lambda: _build.load("gather", sigs)),
+        ("torch.cuda.device guard", guard),
+        ("current_stream().cuda_stream",
+         lambda: torch.cuda.current_stream().cuda_stream),
+        ("raw stream", lambda: raw_stream(dev)),
+        ("ctypes launch", lambda: lib.gb_gather(*args, stream)),
+        ("launcher launch", lambda: gather._LAUNCH(dev, *args)),
+        ("two counter updates", counters),
+    ]
+    out = {}
+    for name, fn in pieces:
+        for _ in range(100):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        out[name] = (time.perf_counter() - t0) / calls * 1e6
+    print(f"[K6 launch] host us a call, {calls} back-to-back calls at the "
+          f"row boundaries (m={m}): "
+          + "; ".join(f"{k} {v:.3f}" for k, v in out.items()))
+    return out
+
+
 def phase_gather(A):
-    """K6 at RMAT scale 18 at its three call-site classes, against its plain
-    version (tolerance 0) and a second launch; times and bounds."""
+    """K6 at RMAT scale 18 at its call-site classes, the x class also over
+    a misaligned slice, against its plain version (tolerance 0) and a
+    second launch; times and bounds; the launch path's host costs."""
     import numpy as np
     import torch
 
@@ -615,10 +802,13 @@ def phase_gather(A):
         np.int32)).cuda()
     words = pack_bitmap(torch.from_numpy(
         (rng.random(n) < 0.2).astype(np.float32)).cuda())
+    col = A.csc_row_ind.contiguous()
     cases = [
-        ("x", x, A.csc_row_ind.contiguous()),
+        ("x", x, col),
         ("boundary", csum, (A.col_ptr - 1).clamp(min=0).contiguous()),
         ("words", words, (A.csc_row_ind >> 5).contiguous()),
+        # a contiguous slice 4 bytes past an aligned start: the scalar path
+        ("x_misaligned", x, col[1:]),
     ]
     rows = {}
     for name, table, idx in cases:
@@ -642,18 +832,22 @@ def phase_gather(A):
         ms = _event_ms(lambda: gather_1d(table, idx), 200)
         plain_ms = _event_ms(lambda: gather_1d_plain(table, idx), 20)
         lib_ms = _event_ms(lambda: torch.index_select(table, 0, idx), 200)
+        ms_again = _event_ms(lambda: gather_1d(table, idx), 200)
         dev = _device_ms(lambda: gather_1d(table, idx), 50,
-                         ["gather_kernel"])
+                         ["gather_kernel", "gather4_kernel"])
         print(f"[K6 {name}] table {nt} x {table.dtype}, m={m}; equal to "
               f"plain (max diff {err}), to a second launch and to "
               "torch.index_select")
-        print(f"[K6 {name}] kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, "
-              f"torch.index_select {lib_ms:.6f} ms, bound {bound_bytes} B "
-              f"-> {bound_ms:.6f} ms at 3.35 TB/s "
+        print(f"[K6 {name}] kernel {ms:.6f} ms (again after "
+              f"torch.index_select: {ms_again:.6f}), plain {plain_ms:.6f} "
+              f"ms, torch.index_select {lib_ms:.6f} ms, bound {bound_bytes} "
+              f"B -> {bound_ms:.6f} ms at 3.35 TB/s "
               f"({100 * bound_ms / ms:.1f}% of it); device time alone "
               f"(torch.profiler) {dev}")
         rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                           bound_ms=bound_ms, library_ms=lib_ms)
+        if name == "boundary":
+            _k6_launch_costs(table, idx)
     return rows
 
 

@@ -6,7 +6,8 @@ shared library with a plain C interface, in graphblast_tpu_torch/_build/
 source and the flags, so an edited source is rebuilt, a current library is
 reused, and adding or editing one source leaves the others' libraries as
 they are. `build()` starts one nvcc per missing library, all at once, and
-waits for all of them. Nothing here runs at import time.
+waits for all of them. `launcher` is how every wrapper calls its kernel.
+Nothing here runs at import time.
 """
 from __future__ import annotations
 
@@ -16,6 +17,8 @@ import os
 import shutil
 import subprocess
 import tempfile
+
+import torch
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -94,3 +97,45 @@ def load(name: str, signatures: dict) -> ctypes.CDLL:
             getattr(lib, fn).restype = restype
         _loaded[name] = lib
     return lib
+
+
+# torch's current device and raw current-stream pointer, looked up at the
+# first launch (a CPU-only torch lacks both)
+_get_device = _raw_stream = None
+
+
+def _stream_api():
+    global _get_device, _raw_stream
+    torch.cuda.init()
+    _get_device = torch._C._cuda_getDevice
+    _raw_stream = torch._C._cuda_getCurrentRawStream
+
+
+def launcher(library: str, signatures: dict, entry: str, error: str):
+    """How a wrapper calls C entry `entry` of `library` on the current
+    stream of a device: `launch(device_index, *args)`, the stream pointer
+    appended as the last argument. The library is built and loaded, and
+    the entry and its error-string function `error` resolved, at the first
+    call only; a call enters the device only when it is not the current
+    one, and raises with the library's message when the entry returns an
+    error code. It makes no Python object of its own per call."""
+    fn = error_string = None
+
+    def launch(device: int, *args) -> None:
+        nonlocal fn, error_string
+        if fn is None:
+            if _get_device is None:
+                _stream_api()
+            lib = load(library, signatures)
+            error_string = getattr(lib, error)
+            fn = getattr(lib, entry)
+        if device == _get_device():
+            err = fn(*args, _raw_stream(device))
+        else:
+            with torch.cuda.device(device):
+                err = fn(*args, _raw_stream(device))
+        if err:
+            raise RuntimeError(f"{entry} launch failed: "
+                               + error_string(err).decode())
+
+    return launch

@@ -29,12 +29,13 @@ from ...types import round_up
 from . import _build
 from .value_pull import check_csr
 
-_SIGNATURES = {
-    "gb_bitmap_pull": ([ctypes.c_void_p] * 4 + [ctypes.c_int,
-                                                ctypes.c_void_p],
-                       ctypes.c_int),
-    "gb_error_string": ([ctypes.c_int], ctypes.c_char_p),
-}
+_LAUNCH = _build.launcher(
+    "bitmap_pull",
+    {"gb_bitmap_pull": ([ctypes.c_void_p] * 4 + [ctypes.c_int,
+                                                 ctypes.c_void_p],
+                        ctypes.c_int),
+     "gb_error_string": ([ctypes.c_int], ctypes.c_char_p)},
+    "gb_bitmap_pull", "gb_error_string")
 
 
 def pack_bitmap(x_dense: torch.Tensor) -> torch.Tensor:
@@ -121,15 +122,8 @@ def spmv_bitmap_pull(plan: BitmapPlan, words: torch.Tensor) -> torch.Tensor:
     y = torch.empty(plan.n_out, dtype=torch.int32, device=words.device)
     if plan.n_out == 0:      # a zero-size grid is an invalid launch
         return y
-    lib = _build.load("bitmap_pull", _SIGNATURES)
-    with torch.cuda.device(words.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.gb_bitmap_pull(plan.ptr.data_ptr(), plan.ind.data_ptr(),
-                                 words.data_ptr(), y.data_ptr(), plan.n_out,
-                                 stream)
-    if err:
-        raise RuntimeError("bitmap_pull launch failed: "
-                           + lib.gb_error_string(err).decode())
+    _LAUNCH(words.get_device(), plan.ptr.data_ptr(), plan.ind.data_ptr(),
+            words.data_ptr(), y.data_ptr(), plan.n_out)
     spmv_bitmap_pull.launches += 1
     return y
 

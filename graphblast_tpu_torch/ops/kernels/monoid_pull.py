@@ -36,12 +36,12 @@ from .value_pull import check_csr, check_x
 
 FLT_MAX = float(np.finfo(np.float32).max)
 
-_SIGNATURES = {
-    "gb_monoid_pull": ([ctypes.c_void_p] * 5
-                       + [ctypes.c_int] * 3
-                       + [ctypes.c_float, ctypes.c_void_p], ctypes.c_int),
-    "gb_monoid_pull_error_string": ([ctypes.c_int], ctypes.c_char_p),
-}
+_LAUNCH = _build.launcher(
+    "monoid_pull",
+    {"gb_monoid_pull": ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+                        + [ctypes.c_float, ctypes.c_void_p], ctypes.c_int),
+     "gb_monoid_pull_error_string": ([ctypes.c_int], ctypes.c_char_p)},
+    "gb_monoid_pull", "gb_monoid_pull_error_string")
 
 # semiring name -> (⊕, ⊗), as monopull.py:413-418
 SEMIRING_MAP = {
@@ -141,17 +141,9 @@ def spmv_monoid(plan: MonoidPlan, x: torch.Tensor, semiring) -> torch.Tensor:
     y = torch.empty(plan.n_out, dtype=torch.float32, device=x.device)
     if plan.n_out == 0:      # a zero-size grid is an invalid launch
         return y
-    lib = _build.load("monoid_pull", _SIGNATURES)
-    val = None if plan.val is None else plan.val.data_ptr()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.gb_monoid_pull(plan.ptr.data_ptr(), plan.ind.data_ptr(),
-                                 val, x.data_ptr(), y.data_ptr(), plan.n_out,
-                                 _ADD_CODE[add], _MUL_CODE[mul], ident,
-                                 stream)
-    if err:
-        raise RuntimeError("monoid_pull launch failed: "
-                           + lib.gb_monoid_pull_error_string(err).decode())
+    _LAUNCH(x.get_device(), plan.ptr.data_ptr(), plan.ind.data_ptr(),
+            None if plan.val is None else plan.val.data_ptr(), x.data_ptr(),
+            y.data_ptr(), plan.n_out, _ADD_CODE[add], _MUL_CODE[mul], ident)
     spmv_monoid.launches += 1
     return y
 

@@ -27,12 +27,13 @@ import torch
 
 from . import _build
 
-_SIGNATURES = {
-    "gb_orpull_csum": ([ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
-                        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
-                        ctypes.c_void_p], ctypes.c_int),
-    "gb_orpull_csum_error_string": ([ctypes.c_int], ctypes.c_char_p),
-}
+_LAUNCH = _build.launcher(
+    "orpull_csum",
+    {"gb_orpull_csum": ([ctypes.c_void_p, ctypes.c_longlong,
+                         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                         ctypes.c_void_p, ctypes.c_void_p], ctypes.c_int),
+     "gb_orpull_csum_error_string": ([ctypes.c_int], ctypes.c_char_p)},
+    "gb_orpull_csum", "gb_orpull_csum_error_string")
 
 TILE = 4096     # edges a block scans (csrc/orpull_csum.cu kTile)
 
@@ -81,15 +82,8 @@ def orpull_bit_csum(words: torch.Tensor,
         return csum
     tile_sums = torch.empty((m + TILE - 1) // TILE, dtype=torch.int32,
                             device=words.device)
-    lib = _build.load("orpull_csum", _SIGNATURES)
-    with torch.cuda.device(words.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.gb_orpull_csum(words.data_ptr(), words.shape[0],
-                                 col_ind.data_ptr(), csum.data_ptr(), m,
-                                 tile_sums.data_ptr(), stream)
-    if err:
-        raise RuntimeError("orpull_csum launch failed: "
-                           + lib.gb_orpull_csum_error_string(err).decode())
+    _LAUNCH(words.get_device(), words.data_ptr(), words.shape[0],
+            col_ind.data_ptr(), csum.data_ptr(), m, tile_sums.data_ptr())
     orpull_bit_csum.launches += 1
     return csum
 

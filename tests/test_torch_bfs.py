@@ -140,7 +140,7 @@ def test_push_modes_raise(graphs):
         bfs(T, 0, PULL, mode="async")
 
 
-def test_pull_without_a_plan_raises(graphs):
+def test_pull_without_a_plan_matches_the_plan_and_push_raises(graphs):
     """The plan-less pull no longer raises: with no plan, mxv_dual runs
     spmv_pull and gives the bitmap plan's frontier, and a BFS that is not
     structure-only (no plan) runs; only push still raises."""

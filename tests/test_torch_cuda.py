@@ -3,6 +3,8 @@
 They skip where torch.cuda.is_available() is False. On a machine with a
 card:  python -m pytest tests/test_torch_cuda.py -q
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -60,18 +62,36 @@ def test_bfs_on_the_card_matches_golden(cuda):
     assert bp.spmv_bitmap_pull.launches - launches == int(got.max())
 
 
-@pytest.mark.parametrize("n_out,n_in,m,hub", [
-    (500, 700, 3000, 0), (20000, 9000, 1, 0), (1, 33, 0, 0),
-    (3000, 100000, 200000, 0), (300, 5000, 9000, 6000)])
+def _hub_rows(rng, n_out, m, hub):
+    # m random edges, `hub` more on the middle row
+    return np.sort(np.r_[rng.integers(0, n_out, m), np.full(hub, n_out // 2)])
+
+
+def _uniform_rows(rng, n_out, m, hub):
+    # K3's regime: m // n_out (8) edges on every row
+    return np.repeat(np.arange(n_out), m // n_out)
+
+
+@pytest.mark.parametrize("n_out,n_in,m,hub,rows_of", [
+    (500, 700, 3000, 0, _hub_rows), (20000, 9000, 1, 0, _hub_rows),
+    (1, 33, 0, 0, _hub_rows), (3000, 100000, 200000, 0, _hub_rows),
+    (300, 5000, 9000, 6000, _hub_rows),
+    (300, 5000, 9000, 3 * vp.LONG_ROW + 777, _hub_rows),
+    (1, 5000, 0, 3 * vp.LONG_ROW + 1, _hub_rows),
+    (50000, 70000, 400000, 0, _uniform_rows)],
+    ids=["random", "one_edge", "one_row_empty", "wide", "hub",
+         "hub_over_3T", "one_long_row", "uniform8"])
 @pytest.mark.parametrize("unit", [False, True])
 def test_value_pull_matches_plain_on_the_card(cuda, n_out, n_in, m, hub,
-                                              unit):
+                                              rows_of, unit):
     """The value-pull kernel vs its plain version within 1e-5 * max|y| (the
     bar of tests/test_pallas.py; the kernel sums in float32, the plain
-    version in float64), and bitwise equal to a second launch. `hub` edges
-    go to one row; the edge arrays carry padding past ptr[n_out]."""
+    version in float64), and bitwise equal to a second launch, through every
+    bin of the row schedule: `hub` edges go to one row (over 3·T: a long row
+    cut into chunks), or every row has 8 edges. The edge arrays carry
+    padding past ptr[n_out]."""
     rng = np.random.default_rng(n_out + m + unit)
-    rows = np.sort(np.r_[rng.integers(0, n_out, m), np.full(hub, n_out // 2)])
+    rows = rows_of(rng, n_out, m, hub)
     cols = rng.integers(0, n_in, len(rows))
     ptr = np.zeros(n_out + 1, np.int64)
     np.add.at(ptr, rows + 1, 1)
@@ -93,6 +113,9 @@ def test_value_pull_matches_plain_on_the_card(cuda, n_out, n_in, m, hub,
     assert float((y - want).abs().max()) <= 1e-5 * max(
         float(want.abs().max()), 1e-30)
     assert torch.equal(y, y2)
+    if hub > 3 * vp.LONG_ROW:   # one cluster of chunks a long row
+        assert plan.sched.n_chunks == vp.CLUSTER * plan.sched.bin_rows[0]
+        assert plan.sched.bin_rows[0] >= 1
 
 
 def test_value_pull_refuses_what_the_kernel_does_not_take(cuda):
@@ -106,6 +129,9 @@ def test_value_pull_refuses_what_the_kernel_does_not_take(cuda):
                                              dtype=torch.float64))
     with pytest.raises(ValueError):
         vp.spmv_value_pull(plan, torch.zeros(4))
+    with pytest.raises(ValueError):    # a plan with no schedule
+        vp.spmv_value_pull(dataclasses.replace(plan, sched=None),
+                           torch.zeros(4, device=cuda))
 
 
 def test_pr_on_the_card_matches_golden(cuda):
@@ -242,6 +268,32 @@ def test_gather_matches_plain_on_the_card(cuda, n, m, sorted_idx, dtype):
     assert torch.equal(y, kg.gather_1d_plain(x, idx))
     assert torch.equal(y, y2)
     assert torch.equal(y.cpu(), kg.gather_1d(x.cpu(), idx.cpu()))
+
+
+@pytest.mark.parametrize("m", [1, 2, 3, 5, 4097, 262_145, 1_000_003])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32])
+def test_gather_misaligned_slice_on_the_card(cuda, m, dtype):
+    """K6 over idx[1:], a contiguous slice that is not 16-byte aligned,
+    and m not a multiple of 4 (the scalar path and the four-query path's
+    tail): equal to its plain version and to torch.index_select."""
+    n = 262_144
+    rng = np.random.default_rng(m)
+    x = torch.from_numpy((rng.standard_normal(n) * 1e6).astype(np.float32))
+    x = (x if dtype == torch.float32 else x.to(torch.int32)).to(cuda)
+    base = rng.integers(0, n, m + 1)
+    k = min(m, 4)
+    base[1:1 + k] = [0, n - 1, -7, n + 5][:k]
+    base = torch.from_numpy(base.astype(np.int32)).to(cuda)
+    for idx in (base[1:], base[:m]):
+        before = _launches()
+        y = kg.gather_1d(x, idx)
+        torch.cuda.synchronize()
+        assert _since(before)["gather"] == 1
+        want = kg.gather_1d_plain(x, idx)
+        assert y.dtype == dtype and y.shape == (m,)
+        assert torch.equal(y, want)
+        assert torch.equal(y, torch.index_select(
+            x, 0, idx.clamp(0, n - 1)))
 
 
 @pytest.mark.parametrize("n,m", [(4096, 70000), (4095, 70000), (50, 257),

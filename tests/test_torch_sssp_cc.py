@@ -254,7 +254,7 @@ def test_cc_stepped_prints_the_reference_rows(graphs, capsys):
     assert rows and rows[-1].split(", ")[1] == f"0/{T.nrows}"
 
 
-def test_cc_refuses_what_is_not_ported(graphs):
+def test_cc_refuses_csc_only_and_unknown_mode(graphs):
     """A CSC-only matrix needs push, which is not ported; an unknown mode
     raises. (At n >= 2^24 cc takes the plan-less spmv_pull, held in
     tests/test_torch_mis_gc.py.)"""
