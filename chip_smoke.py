@@ -9,12 +9,16 @@ Phases, each of which fails the run on error (each prints its seconds):
   2. K1 vs plain: at RMAT scale 18 (edge factor 16, seed 42) runs the
      bitmap pull K1 and its plain PyTorch version on three frontiers (the top
      hub, the hub's level-2 frontier, a seeded 20% frontier); counts must be
-     equal (tolerance 0: both are int32 counts). Times the kernel, the plain
-     version and torch.sparse CSR · frontier (a yardstick only; the package
-     never calls it) with CUDA events, and computes the kernel's bound;
+     equal (tolerance 0: both are int32 counts), to a second launch, to
+     torch.sparse CSR · frontier and, one warp a row (the first design's
+     schedule in the same kernel), to the plain version. Prints the plan's
+     row schedule (the CSC's, shared); times the kernel, one warp a row, the
+     plain version and torch.sparse (a yardstick only; the package never
+     calls it) with CUDA events, and computes the kernel's bound;
   3. BFS main path: pull-only BFS through graphblast_tpu_torch.algorithms.bfs
-     from the 8 highest-degree sources; levels must equal the NumPy golden
-     and K1 must have launched once per BFS iteration. Prints ms/run (median
+     from the 8 highest-degree sources; levels must equal the NumPy golden,
+     K1 must have launched once per BFS iteration and BFS's plan must read
+     the Matrix's cached CSC schedule (it built none). Prints ms/run (median
      over reps, synchronized) and GTEPS over reached edges;
   4. value pull (K2's call site) at RMAT scale 18: the CSR plan with the
      stored values and a seeded standard-normal x; the kernel must agree with
@@ -40,18 +44,23 @@ Phases, each of which fails the run on error (each prints its seconds):
      MinimumSelectSecond over the unit-valued CSR with x the float32 ids
      (CC's); MinimumMultiplies and MaximumMultiplies over the weighted CSC
      with a uniform x. Each must be torch.equal to its plain version
-     (tolerance 0) and to a second launch, finite, of shape (n_out,). Times
-     the kernel and the plain version with CUDA events, computes the bound,
-     and times the longest row alone;
+     (tolerance 0), to a second launch and, one warp a row (the first
+     design's schedule in the same kernel), to the plain version, finite,
+     of shape (n_out,). Prints the CSC's and the CSR's row schedules (the
+     Matrix's cached ones); times the kernel, one warp a row and the plain
+     version with CUDA events, computes the bound, and times the longest
+     row alone;
   7. SSSP main path: graphblast_tpu_torch.algorithms.sssp pull-only from
      the 8 highest-degree sources; distances must equal the port's NumPy
-     golden exactly and K4 must have launched once per iteration, no other
-     kernel at all. Prints ms/run (median and tail over 80 synchronized
-     runs), the iterations, GTEPS over reached edges and K4's share;
+     golden exactly, K4 must have launched once per iteration, no other
+     kernel at all, and SSSP's plan must read the cached CSC schedule.
+     Prints ms/run (median and tail over 80 synchronized runs), the
+     iterations, GTEPS over reached edges and K4's share;
   8. CC main path: graphblast_tpu_torch.algorithms.cc; labels must equal
      the port's golden and pass verify_cc, with one K4 launch per
-     iteration. Prints ms/run (median and tail over 40 runs), the
-     iterations, the component count, cc_gteps and K4's share;
+     iteration, over a plan that reads the cached CSR schedule. Prints
+     ms/run (median and tail over 40 runs), the iterations, the component
+     count, cc_gteps and K4's share;
   9. K6, the gather, at RMAT scale 18 in four cases: a float32 table of n
      at the CSC's row ids (MIS's gather of x, m = nnz_pad), an int32 table
      of nnz_pad at the sorted row boundaries col_ptr - 1 (m = n + 1), the
@@ -90,8 +99,11 @@ Phases, each of which fails the run on error (each prints its seconds):
      the 50 MB L2; the same checks and timings as phase 4;
   16. prints {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
 
-Exits non-zero, printing no result, when CUDA is unavailable or the package
-is missing.
+Every check of results, launch counts and schedules raises. A
+torch.profiler reading that cannot be trusted (no device time, or more
+device time than wall time) prints "not measured" and its reason and
+does not fail the run. Exits non-zero, printing no result, when CUDA is
+unavailable or the package is missing.
 """
 import json
 import subprocess
@@ -120,10 +132,12 @@ def _event_ms(fn, reps: int) -> float:
 
 
 def _device_profile(fn, reps: int):
-    """(device µs by kernel name, wall ms) of `reps` synchronized calls of
-    fn under torch.profiler: the kernels' own events only, not the host ops
-    that launched them; an empty table when the trace holds no device
-    time."""
+    """(device µs by kernel name, wall ms, why not measured) of `reps`
+    synchronized calls of fn under torch.profiler: the kernels' own events
+    only, not the host ops that launched them. The table is empty, and the
+    reason says why, when the trace holds no device time or more device
+    time than wall time (events counted twice): a flaw of the reading, not
+    of the kernels, so it is printed and does not fail the run."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -148,19 +162,24 @@ def _device_profile(fn, reps: int):
         if us > 0:
             table[e.key] = table.get(e.key, 0.0) + us
     busy_ms = sum(table.values()) / 1e3
+    if not table:
+        return {}, wall_ms, "the trace holds no device time"
     if busy_ms > wall_ms:
-        raise AssertionError(f"torch.profiler: device busy {busy_ms} ms in "
-                             f"a wall time of {wall_ms} ms; its events "
-                             "count some device time twice")
-    return table, wall_ms
+        return {}, wall_ms, (f"device busy {busy_ms:.6f} ms in a wall time "
+                             f"of {wall_ms:.6f} ms: the trace counts some "
+                             "device time twice")
+    return table, wall_ms, None
 
 
 def _device_ms(fn, reps: int, names) -> str:
     """Device ms per call of fn spent in kernels whose names contain one of
-    `names`, from a torch.profiler trace, or "not measured"."""
-    table, _ = _device_profile(fn, reps)
+    `names`, from a torch.profiler trace, or "not measured" and why."""
+    table, _, why = _device_profile(fn, reps)
     us = sum(v for k, v in table.items() if any(n in k for n in names))
-    return f"{us / reps / 1e3:.6f} ms" if us else "not measured"
+    if why:
+        return f"not measured ({why})"
+    return f"{us / reps / 1e3:.6f} ms" if us else (
+        "not measured (no kernel of that name in the trace)")
 
 
 def _wrappers():
@@ -256,6 +275,7 @@ def phase_kernel_vs_plain(A, golden_hub, hub):
         spmv_bitmap_pull_plain)
 
     plan = plan_for_bitmap(A, transpose=True)
+    old = _warp_rows(plan)
     n = A.nrows
     nnz = int(plan.ptr[-1])
     frontiers = {
@@ -274,28 +294,39 @@ def phase_kernel_vs_plain(A, golden_hub, hub):
     print(f"[K1] n_out={plan.n_out} n_in={plan.n_in} nnz={nnz} "
           f"words={n_words} bound {bound_bytes} B -> {bound_ms:.6f} ms "
           "at 3.35 TB/s")
+    print(f"[K1] schedule (the CSC's, shared): {_schedule_text(plan.sched)}")
     rows = {}
     for name, f_np in frontiers.items():
         f = torch.from_numpy(f_np).cuda()
         words = pack_bitmap(f)
         y = spmv_bitmap_pull(plan, words)
+        y_again = spmv_bitmap_pull(plan, words)
+        y_old = spmv_bitmap_pull(old, words)
         y_plain = spmv_bitmap_pull_plain(plan, words)
         y_lib = torch.mv(lib_mat, f)
         torch.cuda.synchronize()
         err = int((y - y_plain).abs().max())
         if not torch.equal(y, y_plain):
             raise AssertionError(f"K1 != plain on {name}: max diff {err}")
+        if not (torch.equal(y, y_again) and torch.equal(y_old, y_plain)):
+            raise AssertionError(f"K1 on {name}: differs from a second "
+                                 "launch or, one warp a row, from plain")
         if not torch.equal(y_lib.round().to(torch.int32), y):
             raise AssertionError(f"K1 != torch.sparse counts on {name}")
         ms = _event_ms(lambda: spmv_bitmap_pull(plan, words), 200)
         plain_ms = _event_ms(lambda: spmv_bitmap_pull_plain(plan, words), 20)
         lib_ms = _event_ms(lambda: torch.mv(lib_mat, f), 50)
+        old_ms = _event_ms(lambda: spmv_bitmap_pull(old, words), 200)
+        ms_again = _event_ms(lambda: spmv_bitmap_pull(plan, words), 200)
         rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                           library_ms=lib_ms)
         print(f"[K1] {name}: frontier={int(f_np.sum())} "
-              f"sum(y)={int(y.sum())} equal to plain (max diff {err}); "
-              f"kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, "
-              f"torch.sparse {lib_ms:.6f} ms, bound {bound_ms:.6f} ms")
+              f"sum(y)={int(y.sum())} equal to plain (max diff {err}), to "
+              f"a second launch and to torch.sparse; kernel {ms:.6f} ms "
+              f"(again: {ms_again:.6f}), one warp a row (the first "
+              f"schedule, this kernel) {old_ms:.6f} ms ({old_ms / ms:.2f}x), "
+              f"plain {plain_ms:.6f} ms, torch.sparse {lib_ms:.6f} ms, bound "
+              f"{bound_ms:.6f} ms")
     return rows, bound_ms
 
 
@@ -303,6 +334,7 @@ def phase_main_path(A, sources, goldens, reps: int = 10):
     import numpy as np
 
     import graphblast_tpu_torch as gt
+    from graphblast_tpu_torch.algorithms.bfs import bfs_pull_plan
 
     desc = gt.BFS_TUNED.replace(mxv_mode=gt.Direction.PULLONLY)
     bfs = gt.algorithms.bfs
@@ -311,6 +343,7 @@ def phase_main_path(A, sources, goldens, reps: int = 10):
     iters = [int(v.max()) for v in levels]   # one K1 launch per iteration
     launches = _expect_launches("BFS", {"bitmap_pull": sum(iters)})[
         "bitmap_pull"]
+    _expect_shared_schedule("BFS", bfs_pull_plan(A, desc), A, "csc")
     for s, v, want in zip(sources, levels, goldens):
         if v.shape != (A.nrows,) or not np.isfinite(v).all():
             raise AssertionError(f"BFS from {s}: bad levels array")
@@ -335,18 +368,18 @@ def phase_main_path(A, sources, goldens, reps: int = 10):
 
 
 def _warp_rows(plan, rows=None):
-    """The plan with a schedule that puts `rows` (all, in row order, by
-    default) in the medium bin, one warp a row, and launches nothing else.
-    With every row it is the first design's schedule: the redesigned
-    kernel then walks each row as the first design did, through perm and
-    with its own four-edge loop. With some rows it times those alone (the
-    other rows' y is left unwritten)."""
+    """The plan (value, monoid or bitmap) with a schedule that puts `rows`
+    (all, in row order, by default) in the medium bin, one warp a row, and
+    launches nothing else. With every row it is the first design's
+    schedule: the redesigned kernel then walks each row as the first design
+    did, through perm and with its own four-edge loop. With some rows it
+    times those alone (the other rows' y is left unwritten)."""
     import dataclasses
 
     import torch
 
-    from graphblast_tpu_torch.ops.kernels.value_pull import (N_BINS,
-                                                             RowSchedule)
+    from graphblast_tpu_torch.ops.kernels.row_schedule import (N_BINS,
+                                                               RowSchedule)
 
     dev = plan.ptr.device
     if rows is None:
@@ -359,6 +392,26 @@ def _warp_rows(plan, rows=None):
         block_begin=(0, 0) + (blocks,) * (N_BINS - 1)))
 
 
+def _schedule_text(s) -> str:
+    """A RowSchedule's rows per bin, long rows, chunks and blocks."""
+    from graphblast_tpu_torch.ops.kernels.row_schedule import (CLUSTER,
+                                                               LONG_ROW)
+
+    return (f"rows per bin (long, medium, <=32, <=16, <=8, <=4 edges) "
+            f"{list(s.bin_rows)}; {s.bin_rows[0]} long rows (T = {LONG_ROW})"
+            f" in {s.n_chunks} chunks, {CLUSTER} a row (one cluster); "
+            f"{s.blocks} blocks")
+
+
+def _expect_shared_schedule(path: str, plan, A, orient: str):
+    """Raises unless `plan` reads the schedule cached for `orient` on A,
+    the one every plan of that orientation shares (it built none)."""
+    if plan.sched is None or plan.sched is not A._plans.get(
+            orient + "/schedule"):
+        raise AssertionError(f"{path}: the plan built its own schedule, not "
+                             f"A._plans[{orient + '/schedule'!r}]")
+
+
 def _bin_alone(plan, b: int):
     """The plan with a schedule that launches only bin b's blocks (the
     other rows' y is left unwritten): a bin's share of the call."""
@@ -366,7 +419,7 @@ def _bin_alone(plan, b: int):
 
     import numpy as np
 
-    from graphblast_tpu_torch.ops.kernels.value_pull import N_BINS
+    from graphblast_tpu_torch.ops.kernels.row_schedule import N_BINS
 
     s = plan.sched
     blocks = [s.block_begin[i + 1] - s.block_begin[i] if i == b else 0
@@ -383,9 +436,10 @@ def phase_value_pull(tag, plan, x, plain_reps: int):
     medium bin's rows alone by length."""
     import torch
 
+    from graphblast_tpu_torch.ops.kernels.row_schedule import (
+        LONG_ROW, build_schedule)
     from graphblast_tpu_torch.ops.kernels.value_pull import (
-        CLUSTER, LONG_ROW, build_plan, build_schedule, spmv_value_pull,
-        spmv_value_pull_plain)
+        build_plan, spmv_value_pull, spmv_value_pull_plain)
 
     nnz = int(plan.ptr[-1])
     y = spmv_value_pull(plan, x)
@@ -412,12 +466,8 @@ def phase_value_pull(tag, plan, x, plain_reps: int):
     lib_err = float((y_lib - y_plain).abs().max())
     s = plan.sched
     build_s, _ = _timed_runs(lambda: build_schedule(plan.ptr), 5)
-    print(f"[{tag}] schedule: rows per bin (long, medium, <=32, <=16, <=8, "
-          f"<=4 edges) {list(s.bin_rows)}; {s.bin_rows[0]} long rows (T = "
-          f"{LONG_ROW}) in {s.n_chunks} chunks, {CLUSTER} a row (one "
-          f"cluster); "
-          f"{s.blocks} blocks; built in {build_s * 1e3:.6f} ms on the card "
-          "(median of 5)")
+    print(f"[{tag}] schedule: {_schedule_text(s)}; built in "
+          f"{build_s * 1e3:.6f} ms on the card (median of 5)")
     bound_bytes = 8 * nnz + 4 * (plan.n_out + 1) + 4 * plan.n_in \
         + 4 * plan.n_out
     bound_ms = bound_bytes / HBM_BYTES_PER_S * 1e3
@@ -513,8 +563,7 @@ def phase_pagerank(A, reps: int = 40):
         raise AssertionError("PageRank: two runs differ")
     launches = _expect_launches("PageRank", {"value_pull": iters}, counts)[
         "value_pull"]
-    if plan.sched is not A._plans["csc/schedule"]:
-        raise AssertionError("PageRank: the plan built its own schedule")
+    _expect_shared_schedule("PageRank", plan, A, "csc")
     print(f"[pr] rmat18 alpha {PR_ALPHA} eps {PR_EPS}: {iters} iterations, "
           f"last err {err:.3e}; sum|p - p_gold| {l1:.3e} (bar 1e-4), top-100 "
           f"max rel err {top_rel:.3e} (bar 1e-3), sum p {p.sum():.6f}; "
@@ -543,7 +592,8 @@ def phase_pagerank(A, reps: int = 40):
 
 def phase_monoid_pull(A):
     """K4 at RMAT scale 18 for each semiring of its map, against its plain
-    version (tolerance 0) and a second launch; times and bounds."""
+    version (tolerance 0), a second launch and one warp a row; its
+    schedules; times (beside one warp a row) and bounds."""
     import numpy as np
     import torch
 
@@ -551,12 +601,14 @@ def phase_monoid_pull(A):
     from graphblast_tpu_torch.ops.kernels.monoid_pull import (
         FLT_MAX, build_plan_monoid, plan_for_monoid, spmv_monoid,
         spmv_monoid_plain)
+    from graphblast_tpu_torch.ops.kernels.row_schedule import schedule_for
 
     n = A.nrows
     rng = np.random.default_rng(7)
     w = torch.from_numpy(rng.uniform(0.5, 2.0, A.nvals).astype(
         np.float32)).cuda()
-    csc = build_plan_monoid(A.col_ptr, A.csc_row_ind, w, n, n)
+    csc = build_plan_monoid(A.col_ptr, A.csc_row_ind, w, n, n,
+                            schedule_for(A, transpose=True))
     x_sssp = np.where(rng.random(n) < 0.4, np.float32(FLT_MAX),
                       rng.uniform(0.0, 5.0, n)).astype(np.float32)
     x_uniform = rng.uniform(0.0, 5.0, n).astype(np.float32)
@@ -567,12 +619,17 @@ def phase_monoid_pull(A):
         ("min_mul", gt.MinimumMultipliesSemiring, csc, x_uniform),
         ("max_mul", gt.MaximumMultipliesSemiring, csc, x_uniform),
     ]
+    for orient, plan in (("CSC", csc), ("CSR", cases[1][2])):
+        print(f"[K4] schedule of the {orient} (shared): "
+              f"{_schedule_text(plan.sched)}")
     rows = {}
     for name, sr, plan, x_np in cases:
         x = torch.from_numpy(x_np).cuda()
         nnz = int(plan.ptr[-1])
+        old = _warp_rows(plan)
         y = spmv_monoid(plan, x, sr)
         y_again = spmv_monoid(plan, x, sr)
+        y_old = spmv_monoid(old, x, sr)
         y_plain = spmv_monoid_plain(plan, x, sr)
         torch.cuda.synchronize()
         if y.shape != (plan.n_out,) or not bool(torch.isfinite(y).all()):
@@ -582,6 +639,8 @@ def phase_monoid_pull(A):
             raise AssertionError(f"K4 {name} != plain: max diff {err}")
         if not torch.equal(y, y_again):
             raise AssertionError(f"K4 {name}: two launches differ")
+        if not torch.equal(y_old, y_plain):
+            raise AssertionError(f"K4 {name}, one warp a row, != plain")
         # ind, val (none on the unit plan), ptr, x and y, each once
         vals = 0 if plan.val is None else 4
         bound_bytes = (4 + vals) * nnz + 4 * (plan.n_out + 1) \
@@ -589,6 +648,8 @@ def phase_monoid_pull(A):
         bound_ms = bound_bytes / HBM_BYTES_PER_S * 1e3
         ms = _event_ms(lambda: spmv_monoid(plan, x, sr), 200)
         plain_ms = _event_ms(lambda: spmv_monoid_plain(plan, x, sr), 20)
+        old_ms = _event_ms(lambda: spmv_monoid(old, x, sr), 200)
+        ms_again = _event_ms(lambda: spmv_monoid(plan, x, sr), 200)
         deg = plan.ptr[1:] - plan.ptr[:-1]
         i = int(torch.argmax(deg))
         b, e = int(plan.ptr[i]), int(plan.ptr[i + 1])
@@ -599,13 +660,15 @@ def phase_monoid_pull(A):
         row_ms = _event_ms(lambda: spmv_monoid(row, x, sr), 200)
         identity = int((y == float(sr.identity(torch.float32))).sum())
         print(f"[K4 {name}] n_out={plan.n_out} n_in={plan.n_in} nnz={nnz}; "
-              f"equal to plain (max diff {err}) and to a second launch; "
-              f"{identity} rows at the identity")
-        print(f"[K4 {name}] kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, "
-              f"bound {bound_bytes} B -> {bound_ms:.6f} ms at 3.35 TB/s "
+              f"equal to plain (max diff {err}), to a second launch and to "
+              f"one warp a row; {identity} rows at the identity")
+        print(f"[K4 {name}] kernel {ms:.6f} ms (again: {ms_again:.6f}), one "
+              f"warp a row (the first schedule, this kernel) {old_ms:.6f} ms "
+              f"({old_ms / ms:.2f}x), plain {plain_ms:.6f} ms, bound "
+              f"{bound_bytes} B -> {bound_ms:.6f} ms at 3.35 TB/s "
               f"({100 * bound_ms / ms:.1f}% of it); longest row ({e - b} "
-              f"edges) alone {row_ms:.6f} ms, {100 * row_ms / ms:.1f}% of "
-              "the whole call")
+              f"edges) alone {row_ms:.6f} ms in {row.sched.blocks} block(s), "
+              f"{100 * row_ms / ms:.1f}% of the whole call")
         rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                           bound_ms=bound_ms, library_ms=None)
     return rows
@@ -640,6 +703,7 @@ def phase_sssp(A, sources, k4_ms: float, reps: int = 10):
             raise AssertionError(f"SSSP from {s}: {bad} distances != golden")
     launches = _expect_launches("SSSP", {"monoid_pull": sum(iters)}, counts)[
         "monoid_pull"]
+    _expect_shared_schedule("SSSP", plan, A, "csc")
     print(f"[sssp] {len(sources)} sources: distances == NumPy golden; "
           f"iterations {iters}; K4 launches {launches}")
     srcs = iter([int(s) for s in sources] * reps)
@@ -677,8 +741,8 @@ def phase_cc(A, k4_ms: float, reps: int = 40):
     _reset_counts()
     labels = gt.algorithms.cc(A).to_numpy()
     counts = _read_counts()
-    _, iters = _cc_fused(A, plan_for_monoid(A, ones=True),
-                         max_niter=gt.DEFAULT.max_niter)
+    plan = plan_for_monoid(A, ones=True)
+    _, iters = _cc_fused(A, plan, max_niter=gt.DEFAULT.max_niter)
     if labels.shape != (A.nrows,):
         raise AssertionError("CC: bad label array")
     bad = int((labels != golden).sum())
@@ -687,6 +751,7 @@ def phase_cc(A, k4_ms: float, reps: int = 40):
                              "fails")
     launches = _expect_launches("CC", {"monoid_pull": iters}, counts)[
         "monoid_pull"]
+    _expect_shared_schedule("CC", plan, A, "csr")
     comps = len(np.unique(labels))
     print(f"[cc] rmat18: labels == NumPy golden, verify_cc holds; {comps} "
           f"components; {iters} iterations; K4 launches {launches}")
@@ -1008,10 +1073,10 @@ def _mis_breakdown(A, w0, rounds: int):
           f"of which the segmented scan alone {scan_ms:.6f} ms "
           f"({100 * scan_ms / max_ms:.1f}%); LogicalOrAnd pull "
           f"{or_ms:.6f} ms")
-    table, wall_ms = _device_profile(lambda: gt.algorithms.mis(A, seed=1), 1)
-    if not table:
-        print("[mis] torch.profiler: no device time in the trace; device "
-              "busy share not measured")
+    table, wall_ms, why = _device_profile(
+        lambda: gt.algorithms.mis(A, seed=1), 1)
+    if why:
+        print(f"[mis] torch.profiler: device busy share not measured ({why})")
         return
     busy_ms = sum(table.values()) / 1e3
     top = sorted(table.items(), key=lambda kv: -kv[1])[:6]

@@ -11,25 +11,28 @@
 // Hillis-Steele run-scan and selects the run totals into y through a one-hot
 // matrix-unit product with presence rows and a hi/lo bf16 split: all of it
 // because the TPU has no scatter and its matrix unit wants dense tiles. Here
-// the plan is the pull orientation's CSR, one warp per output row, its 32
-// lanes stride over the row's edges reading x through the read-only cache,
-// each lane folds its products into a register that starts at the identity,
-// and a butterfly of warp shuffles folds the 32 registers. min and max do
-// not depend on order, so the result equals the plain PyTorch version's
-// (gather, product, clamp, scatter_reduce) and two launches agree bitwise.
-// Products use __fadd_rn / __fmul_rn, never a fused multiply-add, so they
-// round exactly as the plain version's. The clamp turns an overflow such as
-// FLT_MAX + w (SSSP's unreached sentinel plus a weight) into FLT_MAX, as the
-// TPU kernel's saturation does; with select-second the value array is not
-// read at all.
+// the plan is the pull orientation's CSR read through the row schedule that
+// the value pull uses (row_schedule.cuh, the orientation's cached
+// RowSchedule): short rows 4-32 lanes each, medium rows a warp each, rows
+// of more than 8192 edges an 8-block cluster each whose chunk results are
+// folded through distributed shared memory. Every fold (a lane's edges,
+// the shuffles, a block's warps, a long row's chunks) starts at the
+// identity, so empty rows, which sit in the 4-lane bin, keep it. min and
+// max do not depend on order, so the result equals the plain PyTorch
+// version's (gather, product, clamp, scatter_reduce) and two launches agree
+// bitwise. Products use __fadd_rn / __fmul_rn, never a fused multiply-add,
+// so they round exactly as the plain version's. The clamp turns an
+// overflow such as FLT_MAX + w (SSSP's unreached sentinel plus a weight)
+// into FLT_MAX, as the TPU kernel's saturation does; with select-second the
+// value array is not read at all.
 //
 // Bound on an H100 SXM: memory. Each call must read ind (4 B per edge), val
 // (4 B per edge, none for select-second), ptr (n_out + 1), x (n_in) and
 // write y (n_out): at RMAT scale 18, 64,028,004 B for MinimumPlus over the
 // CSC (19.1 us at 3.35 TB/s) and 33,586,868 B for MinimumSelectSecond over
-// the CSR (10.0 us). Rows shorter than 32 edges leave lanes idle, and the
-// hub row (25,077 edges at RMAT scale 18, 784 strided steps) runs long on
-// one warp: balancing them is work for a later change.
+// the CSR (10.0 us). The first design, one warp a row, took 10.6x the
+// bound for MinimumPlus: lanes idle on short rows and the hub row (25,077
+// edges) as 784 strided steps on one warp (PERF.md).
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //             -Xcompiler -fPIC (graphblast_tpu_torch/ops/kernels/_build.py)
@@ -37,83 +40,86 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
-namespace {
+#include "row_schedule.cuh"
 
-constexpr int kWarpsPerBlock = 8;
+namespace {
 
 // (+) and (x) codes; the wrapper passes the same numbers
 constexpr int kMin = 0, kMax = 1;
 constexpr int kPlus = 0, kMul = 1, kSecond = 2;
 
-template <int kAdd>
-__device__ __forceinline__ float fold(float a, float b) {
-  return kAdd == kMin ? fminf(a, b) : fmaxf(a, b);
-}
-
+// the schedule's policy: each edge's clamped product, folded with (+)
 template <int kAdd, int kTimes>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-monoid_pull_kernel(const int32_t* __restrict__ ptr,
-                   const int32_t* __restrict__ ind,
-                   const float* __restrict__ val,
-                   const float* __restrict__ x,
-                   float* __restrict__ y, int n_out, float ident) {
-  const int lane = threadIdx.x & 31;
-  const long long row =
-      (long long)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (row >= n_out) return;  // whole warps leave together
-  const long long beg = __ldg(ptr + row);
-  const long long end = __ldg(ptr + row + 1);
-  float acc = ident;
-  for (long long e = beg + lane; e < end; e += 32) {
-    const float xv = __ldg(x + __ldg(ind + e));
+struct MonoidFold {
+  using Acc = float;
+  using Item = float;   // the clamped product
+  const float* __restrict__ val;   // null: every value 1
+  const float* __restrict__ x;
+  float ident;
+
+  __device__ __forceinline__ float identity() const { return ident; }
+  __device__ __forceinline__ float fetch(int j, long long e) const {
+    const float xv = __ldg(x + j);
     float p = xv;
     if (kTimes != kSecond) {
       const float a = val == nullptr ? 1.0f : __ldg(val + e);
       p = kTimes == kPlus ? __fadd_rn(a, xv) : __fmul_rn(a, xv);
     }
-    acc = fold<kAdd>(acc, fminf(fmaxf(p, -FLT_MAX), FLT_MAX));
+    return fminf(fmaxf(p, -FLT_MAX), FLT_MAX);
   }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    acc = fold<kAdd>(acc, __shfl_xor_sync(0xffffffffu, acc, off));
-  if (lane == 0) y[row] = acc;
-}
+  __device__ __forceinline__ float add(float acc, float p) const {
+    return combine(acc, p);
+  }
+  static __device__ __forceinline__ float combine(float a, float b) {
+    return kAdd == kMin ? fminf(a, b) : fmaxf(a, b);
+  }
+};
 
 template <int kAdd, int kTimes>
-void launch(const void* ptr, const void* ind, const void* val, const void* x,
-            void* y, int n_out, float ident, cudaStream_t stream) {
-  const long long blocks =
-      ((long long)n_out + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  monoid_pull_kernel<kAdd, kTimes>
-      <<<(unsigned)blocks, kWarpsPerBlock * 32, 0, stream>>>(
-          (const int32_t*)ptr, (const int32_t*)ind, (const float*)val,
-          (const float*)x, (float*)y, n_out, ident);
+cudaError_t launch(const int32_t* ptr, const int32_t* ind, const float* val,
+                   const float* x, float* y, const int32_t* perm,
+                   const int32_t* chunk_beg, const row_schedule::Sched& s,
+                   float ident, cudaStream_t stream) {
+  return row_schedule::launch(MonoidFold<kAdd, kTimes>{val, x, ident}, ptr,
+                              ind, y, perm, chunk_beg, s, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launches on `stream` and returns cudaGetLastError() (0 on success), or
+// Launches on `stream` and returns the launch's error (0 on success), or
 // cudaErrorInvalidValue for an (add, times) pair with no instantiation.
 // add: 0 min, 1 max; times: 0 plus, 1 multiplies, 2 select-second. `val`
-// may be null: every edge then has the value 1. The caller allocates y and
-// never passes n_out == 0.
+// may be null: every edge then has the value 1. perm, chunk_beg and `meta`
+// (a host array of 2 * 7 ints) are the row schedule's, as gb_value_pull
+// takes them. The caller allocates y and never passes a schedule with no
+// block.
 int gb_monoid_pull(const void* ptr, const void* ind, const void* val,
-                   const void* x, void* y, int n_out, int add, int times,
-                   float ident, void* stream) {
-  const auto s = (cudaStream_t)stream;
+                   const void* x, void* y, const void* perm,
+                   const void* chunk_beg, const int* meta, int add,
+                   int times, float ident, void* stream) {
+  const row_schedule::Sched s = row_schedule::sched_of(meta);
+  const auto* p = (const int32_t*)ptr;
+  const auto* i = (const int32_t*)ind;
+  const auto* v = (const float*)val;
+  const auto* xs = (const float*)x;
+  auto* ys = (float*)y;
+  const auto* pm = (const int32_t*)perm;
+  const auto* cb = (const int32_t*)chunk_beg;
+  const auto st = (cudaStream_t)stream;
+  cudaError_t err;
   if (add == kMin && times == kPlus)
-    launch<kMin, kPlus>(ptr, ind, val, x, y, n_out, ident, s);
+    err = launch<kMin, kPlus>(p, i, v, xs, ys, pm, cb, s, ident, st);
   else if (add == kMin && times == kMul)
-    launch<kMin, kMul>(ptr, ind, val, x, y, n_out, ident, s);
+    err = launch<kMin, kMul>(p, i, v, xs, ys, pm, cb, s, ident, st);
   else if (add == kMin && times == kSecond)
-    launch<kMin, kSecond>(ptr, ind, val, x, y, n_out, ident, s);
+    err = launch<kMin, kSecond>(p, i, v, xs, ys, pm, cb, s, ident, st);
   else if (add == kMax && times == kMul)
-    launch<kMax, kMul>(ptr, ind, val, x, y, n_out, ident, s);
+    err = launch<kMax, kMul>(p, i, v, xs, ys, pm, cb, s, ident, st);
   else
     return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }
 
 const char* gb_monoid_pull_error_string(int err) {

@@ -3,17 +3,18 @@
 Each source under graphblast_tpu_torch/csrc/ compiles on its own into a
 shared library with a plain C interface, in graphblast_tpu_torch/_build/
 (not tracked by git). The library's file name carries a hash of its own
-source and the flags, so an edited source is rebuilt, a current library is
-reused, and adding or editing one source leaves the others' libraries as
-they are. `build()` starts one nvcc per missing library, all at once, and
-waits for all of them. `launcher` is how every wrapper calls its kernel.
-Nothing here runs at import time.
+source, the csrc/ headers it includes and the flags, so an edited source or
+header is rebuilt, a current library is reused, and adding or editing one
+source leaves the others' libraries as they are. `build()` starts one nvcc
+per missing library, all at once, and waits for all of them. `launcher` is
+how every wrapper calls its kernel. Nothing here runs at import time.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -45,10 +46,23 @@ def nvcc() -> str:
     return path
 
 
+def _sources_of(src: str, seen: dict) -> dict:
+    """{file name: text} of csrc/`src` and every csrc/ header it includes
+    with `#include "..."`, directly or through another header."""
+    with open(os.path.join(CSRC_DIR, src), "rb") as f:
+        seen[src] = text = f.read()
+    for inc in re.findall(rb'^\s*#include\s+"([^"]+)"', text, re.M):
+        if inc.decode() not in seen:
+            _sources_of(inc.decode(), seen)
+    return seen
+
+
 def library_path(name: str) -> str:
+    """Where library `name` is built: its file name hashes the flags, its
+    source and the headers of csrc/ that the source includes."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    with open(os.path.join(CSRC_DIR, SOURCES[name]), "rb") as f:
-        h.update(f.read())
+    for src, text in sorted(_sources_of(SOURCES[name], {}).items()):
+        h.update(src.encode() + b"\0" + text)
     return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
 
 

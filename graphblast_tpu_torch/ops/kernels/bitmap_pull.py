@@ -8,10 +8,11 @@ plan from build_plan_bitmap / plan_for_bitmap) and the frontier packer
 graphblast_tpu/ops/pallas/orpull.py:pack_bitmap.
 
 The TPU plan's panels, windows and one-hot scatter work around VMEM and the
-matrix unit; on Hopper the plan is just the pull orientation's CSR (CSC for
-vxm). The CUDA kernel (csrc/bitmap_pull.cu) gives each output row one warp.
-It is memory-bound: 4·(nnz + 2·n_out + ⌈n_in/32⌉) bytes per call, 32.6 MB
-at RMAT scale 18, 9.7 µs at the H100's 3.35 TB/s.
+matrix unit; on Hopper the plan is the pull orientation's CSR (CSC for vxm)
+with the orientation's row schedule (row_schedule.py, shared with the value
+and monoid pulls), which the CUDA kernel (csrc/bitmap_pull.cu) reads rows
+through. It is memory-bound: 4·(nnz + 2·n_out + ⌈n_in/32⌉) bytes per call,
+32.6 MB at RMAT scale 18, 9.7 µs at the H100's 3.35 TB/s.
 
 `spmv_bitmap_pull` launches the kernel for CUDA tensors and counts each
 launch in `spmv_bitmap_pull.launches`; for CPU tensors it runs the plain
@@ -22,18 +23,19 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+from typing import Optional
 
 import torch
 
 from ...types import round_up
 from . import _build
+from .row_schedule import (RowSchedule, launch_args, plan_schedule,
+                           schedule_for)
 from .value_pull import check_csr
 
 _LAUNCH = _build.launcher(
     "bitmap_pull",
-    {"gb_bitmap_pull": ([ctypes.c_void_p] * 4 + [ctypes.c_int,
-                                                 ctypes.c_void_p],
-                        ctypes.c_int),
+    {"gb_bitmap_pull": ([ctypes.c_void_p] * 8, ctypes.c_int),
      "gb_error_string": ([ctypes.c_int], ctypes.c_char_p)},
     "gb_bitmap_pull", "gb_error_string")
 
@@ -54,32 +56,38 @@ def pack_bitmap(x_dense: torch.Tensor) -> torch.Tensor:
 @dataclasses.dataclass(frozen=True)
 class BitmapPlan:
     """The pull orientation's CSR on the device: ptr (n_out+1,) int32, ind
-    int32 with at least ptr[n_out] entries, all < n_in."""
+    int32 with at least ptr[n_out] entries, all < n_in; and its
+    RowSchedule, which a launch on the card needs."""
 
     n_out: int
     n_in: int
     ptr: torch.Tensor
     ind: torch.Tensor
+    sched: Optional[RowSchedule] = None
 
 
 def build_plan_bitmap(ptr: torch.Tensor, ind: torch.Tensor, n_out: int,
-                      n_in: int) -> BitmapPlan:
+                      n_in: int,
+                      sched: Optional[RowSchedule] = None) -> BitmapPlan:
     """Check a CSR (value_pull.check_csr; the kernel trusts these bounds)
-    and wrap it as a plan."""
+    and wrap it as a plan. A plan on the card gets `sched`, which must be
+    ptr's schedule, or a new one."""
     ptr, ind, _ = check_csr(ptr, ind, None, n_out, n_in)
-    return BitmapPlan(n_out, n_in, ptr, ind)
+    return BitmapPlan(n_out, n_in, ptr, ind, plan_schedule(ptr, sched))
 
 
 def plan_for_bitmap(A, transpose: bool = False):
     """Cached BitmapPlan for struconly pulls of Matrix `A`: the CSR for the
-    mxv pull, the CSC for the vxm pull (transpose=True). None when A lacks
+    mxv pull, the CSC for the vxm pull (transpose=True), with the
+    orientation's shared RowSchedule (`schedule_for`). None when A lacks
     that orientation."""
     n_out, n_in, ptr, ind, _ = A.pull_csr(transpose)
     if ptr is None:
         return None
     key = ("csc" if transpose else "csr") + "/bitmap"
     if key not in A._plans:
-        A._plans[key] = build_plan_bitmap(ptr, ind, n_out, n_in)
+        A._plans[key] = build_plan_bitmap(ptr, ind, n_out, n_in,
+                                          schedule_for(A, transpose))
     return A._plans[key]
 
 
@@ -112,7 +120,8 @@ def _check(plan: BitmapPlan, words: torch.Tensor):
 def spmv_bitmap_pull(plan: BitmapPlan, words: torch.Tensor) -> torch.Tensor:
     """y[i] = count of plan edges (i, j) with bit j set in `words` (int32,
     (n_out,)). CPU tensors run the plain version; CUDA tensors launch the
-    kernel on the current stream, or raise."""
+    kernel on the current stream, or raise (a plan with no schedule
+    too)."""
     _check(plan, words)
     if words.device.type == "cpu":
         return spmv_bitmap_pull_plain(plan, words)
@@ -123,7 +132,7 @@ def spmv_bitmap_pull(plan: BitmapPlan, words: torch.Tensor) -> torch.Tensor:
     if plan.n_out == 0:      # a zero-size grid is an invalid launch
         return y
     _LAUNCH(words.get_device(), plan.ptr.data_ptr(), plan.ind.data_ptr(),
-            words.data_ptr(), y.data_ptr(), plan.n_out)
+            words.data_ptr(), y.data_ptr(), *launch_args(plan))
     spmv_bitmap_pull.launches += 1
     return y
 

@@ -8,12 +8,13 @@ Replaces graphblast_tpu/ops/pallas/monopull.py:_mono_kernel (run by
 spmv_monoid on plans from build_plan_monoid / plan_for_monoid). Its
 (tile, row, chi)-sorted 4096-square tiles, window sweeps, run-scan and
 one-hot matrix-unit select with a hi/lo bf16 split work around the TPU's
-lack of a scatter; on Hopper the plan is the pull orientation's CSR, and
-one kernel (csrc/monoid_pull.cu, one warp per output row) serves every
-size, with no size gate (the JAX plan_for_monoid gives None above the VMEM
-gate). Memory-bound: 8·nnz + 4·(n_out + 1) + 4·n_in + 4·n_out bytes per
-call, 4·nnz less for select-second, which reads no values: 64.0 MB and
-33.6 MB at RMAT scale 18, 19.1 µs and 10.0 µs at the H100's 3.35 TB/s.
+lack of a scatter; on Hopper the plan is the pull orientation's CSR with
+the orientation's row schedule (row_schedule.py, shared with the value and
+bitmap pulls), and one kernel (csrc/monoid_pull.cu) serves every size, with
+no size gate (the JAX plan_for_monoid gives None above the VMEM gate).
+Memory-bound: 8·nnz + 4·(n_out + 1) + 4·n_in + 4·n_out bytes per call,
+4·nnz less for select-second, which reads no values: 64.0 MB and 33.6 MB
+at RMAT scale 18, 19.1 µs and 10.0 µs at the H100's 3.35 TB/s.
 
 Products are exact fp32, so the kernel equals `spmv_monoid_plain`; the JAX
 TPU kernel selects arithmetic products through a hi/lo bf16 matmul (about
@@ -32,13 +33,15 @@ import numpy as np
 import torch
 
 from . import _build
+from .row_schedule import (RowSchedule, launch_args, plan_schedule,
+                           schedule_for)
 from .value_pull import check_csr, check_x
 
 FLT_MAX = float(np.finfo(np.float32).max)
 
 _LAUNCH = _build.launcher(
     "monoid_pull",
-    {"gb_monoid_pull": ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+    {"gb_monoid_pull": ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 2
                         + [ctypes.c_float, ctypes.c_void_p], ctypes.c_int),
      "gb_monoid_pull_error_string": ([ctypes.c_int], ctypes.c_char_p)},
     "gb_monoid_pull", "gb_monoid_pull_error_string")
@@ -59,21 +62,25 @@ _MUL_CODE = {"plus": 0, "mul": 1, "second": 2}
 class MonoidPlan:
     """The pull orientation's CSR on the device, as a ValuePlan holds it:
     ptr (n_out+1,) int32, ind int32 with at least ptr[n_out] entries, all
-    < n_in, and val float32 of the same reach or None (all ones). A type of
-    its own, so that mxv_dual picks the monoid pull by the plan's type."""
+    < n_in, and val float32 of the same reach or None (all ones); and its
+    RowSchedule, which a launch on the card needs. A type of its own, so
+    that mxv_dual picks the monoid pull by the plan's type."""
 
     n_out: int
     n_in: int
     ptr: torch.Tensor
     ind: torch.Tensor
     val: Optional[torch.Tensor]
+    sched: Optional[RowSchedule] = None
 
 
 def build_plan_monoid(ptr: torch.Tensor, ind: torch.Tensor,
-                      val: Optional[torch.Tensor], n_out: int,
-                      n_in: int) -> MonoidPlan:
-    """Check a CSR (value_pull.check_csr) and wrap it as a plan."""
-    return MonoidPlan(n_out, n_in, *check_csr(ptr, ind, val, n_out, n_in))
+                      val: Optional[torch.Tensor], n_out: int, n_in: int,
+                      sched: Optional[RowSchedule] = None) -> MonoidPlan:
+    """Check a CSR (value_pull.check_csr) and wrap it as a plan. A plan on
+    the card gets `sched`, which must be ptr's schedule, or a new one."""
+    ptr, ind, val = check_csr(ptr, ind, val, n_out, n_in)
+    return MonoidPlan(n_out, n_in, ptr, ind, val, plan_schedule(ptr, sched))
 
 
 def plan_for_monoid(A, transpose: bool = False,
@@ -81,7 +88,9 @@ def plan_for_monoid(A, transpose: bool = False,
     """Plan for one pull orientation of Matrix `A`: the CSR for the mxv
     pull, the CSC for the vxm pull (transpose=True). Cached in A._plans
     under "csr/monoid" / "csc/monoid" (+ "/ones" for a unit-valued plan,
-    which CC's select-second takes); None when A lacks that orientation."""
+    which CC's select-second takes); None when A lacks that orientation.
+    Every plan of an orientation shares its RowSchedule (`schedule_for`).
+    """
     n_out, n_in, ptr, ind, val = A.pull_csr(transpose)
     if ptr is None:
         return None
@@ -89,7 +98,8 @@ def plan_for_monoid(A, transpose: bool = False,
                                                           else "")
     if key not in A._plans:
         A._plans[key] = build_plan_monoid(ptr, ind, None if ones else val,
-                                          n_out, n_in)
+                                          n_out, n_in,
+                                          schedule_for(A, transpose))
     return A._plans[key]
 
 
@@ -131,7 +141,8 @@ def spmv_monoid_plain(plan: MonoidPlan, x: torch.Tensor,
 def spmv_monoid(plan: MonoidPlan, x: torch.Tensor, semiring) -> torch.Tensor:
     """The monoid pull of `semiring` (a SEMIRING_MAP entry) for the plan's
     orientation (float32, (n_out,)). CPU tensors run the plain version;
-    CUDA tensors launch the kernel on the current stream, or raise."""
+    CUDA tensors launch the kernel on the current stream, or raise (a plan
+    with no schedule too)."""
     add, mul, ident = _ops(semiring)
     check_x(plan, x)
     if x.device.type == "cpu":
@@ -143,7 +154,8 @@ def spmv_monoid(plan: MonoidPlan, x: torch.Tensor, semiring) -> torch.Tensor:
         return y
     _LAUNCH(x.get_device(), plan.ptr.data_ptr(), plan.ind.data_ptr(),
             None if plan.val is None else plan.val.data_ptr(), x.data_ptr(),
-            y.data_ptr(), plan.n_out, _ADD_CODE[add], _MUL_CODE[mul], ident)
+            y.data_ptr(), *launch_args(plan), _ADD_CODE[add], _MUL_CODE[mul],
+            ident)
     spmv_monoid.launches += 1
     return y
 

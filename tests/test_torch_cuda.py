@@ -14,6 +14,7 @@ from graphblast_tpu_torch.ops.kernels import bitmap_pull as bp
 from graphblast_tpu_torch.ops.kernels import gather as kg
 from graphblast_tpu_torch.ops.kernels import monoid_pull as mp
 from graphblast_tpu_torch.ops.kernels import orpull as ko
+from graphblast_tpu_torch.ops.kernels import row_schedule as rs
 from graphblast_tpu_torch.ops.kernels import value_pull as vp
 
 pytestmark = pytest.mark.cuda
@@ -50,6 +51,11 @@ def test_kernel_matches_plain_on_the_card(cuda, n_out, n_in, m):
 
 
 def test_bfs_on_the_card_matches_golden(cuda):
+    """BFS from the hub at RMAT scale 12: levels equal to the golden, one
+    K1 launch an iteration, over a plan that reads the CSC's schedule,
+    which PageRank's and SSSP's plans share."""
+    from graphblast_tpu_torch.algorithms.bfs import bfs_pull_plan
+    from graphblast_tpu_torch.algorithms.pr import prepare_pr_plan
     from graphblast_tpu_torch.io.rmat import rmat_matrix
 
     A = rmat_matrix(12, 16, seed=42, device=cuda)
@@ -60,6 +66,10 @@ def test_bfs_on_the_card_matches_golden(cuda):
     got = tgb.algorithms.bfs(A, s, desc).to_numpy()
     np.testing.assert_array_equal(got, tgb.algorithms.bfs_cpu(A, s))
     assert bp.spmv_bitmap_pull.launches - launches == int(got.max())
+    sched = A._plans["csc/schedule"]
+    assert bfs_pull_plan(A, desc).sched is sched
+    assert prepare_pr_plan(A).sched is sched
+    assert mp.plan_for_monoid(A, transpose=True).sched is sched
 
 
 def _hub_rows(rng, n_out, m, hub):
@@ -76,8 +86,8 @@ def _uniform_rows(rng, n_out, m, hub):
     (500, 700, 3000, 0, _hub_rows), (20000, 9000, 1, 0, _hub_rows),
     (1, 33, 0, 0, _hub_rows), (3000, 100000, 200000, 0, _hub_rows),
     (300, 5000, 9000, 6000, _hub_rows),
-    (300, 5000, 9000, 3 * vp.LONG_ROW + 777, _hub_rows),
-    (1, 5000, 0, 3 * vp.LONG_ROW + 1, _hub_rows),
+    (300, 5000, 9000, 3 * rs.LONG_ROW + 777, _hub_rows),
+    (1, 5000, 0, 3 * rs.LONG_ROW + 1, _hub_rows),
     (50000, 70000, 400000, 0, _uniform_rows)],
     ids=["random", "one_edge", "one_row_empty", "wide", "hub",
          "hub_over_3T", "one_long_row", "uniform8"])
@@ -113,8 +123,8 @@ def test_value_pull_matches_plain_on_the_card(cuda, n_out, n_in, m, hub,
     assert float((y - want).abs().max()) <= 1e-5 * max(
         float(want.abs().max()), 1e-30)
     assert torch.equal(y, y2)
-    if hub > 3 * vp.LONG_ROW:   # one cluster of chunks a long row
-        assert plan.sched.n_chunks == vp.CLUSTER * plan.sched.bin_rows[0]
+    if hub > 3 * rs.LONG_ROW:   # one cluster of chunks a long row
+        assert plan.sched.n_chunks == rs.CLUSTER * plan.sched.bin_rows[0]
         assert plan.sched.bin_rows[0] >= 1
 
 
@@ -226,6 +236,116 @@ def test_sssp_and_cc_on_the_card_match_golden(cuda):
                         max_niter=1000)
     _, it_cc = _cc_fused(A, mp.plan_for_monoid(A, ones=True), max_niter=1000)
     assert k_sssp == it > 0 and k_cc == it_cc > 0
+    # the plans read the orientations' shared schedules
+    assert mp.plan_for_monoid(A, transpose=True).sched is A._plans[
+        "csc/schedule"]
+    assert mp.plan_for_monoid(A, ones=True).sched is A._plans["csr/schedule"]
+    assert vp.plan_for(A).sched is A._plans["csr/schedule"]
+
+
+def _every_length_rows(rng, n_out, m, hub):
+    # one row of each length 0 .. 40, then rows of T and T + 1 edges
+    T = rs.LONG_ROW
+    return np.repeat(np.arange(43), list(range(41)) + [T, T + 1])
+
+
+LONG_ROW_CASES = [
+    (300, 5000, 9000, 3 * rs.LONG_ROW + 777, _hub_rows),
+    (1, 5000, 0, 3 * rs.LONG_ROW + 1, _hub_rows),
+    (50000, 70000, 400000, 0, _uniform_rows),
+    (43, 900, 0, 0, _every_length_rows)]
+LONG_ROW_IDS = ["hub_over_3T", "one_long_row", "uniform8", "every_length"]
+
+
+def _long_row_csr(cuda, n_out, n_in, m, hub, rows_of, seed):
+    """ptr and ind (with 128 padding entries) on the card, and the host
+    row lengths."""
+    rng = np.random.default_rng(seed)
+    rows = rows_of(rng, n_out, m, hub)
+    cols = rng.integers(0, n_in, len(rows))
+    ptr = np.zeros(n_out + 1, np.int64)
+    np.add.at(ptr, rows + 1, 1)
+    ptr = np.cumsum(ptr)
+    pad = np.zeros(128, np.int64)
+    return (torch.from_numpy(ptr.astype(np.int32)).to(cuda),
+            torch.from_numpy(np.r_[cols, pad].astype(np.int32)).to(cuda),
+            np.diff(ptr), rng)
+
+
+@pytest.mark.parametrize("n_out,n_in,m,hub,rows_of", LONG_ROW_CASES,
+                         ids=LONG_ROW_IDS)
+@pytest.mark.parametrize("name", MONOID_SEMIRINGS)
+@pytest.mark.parametrize("unit", [False, True])
+def test_monoid_pull_on_long_rows_matches_plain_on_the_card(
+        cuda, n_out, n_in, m, hub, rows_of, name, unit):
+    """K4 through every bin of the row schedule, long rows as clusters of
+    chunks: torch.equal to its plain version and to a second launch, empty
+    rows at the identity. x has 40% FLT_MAX entries."""
+    ptr, ind, length, rng = _long_row_csr(cuda, n_out, n_in, m, hub,
+                                          rows_of, n_out + m + unit)
+    val = None if unit else torch.from_numpy(rng.uniform(
+        -2.0, 2.0, ind.shape[0]).astype(np.float32)).to(cuda)
+    plan = mp.build_plan_monoid(ptr, ind, val, n_out, n_in)
+    assert plan.sched.bin_rows[0] == int((length > rs.LONG_ROW).sum())
+    maxf = np.float32(np.finfo(np.float32).max)
+    x = torch.from_numpy(np.where(
+        rng.random(n_in) < 0.4, maxf,
+        rng.uniform(-5.0, 5.0, n_in)).astype(np.float32)).to(cuda)
+    sr = getattr(tgb.semiring, f"{name}Semiring")
+    launches = mp.spmv_monoid.launches
+    y = mp.spmv_monoid(plan, x, sr)
+    y2 = mp.spmv_monoid(plan, x, sr)
+    torch.cuda.synchronize()
+    assert mp.spmv_monoid.launches == launches + 2
+    assert torch.equal(y, mp.spmv_monoid_plain(plan, x, sr))
+    assert torch.equal(y, y2)
+    empty = torch.from_numpy(length == 0).to(cuda)
+    assert bool((y[empty] == float(sr.identity(torch.float32))).all())
+
+
+@pytest.mark.parametrize("n_out,n_in,m,hub,rows_of", LONG_ROW_CASES,
+                         ids=LONG_ROW_IDS)
+@pytest.mark.parametrize("density", [0.0, 0.3, 1.0])
+def test_bitmap_pull_on_long_rows_matches_plain_on_the_card(
+        cuda, n_out, n_in, m, hub, rows_of, density):
+    """K1 through every bin of the row schedule, long rows as clusters of
+    chunks: torch.equal to its plain version and to a second launch, empty
+    rows 0."""
+    ptr, ind, length, rng = _long_row_csr(cuda, n_out, n_in, m, hub,
+                                          rows_of, n_out + m)
+    plan = bp.build_plan_bitmap(ptr, ind, n_out, n_in)
+    assert plan.sched.bin_rows[0] == int((length > rs.LONG_ROW).sum())
+    f = torch.from_numpy((rng.random(n_in) < density).astype(np.float32))
+    words = bp.pack_bitmap(f.to(cuda))
+    launches = bp.spmv_bitmap_pull.launches
+    y = bp.spmv_bitmap_pull(plan, words)
+    y2 = bp.spmv_bitmap_pull(plan, words)
+    torch.cuda.synchronize()
+    assert bp.spmv_bitmap_pull.launches == launches + 2
+    assert torch.equal(y, bp.spmv_bitmap_pull_plain(plan, words))
+    assert torch.equal(y, y2)
+    assert bool((y[torch.from_numpy(length == 0).to(cuda)] == 0).all())
+    if density == 1.0:
+        assert torch.equal(y.cpu(), torch.from_numpy(length.astype(np.int32)))
+
+
+@pytest.mark.parametrize("build", ["monoid", "bitmap"])
+def test_monoid_and_bitmap_refuse_a_plan_without_a_schedule(cuda, build):
+    """A CUDA launch of a plan with no schedule raises."""
+    ptr = torch.tensor([0, 1], dtype=torch.int32, device=cuda)
+    ind = torch.tensor([0], dtype=torch.int32, device=cuda)
+    if build == "monoid":
+        plan = mp.build_plan_monoid(ptr, ind, None, 1, 4)
+        with pytest.raises(ValueError):
+            mp.spmv_monoid(dataclasses.replace(plan, sched=None),
+                           torch.zeros(4, device=cuda),
+                           tgb.MinimumPlusSemiring)
+    else:
+        plan = bp.build_plan_bitmap(ptr, ind, 1, 4)
+        with pytest.raises(ValueError):
+            bp.spmv_bitmap_pull(dataclasses.replace(plan, sched=None),
+                                torch.zeros(1, dtype=torch.int32,
+                                            device=cuda))
 
 
 def _launches():

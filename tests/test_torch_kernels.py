@@ -310,13 +310,20 @@ def test_value_pull_checks_its_inputs():
 
 def test_library_name_hashes_its_own_source(tmp_path, monkeypatch):
     """Editing or adding one CUDA source renames only its own library, so
-    the others are not rebuilt."""
+    the others are not rebuilt; editing a header renames the library of
+    every source that includes it, and only those."""
     from graphblast_tpu_torch.ops.kernels import _build
 
-    for src in _build.SOURCES.values():
+    for src in os.listdir(_build.CSRC_DIR):
         (tmp_path / src).write_text(
             open(os.path.join(_build.CSRC_DIR, src)).read())
     monkeypatch.setattr(_build, "CSRC_DIR", str(tmp_path))
+    before = {n: _build.library_path(n) for n in _build.SOURCES}
+    header = tmp_path / "row_schedule.cuh"
+    header.write_text(header.read_text() + "// edited\n")
+    users = {"value_pull", "monoid_pull", "bitmap_pull"}
+    for n in _build.SOURCES:
+        assert (_build.library_path(n) != before[n]) == (n in users), n
     before = {n: _build.library_path(n) for n in _build.SOURCES}
     (tmp_path / "value_pull.cu").write_text("// edited\n")
     (tmp_path / "other.cu").write_text("// a new source\n")

@@ -213,7 +213,11 @@ def test_plan_for_monoid_orientation_and_cache():
         [1.0, 2.0, MAXF, 0.0])
     pc = mp.plan_for_monoid(A)
     assert pc.val is not None and pc is not ones
-    assert set(A._plans) == {"csc/monoid", "csr/monoid/ones", "csr/monoid"}
+    # and one row schedule for each orientation, which the plans share
+    assert set(A._plans) == {"csc/monoid", "csr/monoid/ones", "csr/monoid",
+                             "csc/schedule", "csr/schedule"}
+    assert pc.sched is ones.sched is A._plans["csr/schedule"]
+    assert pt.sched is A._plans["csc/schedule"]
     C = tgb.Matrix.from_coo(rows, cols, vals, 4, 5, fmt=SparseFormat.CSRONLY,
                             device="cpu")
     assert mp.plan_for_monoid(C, transpose=True) is None

@@ -1,5 +1,5 @@
-"""The value pull's row schedule (graphblast_tpu_torch value_pull.
-build_schedule), on the CPU.
+"""The row schedule (graphblast_tpu_torch row_schedule.build_schedule) and
+the pulls that read rows through it, on the CPU.
 
 The CUDA kernel reads rows through the schedule: rows stably sorted into
 six bins by length, each long row cut into CLUSTER chunks (the blocks of
@@ -16,9 +16,10 @@ import numpy as np
 import pytest
 import torch
 
+from graphblast_tpu_torch.ops.kernels import row_schedule as rs
 from graphblast_tpu_torch.ops.kernels import value_pull as vp
 
-T, K = vp.LONG_ROW, vp.CLUSTER
+T, K = rs.LONG_ROW, rs.CLUSTER
 # the longest row each short bin takes (bins 2-5), and bin 1's
 SHORT = {2: 32, 3: 16, 4: 8, 5: 4}
 
@@ -100,15 +101,15 @@ def _work_items(sched, ptr):
     perm = sched.perm.numpy()
     chunk_beg = sched.chunk_beg.numpy()
     for blk in range(sched.blocks):
-        b = max(i for i in range(vp.N_BINS) if sched.block_begin[i] <= blk)
+        b = max(i for i in range(rs.N_BINS) if sched.block_begin[i] <= blk)
         if b == 0:
             row = int(perm[blk // K])
             end = (chunk_beg[blk + 1] if blk % K + 1 < K else ptr[row + 1])
             items.append((0, row, int(chunk_beg[blk]), int(end), blk))
             continue
         first = (sched.bin_begin[b]
-                 + (blk - sched.block_begin[b]) * vp.ROWS_A_BLOCK[b])
-        for k in range(first, min(first + vp.ROWS_A_BLOCK[b],
+                 + (blk - sched.block_begin[b]) * rs.ROWS_A_BLOCK[b])
+        for k in range(first, min(first + rs.ROWS_A_BLOCK[b],
                                   sched.bin_begin[b + 1])):
             row = int(perm[k])
             items.append((b, row, ptr[row], ptr[row + 1], -1))
@@ -118,14 +119,14 @@ def _work_items(sched, ptr):
 @pytest.mark.parametrize("name", list(CASES))
 def test_schedule_covers_every_edge_once(name):
     n_out, _, ptr, _, _, _ = _case(name)
-    sched = vp.build_schedule(torch.from_numpy(ptr.astype(np.int32)))
+    sched = rs.build_schedule(torch.from_numpy(ptr.astype(np.int32)))
     perm = sched.perm.numpy()
     assert sched.perm.dtype == torch.int32
     # perm is a permutation, stable within each bin, each row in its bin
     np.testing.assert_array_equal(np.sort(perm), np.arange(n_out))
     length = np.diff(ptr)
     assert sched.bin_begin[0] == 0 and sched.bin_begin[-1] == n_out
-    for b in range(vp.N_BINS):
+    for b in range(rs.N_BINS):
         rows = perm[sched.bin_begin[b]:sched.bin_begin[b + 1]]
         assert (np.diff(rows) > 0).all()
         assert all(_bin_of(int(length[r])) == b for r in rows)
@@ -177,7 +178,7 @@ def test_schedule_sums_match_plain_and_pallas(name):
 
     n_out, n_in, ptr, cols, vals, x = _case(name)
     t_ptr = torch.from_numpy(ptr.astype(np.int32))
-    sched = vp.build_schedule(t_ptr)
+    sched = rs.build_schedule(t_ptr)
     got = _replay(sched, ptr, cols, vals, x, n_out)
     plan = vp.build_plan(t_ptr, torch.from_numpy(cols.astype(np.int32)),
                          torch.from_numpy(vals), n_out, n_in, sched)
@@ -209,10 +210,10 @@ def test_plan_checks_its_schedule():
     ptr = torch.tensor([0, 2, 3], dtype=torch.int32)
     ind = torch.tensor([0, 1, 1], dtype=torch.int32)
     assert vp.build_plan(ptr, ind, None, 2, 2).sched is None
-    other = vp.build_schedule(torch.tensor([0, 3], dtype=torch.int32))
+    other = rs.build_schedule(torch.tensor([0, 3], dtype=torch.int32))
     with pytest.raises(ValueError):
         vp.build_plan(ptr, ind, None, 2, 2, other)
-    own = vp.build_schedule(ptr)
+    own = rs.build_schedule(ptr)
     assert vp.build_plan(ptr, ind, None, 2, 2, own).sched is own
     elsewhere = dataclasses.replace(own, perm=own.perm.to("meta"))
     with pytest.raises(ValueError):
