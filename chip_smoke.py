@@ -73,31 +73,47 @@ Phases, each of which fails the run on error (each prints its seconds):
      prints the [K6 launch] line: host us a call of the wrapper,
      torch.index_select, the first launch path's lines and each of their
      pieces over 10,000 back-to-back calls;
-  10. K5, the or-pull prefix count, over the CSC's row ids with the hub's
+  10. K5, the or-pull prefix count (one launch with decoupled look-back,
+     after a memset of its scratch), over the CSC's row ids with the hub's
      level-2 frontier and a seeded 20% frontier: torch.equal to its plain
-     version and to a second launch; timed, with its bound;
-  11. stepped BFS, which pulls with no plan: from the 8 hubs, levels equal
+     version and to a second launch; timed, with device times and its
+     bound, and at each block size the kernel takes (tiles of 2,048,
+     4,096 and 8,192 edges);
+  11. S, the min/max row fold of the plan-less pull, at rmat18 over the
+     Matrix's cached CSC and CSR schedules: MaximumMultiplies over the
+     int32 CSC with MIS's first-round weights (and the masked pull against
+     the old route), MinimumSelectSecond over the int32 CSR with the ids
+     as x (plan-less CC's call site), MinimumPlus, MinimumMultiplies and
+     MinimumNotEqualTo on int32 x of every sign, and all five on float32 x
+     with ±inf; each torch.equal to its plain version, to a second launch
+     and to the old route (the gather, then the segmented scan); timed
+     beside the old route, torch.segment_reduce over the products (a
+     yardstick only; on float32 where it refuses int32) and its bound;
+  12. stepped BFS, which pulls with no plan: from the 8 hubs, levels equal
      to the NumPy golden, one K5 and one K6 launch (at the row boundaries)
      per iteration and no other kernel; ms/run as phase 3;
-  12. MIS through graphblast_tpu_torch.algorithms.mis: verify_mis holds,
-     K6 launches 2 times a round at the column ids and 2 at the segment
-     tails or row boundaries, and no other kernel launches; rounds, set
-     size and ms/run (median and tail over 40 calls); a round's parts timed
-     alone and a torch.profiler trace of one call (device busy time, idle
-     share, costliest kernels);
-  13. graph colouring through graphblast_tpu_torch.algorithms.gc: "is"
-     (a K6 launch at the column ids and one at the tails a round) and "jp"
-     with max_colors above the colours of "is" (2 and 2 a round), each
-     timed over 10 calls; "mis" checked once (2 and 2 a round of each
-     colour's MIS). verify_gc holds for each;
-  14. CC without a plan (the route of n >= 2^24) on the rmat18 graph:
-     labels equal to the golden and verify_cc, a K6 launch at the column
-     ids and one at the tails an iteration, and no other kernel; ms/run
-     (40 calls) beside phase 8's;
-  15. value pull in K3's regime: a seeded uniform random CSR built on the
+  13. MIS through graphblast_tpu_torch.algorithms.mis: verify_mis holds,
+     one S launch a round (the max pull), one K6 launch at the column ids
+     and one at the row boundaries (the or pull), and no other kernel;
+     rounds, set size and ms/run (median and tail over 40 calls); a
+     round's two pulls and S timed alone and a torch.profiler trace of one
+     call (device busy time, idle share, costliest kernels);
+  14. graph colouring through graphblast_tpu_torch.algorithms.gc: "is"
+     (one S a round, no K6) and "jp" with max_colors above the colours of
+     "is" (one S, one K6 at the column ids and one at the boundaries a
+     round), each timed over 10 calls; "mis" checked once (the same three
+     a round of each colour's MIS). verify_gc holds for each;
+  15. CC without a plan (the route of n >= 2^24) on the rmat18 graph:
+     labels equal to the golden and verify_cc, one S launch an iteration
+     and no other kernel; ms/run (40 calls) beside phase 8's;
+  16. cc() at n = 2^24 on the port's grid_matrix(4096) (67 M edges), which
+     takes the plan-less route: labels all 0 and verify_cc, one S launch
+     an iteration over the CSR's cached schedule and no K4; the graph's
+     build time and ms/run;
+  17. value pull in K3's regime: a seeded uniform random CSR built on the
      card, 2^24 rows and columns, 8 edges a row, so that x (64 MB) exceeds
      the 50 MB L2; the same checks and timings as phase 4;
-  16. prints {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
+  18. prints {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
 
 Every check of results, launch counts and schedules raises. A
 torch.profiler reading that cannot be trusted (no device time, or more
@@ -185,13 +201,14 @@ def _device_ms(fn, reps: int, names) -> str:
 def _wrappers():
     from graphblast_tpu_torch.ops.kernels.bitmap_pull import spmv_bitmap_pull
     from graphblast_tpu_torch.ops.kernels.gather import gather_1d
+    from graphblast_tpu_torch.ops.kernels.minmax_pull import spmv_minmax_pull
     from graphblast_tpu_torch.ops.kernels.monoid_pull import spmv_monoid
     from graphblast_tpu_torch.ops.kernels.orpull import orpull_bit_csum
     from graphblast_tpu_torch.ops.kernels.value_pull import spmv_value_pull
 
     return {"bitmap_pull": spmv_bitmap_pull, "value_pull": spmv_value_pull,
             "monoid_pull": spmv_monoid, "gather": gather_1d,
-            "orpull_csum": orpull_bit_csum}
+            "orpull_csum": orpull_bit_csum, "minmax_pull": spmv_minmax_pull}
 
 
 def _reset_counts():
@@ -918,7 +935,8 @@ def phase_gather(A):
 
 def phase_orpull(A, golden_hub):
     """K5 over the CSC's row ids at RMAT scale 18 on two frontiers, against
-    its plain version (tolerance 0) and a second launch; times and bound."""
+    its plain version (tolerance 0) and a second launch; times, device
+    times and bound."""
     import numpy as np
     import torch
 
@@ -954,16 +972,157 @@ def phase_orpull(A, golden_hub):
         ms = _event_ms(lambda: orpull_bit_csum(words, col), 200)
         plain_ms = _event_ms(lambda: orpull_bit_csum_plain(words, col), 20)
         dev = _device_ms(lambda: orpull_bit_csum(words, col), 50,
-                         ["tile_count", "tile_offsets", "tile_scan"])
+                         ["orpull_csum_kernel"])
+        dev_all = _device_ms(lambda: orpull_bit_csum(words, col), 50,
+                             ["orpull_csum_kernel", "emset"])
         print(f"[K5 {name}] m={m} words={words.shape[0]} frontier="
               f"{int(f_np.sum())} csum[-1]={int(c[-1])}; equal to plain "
               f"(max diff {err}) and to a second launch")
         print(f"[K5 {name}] kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, "
               f"bound {bound_bytes} B -> {bound_ms:.6f} ms at 3.35 TB/s "
-              f"({100 * bound_ms / ms:.1f}% of it); device time of its "
-              f"three launches (torch.profiler) {dev}")
+              f"({100 * bound_ms / ms:.1f}% of it); device time "
+              f"(torch.profiler) of the one-pass kernel {dev}, with the "
+              f"scratch memset {dev_all}")
         rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                           bound_ms=bound_ms, library_ms=None)
+    return rows
+
+
+def _same(a, b) -> bool:
+    """Equal values of one dtype, NaN where the other is NaN (torch.equal
+    alone counts NaN unequal; zeros compare up to their sign)."""
+    import torch
+
+    nan_a, nan_b = torch.isnan(a), torch.isnan(b)
+    return (a.dtype == b.dtype and torch.equal(nan_a, nan_b)
+            and torch.equal(a[~nan_a], b[~nan_b]))
+
+
+def phase_minmax_pull(A):
+    """S, the min/max row fold, at RMAT scale 18 for the five semirings
+    with a min/max ⊕ on int32 and float32 frontiers, over the Matrix's
+    cached schedules: MaximumMultiplies over the int32 CSC with MIS's
+    first-round weights (and the masked pull against the old route),
+    MinimumSelectSecond over the int32 CSR with the ids as x (plan-less
+    CC's call site), the rest with x of every sign (int32) or with ±inf
+    (float32). Each torch.equal to its plain version and to a second
+    launch; timed beside the old route (the gather, then
+    segment_reduce_csr's scan), torch.segment_reduce over the products
+    and the bound."""
+    import numpy as np
+    import torch
+
+    import graphblast_tpu_torch as gt
+    from graphblast_tpu_torch.algorithms.common import csc_int_arrays
+    from graphblast_tpu_torch.algorithms.mis import random_weights
+    from graphblast_tpu_torch.ops.gather_dispatch import take
+    from graphblast_tpu_torch.ops.kernels.minmax_pull import (
+        SEMIRING_MAP, spmv_minmax_pull, spmv_minmax_pull_plain)
+    from graphblast_tpu_torch.ops.kernels.row_schedule import schedule_for
+    from graphblast_tpu_torch.ops.segops import segment_reduce_csr
+    from graphblast_tpu_torch.ops.spmv import spmv_pull
+
+    n = A.nrows
+    csc_ptr, csc_ind, csc_val, csc_sched = csc_int_arrays(A)
+    csr_sched = schedule_for(A, transpose=False)
+    for orient, sched in (("csc", csc_sched), ("csr", csr_sched)):
+        if sched is not A._plans.get(orient + "/schedule"):
+            raise AssertionError(f"S: the {orient} pull's schedule is not "
+                                 f"A._plans[{orient + '/schedule'!r}]")
+        print(f"[S] schedule of the {orient.upper()} (the Matrix's cached "
+              f"one): {_schedule_text(sched)}")
+    rng = np.random.default_rng(13)
+    w = random_weights(n, 1, "cuda")      # MIS's first round, seed 1
+    ids = torch.arange(n, dtype=torch.int32, device="cuda")
+    x_int = torch.from_numpy(rng.integers(-(1 << 30), 1 << 30, n).astype(
+        np.int32)).cuda()
+    x_f = rng.uniform(-5.0, 5.0, n).astype(np.float32)
+    x_f[rng.random(n) < 0.1] = np.inf
+    x_f[rng.random(n) < 0.1] = -np.inf
+    x_float = torch.from_numpy(x_f).cuda()
+    csc = (csc_ptr, csc_ind, csc_sched)
+    csr = (A.row_ptr, A.col_ind, csr_sched)
+    vals = {"csc": A.csc_val, "csr": A.val}
+    cases = [("max_times", "MaximumMultiplies", "csc", w),
+             ("min_second", "MinimumSelectSecond", "csr", ids)]
+    cases += [(f"{tag}_int32", name, "csc", x_int) for tag, name in (
+        ("min_plus", "MinimumPlus"), ("min_times", "MinimumMultiplies"),
+        ("min_ne", "MinimumNotEqualTo"))]
+    cases += [(f"{tag}_float32", name, "csc", x_float) for tag, name in (
+        ("max_times", "MaximumMultiplies"), ("min_second",
+                                             "MinimumSelectSecond"),
+        ("min_plus", "MinimumPlus"), ("min_times", "MinimumMultiplies"),
+        ("min_ne", "MinimumNotEqualTo"))]
+    rows = {}
+    for tag, name, orient, x in cases:
+        sr = getattr(gt.semiring, f"{name}Semiring")
+        ptr, ind, sched = csc if orient == "csc" else csr
+        val = vals[orient].to(x.dtype)
+        nnz = int(ptr[-1])
+        y = spmv_minmax_pull(ptr, ind, val, x, sr, n, sched=sched)
+        y_again = spmv_minmax_pull(ptr, ind, val, x, sr, n, sched=sched)
+        y_plain = spmv_minmax_pull_plain(ptr, ind, val, x, sr, n)
+
+        def old_route():
+            edge = sr.mul(val, take(x, ind))
+            return segment_reduce_csr(edge, ptr, sr.add, n)
+
+        y_old = old_route()
+        torch.cuda.synchronize()
+        if y.shape != (n,) or y.dtype != x.dtype:
+            raise AssertionError(f"S {tag}: bad output")
+        if not (_same(y, y_plain) and _same(y, y_again)
+                and _same(y, y_old)):
+            raise AssertionError(f"S {tag}: differs from its plain version, "
+                                 "a second launch or the old route")
+        err = float((y.double() - y_plain.double()).abs().nan_to_num().max())
+        if tag == "max_times":
+            # MIS's masked pull through spmv_pull against the old route
+            got = spmv_pull(ptr, ind, val, x, sr, n, mask_dense=x,
+                            sched=sched)
+            want = torch.where(x != 0, y_old, 0)
+            if not torch.equal(got, want):
+                raise AssertionError("S max_times: the masked pull differs "
+                                     "from the old route")
+        # the products beforehand, for torch.segment_reduce alone
+        add = SEMIRING_MAP[name][0]
+        prod = (take(x, ind) if SEMIRING_MAP[name][1] == "second"
+                else sr.mul(val, take(x, ind)))[:nnz].contiguous()
+        offsets = ptr.long()
+        ident = sr.identity(x.dtype).item()
+        lib_dtype = str(x.dtype).replace("torch.", "")
+        try:
+            torch.segment_reduce(prod, add, offsets=offsets, initial=ident)
+        except (RuntimeError, NotImplementedError) as e:
+            # a yardstick only: time it on float32
+            lib_dtype = (f"float32 (refused {str(x.dtype)}: "
+                         f"{str(e).splitlines()[0][:80]})")
+            prod = prod.float()
+        lib_ms = _event_ms(lambda: torch.segment_reduce(
+            prod, add, offsets=offsets, initial=ident), 50)
+        val_bytes = 0 if SEMIRING_MAP[name][1] == "second" else 4
+        bound_bytes = (4 + val_bytes) * nnz + 4 * (n + 1) + 4 * n + 4 * n
+        bound_ms = bound_bytes / HBM_BYTES_PER_S * 1e3
+        ms = _event_ms(lambda: spmv_minmax_pull(ptr, ind, val, x, sr, n,
+                                                sched=sched), 200)
+        plain_ms = _event_ms(lambda: spmv_minmax_pull_plain(ptr, ind, val, x,
+                                                            sr, n), 20)
+        old_ms = _event_ms(old_route, 20)
+        dev = _device_ms(lambda: spmv_minmax_pull(ptr, ind, val, x, sr, n,
+                                                  sched=sched), 50,
+                         ["MinMaxFold"])
+        identity = int((y == sr.identity(x.dtype).cuda()).sum())
+        print(f"[S {tag}] {name} over the {orient.upper()}, x {x.dtype}: "
+              f"equal to plain, a second launch and the old route (max "
+              f"diff {err}); {identity} rows at the identity; kernel "
+              f"{ms:.6f} ms, device (torch.profiler) {dev}, plain "
+              f"{plain_ms:.6f} ms, old route (gather + scan) {old_ms:.6f} "
+              f"ms ({old_ms / ms:.1f}x), torch.segment_reduce on "
+              f"{lib_dtype} {lib_ms:.6f} ms, bound {bound_bytes} B -> "
+              f"{bound_ms:.6f} ms at 3.35 TB/s ({100 * bound_ms / ms:.1f}% "
+              "of it)")
+        rows[tag] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         bound_ms=bound_ms, library_ms=lib_ms)
     return rows
 
 
@@ -1005,9 +1164,9 @@ def phase_stepped_bfs(A, sources, goldens, reps: int = 10):
 
 
 def phase_mis(A, seed: int = 1, reps: int = 40):
-    """MIS through the entry point: verify_mis, two K6 launches a round at
-    the column ids and two at the tails or boundaries, no other kernel;
-    then timed."""
+    """MIS through the entry point: verify_mis, one S launch a round (the
+    max pull) and, for the or pull, one K6 launch at the column ids and one
+    at the row boundaries, no other kernel; then timed."""
     import importlib
 
     import numpy as np
@@ -1022,9 +1181,9 @@ def phase_mis(A, seed: int = 1, reps: int = 40):
     # the round count
     w0 = mis_mod.random_weights(A.nrows, seed, "cuda")
     v2, rounds = mis_mod._mis_fused(A, w0, max_niter=gt.DEFAULT.max_niter)
-    counts = _expect_launches("MIS", {"gather_x": 2 * rounds,
-                                      "gather_boundary": 2 * rounds},
-                              launches)
+    counts = _expect_launches("MIS", {"minmax_pull": rounds,
+                                      "gather_x": rounds,
+                                      "gather_boundary": rounds}, launches)
     if v.shape != (A.nrows,) or not np.array_equal(v2.cpu().numpy(), v):
         raise AssertionError("MIS: bad or unrepeatable membership array")
     if not gt.algorithms.verify_mis(A, v):
@@ -1045,34 +1204,31 @@ def phase_mis(A, seed: int = 1, reps: int = 40):
 
 
 def _mis_breakdown(A, w0, rounds: int):
-    """Where a MIS round's time goes: its two pulls and the segmented scan
-    alone (CUDA events, first-round inputs), and a torch.profiler trace of
-    one mis() call (device busy time, idle share, the costliest kernels)."""
+    """Where a MIS round's time goes: its two pulls as the round runs them
+    (CUDA events, first-round inputs), the max pull's kernel S alone, and
+    a torch.profiler trace of one mis() call (device busy time, idle
+    share, the costliest kernels)."""
     import torch
 
     import graphblast_tpu_torch as gt
     from graphblast_tpu_torch.algorithms.common import csc_int_arrays
-    from graphblast_tpu_torch.ops.gather_dispatch import take
-    from graphblast_tpu_torch.ops.segops import (segment_heads,
-                                                 segmented_scan)
+    from graphblast_tpu_torch.ops.kernels.minmax_pull import spmv_minmax_pull
     from graphblast_tpu_torch.ops.spmv import spmv_pull
 
-    ptr, ind, val = csc_int_arrays(A)
+    ptr, ind, val, sched = csc_int_arrays(A)
     n = A.nrows
     f = (w0 > 1 << 29).to(torch.int32)
-    edge = val * take(w0, ind)
-    heads = segment_heads(ptr, edge.shape[0])
     max_ms = _event_ms(lambda: spmv_pull(
-        ptr, ind, val, w0, gt.MaximumMultipliesSemiring, n, mask_dense=w0),
-        20)
-    scan_ms = _event_ms(lambda: segmented_scan(
-        edge, heads, gt.semiring.MaximumMonoid), 20)
+        ptr, ind, val, w0, gt.MaximumMultipliesSemiring, n, mask_dense=w0,
+        sched=sched), 50)
+    s_ms = _event_ms(lambda: spmv_minmax_pull(
+        ptr, ind, val, w0, gt.MaximumMultipliesSemiring, n, sched=sched), 50)
     or_ms = _event_ms(lambda: spmv_pull(
-        ptr, ind, val, f, gt.LogicalOrAndSemiring, n, mask_dense=w0), 20)
+        ptr, ind, val, f, gt.LogicalOrAndSemiring, n, mask_dense=w0,
+        sched=sched), 50)
     print(f"[mis] a round's parts: MaximumMultiplies pull {max_ms:.6f} ms, "
-          f"of which the segmented scan alone {scan_ms:.6f} ms "
-          f"({100 * scan_ms / max_ms:.1f}%); LogicalOrAnd pull "
-          f"{or_ms:.6f} ms")
+          f"of which S alone {s_ms:.6f} ms ({100 * s_ms / max_ms:.1f}%); "
+          f"LogicalOrAnd pull (K6, cumsum, K6) {or_ms:.6f} ms")
     table, wall_ms, why = _device_profile(
         lambda: gt.algorithms.mis(A, seed=1), 1)
     if why:
@@ -1088,7 +1244,8 @@ def _mis_breakdown(A, w0, rounds: int):
 
 def phase_gc(A, seed: int = 1, reps: int = 10):
     """Colouring through the entry point: "is" and "jp" checked and timed,
-    "mis" checked once; verify_gc and the K6 counts by class for each."""
+    "mis" checked once; verify_gc and the S and K6 counts (K6 by class)
+    for each."""
     import importlib
 
     import numpy as np
@@ -1101,8 +1258,9 @@ def phase_gc(A, seed: int = 1, reps: int = 10):
     w0 = mis_mod.random_weights(A.nrows, seed, "cuda")
     out = {}
     colors_is = None
-    # K6 launches a round at each of its two call-site classes
-    for algo, per_round in (("is", 1), ("jp", 2), ("mis", None)):
+    # K6 launches a round at each of its two call-site classes (the or
+    # pull's); one S launch a round for the max pull
+    for algo, per_round in (("is", 0), ("jp", 1), ("mis", None)):
         kw = {} if algo != "jp" else {"max_colors": colors_is + 1}
         _reset_counts()
         col = gt.algorithms.gc(A, seed=seed, algo=algo, **kw).to_numpy()
@@ -1120,16 +1278,18 @@ def phase_gc(A, seed: int = 1, reps: int = 10):
         if not gt.algorithms.verify_gc(A, col):
             raise AssertionError(f"gc {algo}: verify_gc fails")
         if per_round is None:
-            # each colour's MIS, and the last, empty one, gather twice at
-            # the column ids and twice at the tails a round
-            k6 = launches["gather_x"]
-            if k6 % 2 or k6 < 2 * (colors + 1):
-                raise AssertionError(f"gc mis: {launches} K6 launches for "
+            # each colour's MIS, and the last, empty one, runs one S and
+            # gathers once at the column ids and once at the boundaries a
+            # round
+            s_count = k6 = launches["minmax_pull"]
+            if s_count < colors + 1:
+                raise AssertionError(f"gc mis: {launches} launches for "
                                      f"{colors} colours")
         else:
-            k6 = per_round * rounds
+            s_count, k6 = rounds, per_round * rounds
         counts = _expect_launches(
-            f"gc {algo}", {"gather_x": k6, "gather_boundary": k6}, launches)
+            f"gc {algo}", {"minmax_pull": s_count, "gather_x": k6,
+                           "gather_boundary": k6}, launches)
         line = (f"[gc {algo}] rmat18 seed {seed}{' ' + str(kw) if kw else ''}"
                 f": verify_gc holds; {colors} colours, {rounds} "
                 f"{'colours' if algo == 'mis' else 'rounds'}; launches "
@@ -1150,16 +1310,15 @@ def phase_gc(A, seed: int = 1, reps: int = 10):
 
 def phase_cc_plan_less(A, golden, k4_per_s: float, reps: int = 40):
     """CC with no plan (the n >= 2^24 route) on the rmat18 graph: labels
-    equal to the golden, a K6 launch at the column ids and one at the
-    tails an iteration; then timed."""
+    equal to the golden, one S launch an iteration over the CSR's cached
+    schedule and no other kernel; then timed."""
     import graphblast_tpu_torch as gt
     from graphblast_tpu_torch.algorithms.cc import _cc_fused
 
     max_niter = gt.DEFAULT.max_niter
     _reset_counts()
     labels, iters = _cc_fused(A, None, max_niter=max_niter)
-    counts = _expect_launches("plan-less CC", {"gather_x": iters,
-                                               "gather_boundary": iters})
+    counts = _expect_launches("plan-less CC", {"minmax_pull": iters})
     labels = labels.cpu().numpy()
     bad = int((labels != golden).sum())
     if bad or not gt.algorithms.verify_cc(A, labels):
@@ -1172,6 +1331,78 @@ def phase_cc_plan_less(A, golden, k4_per_s: float, reps: int = 40):
     print(f"[cc plan-less] {per_s * 1e3:.6f} ms/run median, {tail}, "
           f"{reps} runs; phase 8's cc() over K4 "
           f"{k4_per_s * 1e3:.6f} ms/run ({per_s / k4_per_s:.2f}x)")
+    return counts
+
+
+def phase_cc_2_24(reps: int = 5):
+    """cc() on the port's grid_matrix(4096): n = 2^24, so cc takes the
+    plan-less route. Labels all 0 (the grid is connected) and verify_cc,
+    one S launch an iteration over the CSR's cached schedule, no K4 and no
+    other kernel; the graph's build time and ms/run. Then S at CC's call
+    site on this CSR (x the ids, and a seeded permutation of them) held
+    torch.equal to its plain version and to a second launch."""
+    import numpy as np
+    import torch
+
+    import graphblast_tpu_torch as gt
+    from graphblast_tpu_torch.algorithms.cc import EXACT_IDS, _cc_fused
+    from graphblast_tpu_torch.io.rmat import grid_matrix
+    from graphblast_tpu_torch.ops.kernels.minmax_pull import (
+        spmv_minmax_pull, spmv_minmax_pull_plain)
+
+    t0 = time.perf_counter()
+    A = grid_matrix(4096, device="cuda")
+    build_s = time.perf_counter() - t0
+    if A.nrows < EXACT_IDS:
+        raise AssertionError(f"grid of {A.nrows} vertices is below 2^24")
+    _reset_counts()
+    labels = gt.algorithms.cc(A).to_numpy()
+    counts = _read_counts()
+    _, iters = _cc_fused(A, None, max_niter=gt.DEFAULT.max_niter)
+    counts = _expect_launches("CC at 2^24", {"minmax_pull": iters}, counts)
+    if "csr/monoid/ones" in A._plans or "csr/schedule" not in A._plans:
+        raise AssertionError("CC at 2^24 built a K4 plan, or its pull read "
+                             "no cached CSR schedule")
+    if labels.shape != (A.nrows,) or np.any(labels != 0):
+        raise AssertionError("CC at 2^24: labels are not all 0")
+    t0 = time.perf_counter()
+    if not gt.algorithms.verify_cc(A, labels):
+        raise AssertionError("CC at 2^24: verify_cc fails")
+    verify_s = time.perf_counter() - t0
+    # S at CC's call site on this CSR: n = 2^24, an x beyond the L2, and
+    # only the short bins of the schedule
+    sched = A._plans["csr/schedule"]
+    sr = gt.MinimumSelectSecondSemiring
+    val = A.val.to(torch.int32)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(24)
+    ids = torch.arange(A.nrows, dtype=torch.int32, device="cuda")
+    perm = torch.randperm(A.nrows, generator=g, device="cuda").to(torch.int32)
+    for name, x in (("ids", ids), ("permuted ids", perm)):
+        y = spmv_minmax_pull(A.row_ptr, A.col_ind, val, x, sr, A.nrows,
+                             sched=sched)
+        y_again = spmv_minmax_pull(A.row_ptr, A.col_ind, val, x, sr, A.nrows,
+                                   sched=sched)
+        y_plain = spmv_minmax_pull_plain(A.row_ptr, A.col_ind, val, x, sr,
+                                         A.nrows)
+        torch.cuda.synchronize()
+        if y.shape != (A.nrows,) or y.dtype != torch.int32:
+            raise AssertionError(f"S at 2^24, x {name}: bad output")
+        if not (torch.equal(y, y_plain) and torch.equal(y, y_again)):
+            err = int((y.long() - y_plain.long()).abs().max())
+            raise AssertionError(f"S at 2^24, x {name}: differs from its "
+                                 f"plain version (max diff {err}) or a "
+                                 "second launch")
+        print(f"[cc 2^24] S (MinimumSelectSecond over the CSR, x {name}): "
+              f"torch.equal to plain and to a second launch; schedule "
+              f"{_schedule_text(sched)}")
+    per_s, tail = _timed_runs(lambda: gt.algorithms.cc(A), reps)
+    print(f"[cc 2^24] grid_matrix(4096): n={A.nrows} nnz={A.nvals}, built "
+          f"in {build_s:.2f} s; labels all 0, verify_cc holds "
+          f"({verify_s:.2f} s); {iters} iterations; launches {counts}")
+    print(f"[cc 2^24] {per_s * 1e3:.6f} ms/run median, {tail}, {reps} "
+          f"runs; {A.nvals * iters / per_s / 1e9:.6f} cc_gteps (nvals x "
+          "iterations / median)")
     return counts
 
 
@@ -1260,6 +1491,9 @@ def main() -> int:
     k5 = phase_orpull(A, goldens[0])
     print(f"[phase] K5 vs plain at rmat18 {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
+    s_rows = phase_minmax_pull(A)
+    print(f"[phase] S vs plain at rmat18 {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
     stepped_counts, _ = phase_stepped_bfs(A, sources, goldens)
     print(f"[phase] stepped BFS {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
@@ -1269,10 +1503,13 @@ def main() -> int:
     phase_gc(A)
     print(f"[phase] GC {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
-    phase_cc_plan_less(A, cc_golden, cc_per_s)
+    cc_s_counts = phase_cc_plan_less(A, cc_golden, cc_per_s)
     print(f"[phase] plan-less CC {time.perf_counter() - t0:.2f} s")
-    t0 = time.perf_counter()
     del A
+    t0 = time.perf_counter()
+    phase_cc_2_24()
+    print(f"[phase] CC at 2^24 {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
     plan, x = _random_csr(1 << 24, 8, seed=42)
     k3 = phase_value_pull("K3 regime 2^24", plan, x, plain_reps=5)
     del plan, x
@@ -1317,6 +1554,17 @@ def main() -> int:
         "launches": stepped_counts["orpull_csum"], "bound_by": "bytes",
         **k5["hub_level2"],
         "max_abs_err": max(r["max_abs_err"] for r in k5.values())})
+    # one kernel, two call sites of the main paths: MIS's max pull and
+    # plan-less CC's select-second pull; it replaces plain jnp, no Pallas
+    for name, row, launches in (
+            ("max_times", s_rows["max_times"], mis_counts["minmax_pull"]),
+            ("min_second", s_rows["min_second"],
+             cc_s_counts["minmax_pull"])):
+        kernels.append({
+            "name": f"minmax_pull_{name}", "route": "cuda",
+            "source": "graphblast_tpu_torch/csrc/minmax_pull.cu",
+            "replaces": "graphblast_tpu/ops/segops.py:35",
+            "launches": launches, "bound_by": "bytes", **row})
     # one kernel serves both TPU gathers; an entry for each call-site class
     # of the port's paths, with that class's count on the path it lies on.
     # The packed-words class (gather_1d_small's) has no call site in the

@@ -17,11 +17,11 @@ unit-valued CSR plan on the float32 image of gp: ids below 2^24 are exact in
 float32, INT_MAX becomes 2^31 >= n, and the cast back happens on a value
 clamped to n (cc.py:51-53 of the JAX package). From 2^24 on, float32 no
 longer holds every id, and the pull is the plan-less `spmv_pull` on the
-int32 gp over the CSR with int32 values (cc.py:55-56), two launches of the
-gather kernel K6 per iteration on the card. The hooking scatter combines by
-min, as the JAX package's does (the reference's scatter is
-last-write-wins). Both modes are a Python loop with one host read of `succ`
-per iteration.
+int32 gp over the CSR with int32 values (cc.py:55-56): on the card one
+launch of the min/max row fold S per iteration, over the CSR's cached row
+schedule. The hooking scatter combines by min, as the JAX package's does
+(the reference's scatter is last-write-wins). Both modes are a Python loop
+with one host read of `succ` per iteration.
 """
 from __future__ import annotations
 
@@ -33,6 +33,7 @@ from ..descriptor import DEFAULT, Descriptor
 from ..matrix import Matrix
 from ..ops.kernels.monoid_pull import (MonoidPlan, plan_for_monoid,
                                        spmv_monoid)
+from ..ops.kernels.row_schedule import schedule_for
 from ..ops.spmv import spmv_pull
 from ..semiring import MinimumSelectSecondSemiring
 from ..vector import Vector
@@ -45,7 +46,7 @@ EXACT_IDS = 1 << 24
 
 def _cc_step(A: Matrix, parent, mnp, gp, gp_t, pull):
     """One FastSV iteration. `pull` is a MonoidPlan of A's CSR, or the CSR
-    as (ptr, ind, int32 val) for the plan-less pull."""
+    as (ptr, ind, int32 val, its RowSchedule) for the plan-less pull."""
     n = A.nrows
     parent_temp = parent
     # 1) stochastic hooking: mnp_t[i] = min over j in A(i,:) of gp[j]
@@ -54,7 +55,9 @@ def _cc_step(A: Matrix, parent, mnp, gp, gp_t, pull):
                          MinimumSelectSecondSemiring)
         mnp_t = torch.where(yf >= n, IMAX, yf.clamp(max=n).to(torch.int32))
     else:
-        mnp_t = spmv_pull(*pull, gp, MinimumSelectSecondSemiring, n)
+        ptr, ind, val, sched = pull
+        mnp_t = spmv_pull(ptr, ind, val, gp, MinimumSelectSecondSemiring, n,
+                          sched=sched)
     mnp = torch.minimum(mnp, mnp_t)
     # f[f[u]] = mngf[u], combined by min
     parent = parent.scatter_reduce(0, parent_temp.long(), mnp, "amin",
@@ -78,9 +81,10 @@ def _cc_fused(A: Matrix, plan: Optional[MonoidPlan], *, max_niter: int,
     without a plan, at any n. Returns (parent, iterations run)."""
     n = A.nrows
     # the plan-less pull casts the values once per call, as JAX's
-    # _as_int_matrix does
+    # _as_int_matrix does, and reads the CSR's cached row schedule
     pull = plan if plan is not None else (A.row_ptr, A.col_ind,
-                                          A.val.to(torch.int32))
+                                          A.val.to(torch.int32),
+                                          schedule_for(A, transpose=False))
     parent = torch.arange(n, dtype=torch.int32, device=A.device)
     mnp = gp = gp_t = parent
     timer = TightTimer()

@@ -12,6 +12,7 @@ import torch
 
 from ..descriptor import Descriptor
 from ..matrix import Matrix
+from ..ops.kernels.row_schedule import schedule_for
 from ..types import Storage, round_up
 from ..vector import Vector
 
@@ -69,11 +70,16 @@ def dense_result(n: int, arr: torch.Tensor) -> Vector:
 
 
 def csc_int_arrays(A: Matrix) -> tuple:
-    """(ptr, ind, val as int32) of A's CSC, or of its CSR for a CSRONLY
-    matrix (col_ptr None): the reference's forced-direction idiom for that
-    format (backend/cuda/operations.hpp:131-140), the same on the symmetric
-    graphs that MIS and colouring run on. Callers cast once per call and
-    pass the arrays to every round, as JAX's jit hoists the cast."""
+    """(ptr, ind, val as int32, the RowSchedule of ptr) of A's CSC, or of
+    its CSR for a CSRONLY matrix (col_ptr None): the reference's
+    forced-direction idiom for that format
+    (backend/cuda/operations.hpp:131-140), the same on the symmetric graphs
+    that MIS and colouring run on. The schedule is the orientation's cached
+    one (`schedule_for`), which the min/max pull on the card reads. Callers
+    cast once per call and pass the arrays to every round, as JAX's jit
+    hoists the cast."""
     if A.col_ptr is None:
-        return A.row_ptr, A.col_ind, A.val.to(torch.int32)
-    return A.col_ptr, A.csc_row_ind, A.csc_val.to(torch.int32)
+        return (A.row_ptr, A.col_ind, A.val.to(torch.int32),
+                schedule_for(A, transpose=False))
+    return (A.col_ptr, A.csc_row_ind, A.csc_val.to(torch.int32),
+            schedule_for(A, transpose=True))

@@ -3,17 +3,18 @@ graphblast_tpu/algorithms/gc.py; reference:
 graphblas/algorithm/gc.hpp:16-406).
 
   is   (gc.hpp:43-148):  one Luby independent set per colour; colour =
-       round id. Two launches of the gather kernel K6 per round.
+       round id. One launch of the min/max row fold S per round.
   mis  (gc.hpp:151-254): a full MIS per colour (fewer colours, more work).
   jp   (gc.hpp:257-406): Jones-Plassmann with the reference's global
        minimum unused colour (neighbour colours scattered into a dense
-       max_colors array, gc.hpp:358-377). Four K6 launches per round. With
+       max_colors array, gc.hpp:358-377). One S and two K6 launches per
+       round (the or pull: x at the row ids, the row boundaries). With
        more colours than max_colors the minimum saturates at max_colors.
   cusparse: the reference's vendor csrcolor (gc.hpp:16-40), mapped to is.
 
-Every pull is the plan-less `spmv_pull` over the int32 CSC; the weights come
-from `mis.random_weights`. The loops are Python loops with one host read of
-`succ` per round.
+Every pull is the plan-less `spmv_pull` over the int32 CSC, the max over
+the CSC's cached row schedule; the weights come from `mis.random_weights`.
+The loops are Python loops with one host read of `succ` per round.
 """
 from __future__ import annotations
 
@@ -29,9 +30,10 @@ from .mis import _mis_fused, random_weights
 
 
 def _gc_is_round(A: Matrix, v, w, it: int, csc: tuple):
-    ptr, ind, val = csc
+    ptr, ind, val, sched = csc
     # unmasked max of the neighbours' weights (gc.hpp:104-106)
-    m = spmv_pull(ptr, ind, val, w, MaximumMultipliesSemiring, A.nrows)
+    m = spmv_pull(ptr, ind, val, w, MaximumMultipliesSemiring, A.nrows,
+                  sched=sched)
     f = (w > m).to(torch.int32)   # eWiseAdd GreaterPlus (gc.hpp:112-113)
     succ = f.sum()
     v = torch.where(f != 0, it, v)   # assign colour (gc.hpp:123)
@@ -41,10 +43,10 @@ def _gc_is_round(A: Matrix, v, w, it: int, csc: tuple):
 
 def _gc_jp_round(A: Matrix, v, w, max_colors: int, csc: tuple):
     n = A.nrows
-    ptr, ind, val = csc
+    ptr, ind, val, sched = csc
     # masked max of the neighbours' weights (gc.hpp:337-339)
     m = spmv_pull(ptr, ind, val, w, MaximumMultipliesSemiring, n,
-                  mask_dense=w)
+                  mask_dense=w, sched=sched)
     f = (w > m).to(torch.int32)
     succ = f.sum()
     # coloured neighbours of the frontier (gc.hpp:354-356: mask = v)

@@ -10,9 +10,10 @@ Per round, on dense int32 vectors:
     w ← 0 where m2                              # remove from candidates
 
 Both pulls run the plan-less `spmv_pull` over the int32 CSC: on the card,
-four launches of the gather kernel K6 per round (x at the row ids and the
-segment tails for the max, x and the row boundaries for the or). Both modes
-are a Python loop with one host read of `succ` per round.
+one launch of the min/max row fold S per round for the max (over the
+CSC's cached row schedule), and two of the gather kernel K6 for the or (x
+at the row ids, then the row boundaries). Both modes are a Python loop
+with one host read of `succ` per round.
 
 The weights come from a torch.Generator, not jax.random: the same seed gives
 other weights than the JAX package's, and the same weights on the CPU and
@@ -44,10 +45,10 @@ def random_weights(n: int, seed: int, device) -> torch.Tensor:
 
 def _mis_round(A: Matrix, v, w, csc: tuple):
     n = A.nrows
-    ptr, ind, val = csc
+    ptr, ind, val, sched = csc
     # vxm(m, mask=w, MaximumMultiplies, w, A) — mis.hpp:81-83. CSC pull.
     m = spmv_pull(ptr, ind, val, w, MaximumMultipliesSemiring, n,
-                  mask_dense=w)
+                  mask_dense=w, sched=sched)
     # f = w > m (eWiseAdd GreaterPlus, mis.hpp:88-89)
     f = (w > m).to(torch.int32)
     # assign v←1, w←0 under mask f (mis.hpp:92-98)

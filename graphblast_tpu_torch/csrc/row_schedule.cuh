@@ -1,7 +1,8 @@
 // The row schedule's walk, shared by the pulls that read a CSR row by row
 // and fold each row's edges into one value: the value pull (K2/K3,
-// value_pull.cu), the monoid pull (K4, monoid_pull.cu) and the bitmap pull
-// (K1, bitmap_pull.cu).
+// value_pull.cu), the monoid pull (K4, monoid_pull.cu), the bitmap pull
+// (K1, bitmap_pull.cu) and the min/max row fold of the plan-less pull (S,
+// minmax_pull.cu).
 //
 // Rows are binned by length L once per sparsity structure
 // (ops/kernels/row_schedule.py build_schedule, torch ops on the plan's
@@ -28,7 +29,7 @@
 //   - short rows, L <= 32: a group of g lanes a row, g the power of two
 //     from 4 to 32 that is at least L, so a warp serves 32/g rows with
 //     every lane on an edge. Empty rows sit in the 4-lane bin and get the
-//     fold's identity.
+//     fold's identity, or the policy's empty_row().
 // The second grid's blocks map to work by bin: the medium rows (8 a
 // block), then the four short bins (8 * 32/g rows a block). A thread's
 // strided loop takes four edges an iteration: four reads of ind, then the
@@ -47,8 +48,12 @@
 //   Acc add(Acc acc, Item it)       acc folded with edge `it`
 //   static Acc combine(Acc, Acc)    two partial results folded (warp
 //                                   shuffles, warp results, chunk results)
-// all __device__ and const where they are members. `launch<P>` runs the
-// two grids on a stream.
+// and, optionally,
+//   Acc empty_row()                 a row with no edges, where that is not
+//                                   the fold's identity
+// all __device__ and const where they are members. A policy without
+// empty_row() compiles to the walk it had before the hook: the test sits
+// behind `if constexpr`. `launch<P>` runs the two grids on a stream.
 //
 // Needs sm_90 (clusters, distributed shared memory, griddepcontrol).
 #pragma once
@@ -56,10 +61,20 @@
 #include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
+#include <type_traits>
+#include <utility>
 
 namespace row_schedule {
 
 namespace cg = cooperative_groups;
+
+// whether policy P gives empty_row()
+template <class P, class = void>
+struct has_empty_row : std::false_type {};
+template <class P>
+struct has_empty_row<P, std::void_t<decltype(std::declval<const P&>()
+                                                 .empty_row())>>
+    : std::true_type {};
 
 constexpr int kCluster = 8;   // blocks (chunks) of a long row
 constexpr int kWarps = 8;
@@ -165,7 +180,12 @@ __device__ void warp_row(const P& p, const int32_t* __restrict__ ptr,
   typename P::Acc acc =
       strided_fold<P, 32>(p, ind, beg + lane, end, p.identity());
   acc = group_fold<P, 32>(acc);
-  if (lane == 0) y[row] = acc;
+  if (lane == 0) {
+    if constexpr (has_empty_row<P>::value)
+      y[row] = beg < end ? acc : p.empty_row();
+    else
+      y[row] = acc;
+  }
 }
 
 // 32/G rows a warp, G lanes a row of at most G edges
@@ -179,15 +199,21 @@ __device__ void group_rows(const P& p, const int32_t* __restrict__ ptr,
   if (first >= row_end) return;   // whole warps leave together
   const long long k = first + lane / G;
   int row = -1;
+  bool edge = false;   // in the group's lane 0: whether the row has an edge
   typename P::Acc acc = p.identity();
   if (k < row_end) {
     row = __ldg(perm + k);
     const long long e = __ldg(ptr + row) + lane % G;
-    if (e < __ldg(ptr + row + 1))
-      acc = p.add(p.identity(), p.fetch(__ldg(ind + e), e));
+    edge = e < __ldg(ptr + row + 1);
+    if (edge) acc = p.add(p.identity(), p.fetch(__ldg(ind + e), e));
   }
   acc = group_fold<P, G>(acc);
-  if (lane % G == 0 && row >= 0) y[row] = acc;
+  if (lane % G == 0 && row >= 0) {
+    if constexpr (has_empty_row<P>::value)
+      y[row] = edge ? acc : p.empty_row();
+    else
+      y[row] = acc;
+  }
 }
 
 // the long rows: a cluster of kCluster blocks a row

@@ -7,11 +7,12 @@ PULLONLY branch of `mxv_dual` (dispatch.py:255-296 of the JAX package): over
 a plan, the structure-only LogicalOrAnd pull over a bitmap plan (K1, fused
 BFS) or a unit-valued value plan, the PlusMultiplies pull over a value plan
 (K2/K3), and the min/max semirings of the monoid pull over a monoid plan
-(K4, SSSP); with no plan, `spmv_pull` over the pull orientation (K5 and K6,
-stepped BFS), as the JAX package pulls when it has no plan and no TPU; and
-the `postprocess` epilogue. Push, and therefore PUSHONLY and PUSHPULL, is
-ROADMAP queue 1 item 8: it raises NotImplementedError here rather than run
-another path.
+(K4, SSSP); with no plan, `spmv_pull` over the pull orientation (K5 and K6
+for stepped BFS, the row fold S for a min/max semiring, with the
+orientation's cached row schedule), as the JAX package pulls when it has no
+plan and no TPU; and the `postprocess` epilogue. Push, and therefore
+PUSHONLY and PUSHPULL, is ROADMAP queue 1 item 8: it raises
+NotImplementedError here rather than run another path.
 """
 from __future__ import annotations
 
@@ -25,7 +26,9 @@ from ..semiring import Semiring
 from ..types import INDEX_DTYPE, Direction
 from ..vector import dense_from_sparse, sparse_from_dense
 from .kernels.bitmap_pull import BitmapPlan, pack_bitmap, spmv_bitmap_pull
+from .kernels.minmax_pull import minmax_supported
 from .kernels.monoid_pull import MonoidPlan, monoid_supported, spmv_monoid
+from .kernels.row_schedule import schedule_for
 from .kernels.value_pull import ValuePlan, spmv_value_pull
 from .spmv import mask_pass, spmv_pull
 
@@ -150,8 +153,11 @@ def mxv_dual(A: Matrix, f: DualFrontier, semiring: Semiring, identity, *,
                          f"{'vxm' if transpose else 'mxv'} pull needs {n_out}")
 
     if pull_plan is None:   # the mask is applied below, for every route
+        # only the min/max row fold reads a schedule
+        sched = (schedule_for(A, transpose)
+                 if minmax_supported(semiring, f.dense.dtype) else None)
         y = spmv_pull(pull_ptr, pull_ind, pull_val, f.dense, semiring, n_out,
-                      structure_only=structure_only)
+                      structure_only=structure_only, sched=sched)
     elif isinstance(pull_plan, MonoidPlan):
         y = spmv_monoid(pull_plan, f.dense, semiring)
     else:

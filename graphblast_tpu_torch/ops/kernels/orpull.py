@@ -8,12 +8,16 @@ Replaces graphblast_tpu/ops/pallas/orpull.py:_kernel (run by
 orpull_bit_csum). That kernel streams col_ind through one TPU core in grid
 order, sweeps the VMEM bitmap with lane gathers and carries the prefix sum
 across grid steps in a scalar; its `orpull_available` VMEM gate has no
-counterpart here. On Hopper the carry is a device-wide scan written by hand
-(csrc/orpull_csum.cu, three launches over 4096-edge tiles: tile counts, one
-block scanning the tile totals, a warp-shuffle rescan of each tile).
-Integer arithmetic, so the kernel equals `orpull_bit_csum_plain`.
-Memory-bound: 4·(2·m + n_words) bytes per call, 60.9 MB over the CSC at
-RMAT scale 18, 18.2 µs at the H100's 3.35 TB/s.
+counterpart here. On Hopper the carry is a single-pass scan with decoupled
+look-back, written by hand (csrc/orpull_csum.cu): one launch over tiles of
+8,192 edges, 16 to each of a block's 512 threads, each block taking the next tile id from a counter,
+publishing its tile's count and looking back over its predecessors' for
+the prefix. The counter and the tiles' status words are scratch of the
+call, allocated here and zeroed on the call's stream by the C entry, so
+nothing is kept between calls. Integer arithmetic, so the kernel equals
+`orpull_bit_csum_plain`. Memory-bound: 4·(2·m + n_words) bytes per call,
+60.9 MB over the CSC at RMAT scale 18, 18.2 µs at the H100's 3.35 TB/s;
+col_ind is read once.
 
 `orpull_bit_csum` launches the kernel for CUDA tensors and counts each call
 that launches it in `orpull_bit_csum.launches`; for CPU tensors it runs the
@@ -31,11 +35,13 @@ _LAUNCH = _build.launcher(
     "orpull_csum",
     {"gb_orpull_csum": ([ctypes.c_void_p, ctypes.c_longlong,
                          ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                         ctypes.c_void_p, ctypes.c_void_p], ctypes.c_int),
+                         ctypes.c_void_p, ctypes.c_void_p],
+                        ctypes.c_int),
      "gb_orpull_csum_error_string": ([ctypes.c_int], ctypes.c_char_p)},
     "gb_orpull_csum", "gb_orpull_csum_error_string")
 
-TILE = 4096     # edges a block scans (csrc/orpull_csum.cu kTile)
+# edges a tile: kTile of csrc/orpull_csum.cu, which sizes the scratch
+_TILE = 8192
 
 
 def orpull_bit_csum_plain(words: torch.Tensor,
@@ -80,10 +86,11 @@ def orpull_bit_csum(words: torch.Tensor,
     csum = torch.empty(m, dtype=torch.int32, device=words.device)
     if m == 0:      # a zero-size grid is an invalid launch
         return csum
-    tile_sums = torch.empty((m + TILE - 1) // TILE, dtype=torch.int32,
-                            device=words.device)
+    # the tile counter, then one status word a tile; zeroed by the C entry
+    scratch = torch.empty((m + _TILE - 1) // _TILE + 1, dtype=torch.int64,
+                          device=words.device)
     _LAUNCH(words.get_device(), words.data_ptr(), words.shape[0],
-            col_ind.data_ptr(), csum.data_ptr(), m, tile_sums.data_ptr())
+            col_ind.data_ptr(), csum.data_ptr(), m, scratch.data_ptr())
     orpull_bit_csum.launches += 1
     return csum
 

@@ -9,6 +9,13 @@ gather kernel K6; the scan itself is torch ops, as it is jnp in the JAX
 package. All arrays are padded to a static length; no segment reaches the
 padding past row_ptr[nrows].
 
+On the plan-less pull (`spmv.spmv_pull`) the min/max semirings on int32
+and float32 frontiers no longer come here: they take the row-fold kernel S
+(`kernels/minmax_pull.py`). The pull still reduces here with Plus and
+LogicalOr (the cumsum differences) and with Multiplies, LogicalAnd,
+Greater, CustomLess and NotEqualTo (the Hillis–Steele scan), and with
+min/max on other dtypes.
+
 `segment_reduce_sorted` (push) and `reduce_all` (the operations surface)
 wait for the slices that need them, and so does `segment_reduce_csr`'s
 `edge_row_ids`, which only the sorted pull (`spmv_pull_sorted`) passes.

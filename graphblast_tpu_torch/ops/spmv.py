@@ -7,13 +7,21 @@ kernels/spmv.hpp:10-59 spmvDenseMaskedOrKernel).
 
 over raw CSR arrays, so one function serves the mxv pull (CSR), the vxm
 pull (the CSC as the CSR of Aᵀ) and the algorithms that call it directly
-(MIS, graph colouring, CC at n ≥ 2^24). The structure-only LogicalOrAnd pull
-always takes the prefix-count route: the or-pull kernel K5 over the packed
-frontier, then one gather of the row boundaries (K6). The JAX package takes
-that route on the TPU below its VMEM gate (`orpull_available`) and a bitmap
-gather above it; with no gate here, the bitmap gather (`_bitmap_gather`)
-has no caller and is not ported. The TPU's sorted-gather reformulation
-(`spmv_pull_sorted`) waits for a later slice.
+(MIS, graph colouring, CC at n ≥ 2^24). Its routes, by semiring:
+  - the structure-only LogicalOrAnd pull takes the prefix-count route: the
+    or-pull kernel K5 over the packed frontier, then one gather of the row
+    boundaries (K6). The JAX package takes that route on the TPU below its
+    VMEM gate (`orpull_available`) and a bitmap gather above it; with no
+    gate here, the bitmap gather (`_bitmap_gather`) has no caller and is
+    not ported;
+  - a semiring whose ⊕ is min or max (`minmax_pull.SEMIRING_MAP`) on an
+    int32 or float32 frontier takes the row fold S, one kernel that
+    gathers, multiplies and folds each row over the orientation's row
+    schedule, which the caller passes as `sched`;
+  - every other semiring and dtype gathers x (K6), applies ⊗ and reduces
+    with `segops.segment_reduce_csr` in torch ops, as the JAX package does.
+The TPU's sorted-gather reformulation (`spmv_pull_sorted`) waits for a
+later slice.
 """
 from __future__ import annotations
 
@@ -24,7 +32,9 @@ import torch
 from ..semiring import LogicalOrAndSemiring, Semiring
 from .gather_dispatch import take
 from .kernels.bitmap_pull import pack_bitmap
+from .kernels.minmax_pull import minmax_supported, spmv_minmax_pull
 from .kernels.orpull import orpull_bit_csum
+from .kernels.row_schedule import RowSchedule
 from .segops import row_boundary_csum, segment_reduce_csr
 
 
@@ -40,9 +50,13 @@ def spmv_pull(row_ptr: torch.Tensor, col_ind: torch.Tensor,
               semiring: Semiring, nrows: int,
               mask_dense: Optional[torch.Tensor] = None,
               mask_scmp: bool = False,
-              structure_only: bool = False) -> torch.Tensor:
+              structure_only: bool = False, *,
+              sched: Optional[RowSchedule] = None) -> torch.Tensor:
     """y[i] = ⊕_{j ∈ A(i,:)} A[i,j] ⊗ x[j], of x's dtype; masked-out rows get
-    the identity. Padded edge slots past row_ptr[nrows] belong to no row."""
+    the identity. Padded edge slots past row_ptr[nrows] belong to no row.
+    `sched` is row_ptr's RowSchedule (`row_schedule.schedule_for` of the
+    Matrix's orientation): a pull on the card that takes the min/max row
+    fold raises without it; the CPU needs none."""
     out_dtype = x_dense.dtype
     if structure_only and semiring.name == "LogicalOrAnd":
         # an edge counts iff its frontier bit is set: the prefix count of
@@ -50,6 +64,9 @@ def spmv_pull(row_ptr: torch.Tensor, col_ind: torch.Tensor,
         bnd = row_boundary_csum(
             orpull_bit_csum(pack_bitmap(x_dense), col_ind), row_ptr)
         y = ((bnd[1:] - bnd[:-1]) > 0).to(out_dtype)
+    elif minmax_supported(semiring, out_dtype):
+        y = spmv_minmax_pull(row_ptr, col_ind, val, x_dense, semiring, nrows,
+                             sched=sched)
     else:
         edge = semiring.mul(val.to(out_dtype), take(x_dense, col_ind))
         y = segment_reduce_csr(edge, row_ptr, semiring.add,

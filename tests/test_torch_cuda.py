@@ -12,6 +12,7 @@ import torch
 import graphblast_tpu_torch as tgb
 from graphblast_tpu_torch.ops.kernels import bitmap_pull as bp
 from graphblast_tpu_torch.ops.kernels import gather as kg
+from graphblast_tpu_torch.ops.kernels import minmax_pull as mm
 from graphblast_tpu_torch.ops.kernels import monoid_pull as mp
 from graphblast_tpu_torch.ops.kernels import orpull as ko
 from graphblast_tpu_torch.ops.kernels import row_schedule as rs
@@ -354,7 +355,8 @@ def _launches():
             "monoid_pull": mp.spmv_monoid.launches,
             "gather": kg.gather_1d.launches,
             "gather_sorted": kg.gather_1d.sorted_launches,
-            "orpull_csum": ko.orpull_bit_csum.launches}
+            "orpull_csum": ko.orpull_bit_csum.launches,
+            "minmax_pull": mm.spmv_minmax_pull.launches}
 
 
 def _since(before):
@@ -443,10 +445,10 @@ def test_orpull_matches_plain_on_the_card(cuda, n, m, density):
 
 def test_plan_less_paths_on_the_card_match_golden(cuda):
     """At RMAT scale 12 on the card: stepped BFS (one K5 and one K6 launch
-    per iteration, no K1), MIS (four K6 a round), colouring is (two K6 a
-    round) and jp (four), plan-less CC (two K6 an iteration), half of the
-    K6 launches at the sorted tails or boundaries in each but stepped BFS
-    (all); each checked against its golden or verifier and against the CPU
+    per iteration, no K1), MIS (one min/max row fold S and two K6 a round,
+    one of them at the sorted row boundaries), colouring is (one S a round,
+    no K6) and jp (one S and two K6), plan-less CC (one S an iteration, no
+    K6); each checked against its golden or verifier and against the CPU
     with the same inputs."""
     import importlib
 
@@ -464,19 +466,20 @@ def test_plan_less_paths_on_the_card_match_golden(cuda):
     it = int(lv.max())
     assert _since(before) == dict(bitmap_pull=0, value_pull=0,
                                   monoid_pull=0, gather=it, gather_sorted=it,
-                                  orpull_csum=it)
+                                  orpull_csum=it, minmax_pull=0)
     np.testing.assert_array_equal(lv, tgb.algorithms.bfs_cpu(A, s))
 
     w0 = tmis.random_weights(A.nrows, 3, "cpu")
     before = _launches()
     v, rounds = tmis._mis_fused(A, w0.to(cuda), max_niter=1000)
     assert _since(before) == dict(bitmap_pull=0, value_pull=0,
-                                  monoid_pull=0, gather=4 * rounds,
-                                  gather_sorted=2 * rounds, orpull_csum=0)
+                                  monoid_pull=0, gather=2 * rounds,
+                                  gather_sorted=rounds, orpull_csum=0,
+                                  minmax_pull=rounds)
     assert torch.equal(v.cpu(), tmis._mis_fused(C, w0, max_niter=1000)[0])
     assert tgb.verify_mis(A, v.cpu().numpy())
 
-    for algo, per_round in (("is", 2), ("jp", 4)):
+    for algo, per_round in (("is", 0), ("jp", 2)):
         before = _launches()
         if algo == "is":
             col, rounds = tgc._gc_is_fused(A, w0.to(cuda), max_niter=1000)
@@ -487,12 +490,149 @@ def test_plan_less_paths_on_the_card_match_golden(cuda):
             ref, _ = tgc._gc_jp_fused(C, w0, max_colors=512, max_niter=1000)
         assert _since(before)["gather"] == per_round * rounds
         assert _since(before)["gather_sorted"] == per_round * rounds // 2
+        assert _since(before)["minmax_pull"] == rounds
         assert torch.equal(col.cpu(), ref)
         assert tgb.verify_gc(A, col.cpu().numpy())
 
     before = _launches()
     labels, iters = _cc_fused(A, None, max_niter=1000)
     assert _since(before) == dict(bitmap_pull=0, value_pull=0,
-                                  monoid_pull=0, gather=2 * iters,
-                                  gather_sorted=iters, orpull_csum=0)
+                                  monoid_pull=0, gather=0, gather_sorted=0,
+                                  orpull_csum=0, minmax_pull=iters)
     np.testing.assert_array_equal(labels.cpu().numpy(), tgb.cc_cpu(A))
+    # every S launch read the orientation's cached schedule, and MIS's the
+    # one csc_int_arrays hands out
+    from graphblast_tpu_torch.algorithms.common import csc_int_arrays
+    assert csc_int_arrays(A)[3] is A._plans["csc/schedule"]
+    assert "csr/schedule" in A._plans
+
+
+@pytest.mark.parametrize("n,m", [(262144, 7_610_368), (1000, 4097),
+                                 (1000, 8193), (1000, 2)])
+def test_orpull_misaligned_and_short_on_the_card(cuda, n, m):
+    """K5 over col_ind and over the misaligned slice col_ind[1:] (the
+    scalar loads and stores), at RMAT scale 18's size and below, on and
+    just past one tile of 8,192 edges: equal to its plain version."""
+    rng = np.random.default_rng(n + m)
+    words = bp.pack_bitmap(torch.from_numpy(
+        (rng.random(n) < 0.2).astype(np.float32)).to(cuda))
+    col = torch.from_numpy(rng.integers(-3, n + 40, m).astype(
+        np.int32)).to(cuda)
+    for c in (col, col[1:]):
+        got = ko.orpull_bit_csum(words, c)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ko.orpull_bit_csum_plain(words, c))
+
+
+def test_orpull_on_two_streams_at_once(cuda):
+    """K5 keeps nothing between calls: two calls in flight at once on two
+    streams, on other frontiers and edge arrays, each equal to its plain
+    version."""
+    rng = np.random.default_rng(17)
+    n, m = 262144, 7_610_368
+    args = []
+    for density in (0.2, 0.6):
+        words = bp.pack_bitmap(torch.from_numpy(
+            (rng.random(n) < density).astype(np.float32)).to(cuda))
+        col = torch.from_numpy(rng.integers(0, n, m).astype(np.int32)).to(cuda)
+        args.append((words, col))
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    torch.cuda.synchronize()
+    out = [[], []]
+    for _ in range(20):
+        for k, st in enumerate(streams):
+            with torch.cuda.stream(st):
+                out[k].append(ko.orpull_bit_csum(*args[k]))
+    torch.cuda.synchronize()
+    for k in range(2):
+        want = ko.orpull_bit_csum_plain(*args[k])
+        assert all(torch.equal(c, want) for c in out[k])
+
+
+MINMAX_SEMIRINGS = list(mm.SEMIRING_MAP)
+
+
+def _minmax_inputs(rng, n_in, n_val, kind):
+    """x and val of one kind: int32 of every sign, large enough that sums
+    and products wrap; float32 of every sign with ±inf in x; the same with
+    NaN in x and val too."""
+    if kind == "int32":
+        big = np.iinfo(np.int32)
+        x = rng.integers(big.min, big.max, n_in, dtype=np.int64)
+        x[rng.random(n_in) < 0.5] //= 1 << 20   # small ones too, both signs
+        val = rng.integers(-5, 6, n_val)
+        val[::7] = big.max
+        return x.astype(np.int32), val.astype(np.int32)
+    x = rng.uniform(-5.0, 5.0, n_in).astype(np.float32)
+    x[rng.random(n_in) < 0.1] = np.inf
+    x[rng.random(n_in) < 0.1] = -np.inf
+    val = rng.uniform(-2.0, 2.0, n_val).astype(np.float32)
+    val[::11] = 0.0
+    if kind == "float32_nan":
+        x[rng.random(n_in) < 0.05] = np.nan
+        val[::13] = np.nan
+    return x, val
+
+
+def _bits(y):
+    return y.view(torch.int32) if y.dtype == torch.float32 else y
+
+
+def _same(a, b):
+    """Equal values, NaN where the other is NaN (torch.equal counts NaN
+    unequal; zeros compare up to their sign)."""
+    nan = torch.isnan(a)
+    return torch.equal(nan, torch.isnan(b)) and torch.equal(a[~nan], b[~nan])
+
+
+@pytest.mark.parametrize("n_out,n_in,m,hub,rows_of", LONG_ROW_CASES,
+                         ids=LONG_ROW_IDS)
+@pytest.mark.parametrize("name", MINMAX_SEMIRINGS)
+@pytest.mark.parametrize("kind", ["int32", "float32", "float32_nan"])
+def test_minmax_pull_matches_plain_on_the_card(cuda, n_out, n_in, m, hub,
+                                               rows_of, name, kind):
+    """S through every bin of the row schedule, long rows as clusters of
+    chunks: equal to its plain version on the card and on the CPU (NaN where
+    it is NaN, as 0·inf or an input NaN makes it; zeros up to their sign)
+    and bitwise to a second launch; empty rows at the semiring's
+    identity."""
+    ptr, ind, length, rng = _long_row_csr(cuda, n_out, n_in, m, hub,
+                                          rows_of, n_out + m + len(name))
+    x_np, val_np = _minmax_inputs(rng, n_in, ind.shape[0], kind)
+    x, val = torch.from_numpy(x_np).to(cuda), torch.from_numpy(val_np).to(cuda)
+    sched = rs.build_schedule(ptr)
+    sr = getattr(tgb.semiring, f"{name}Semiring")
+    launches = mm.spmv_minmax_pull.launches
+    y = mm.spmv_minmax_pull(ptr, ind, val, x, sr, n_out, sched=sched)
+    y2 = mm.spmv_minmax_pull(ptr, ind, val, x, sr, n_out, sched=sched)
+    torch.cuda.synchronize()
+    assert mm.spmv_minmax_pull.launches == launches + 2
+    assert y.dtype == x.dtype and y.shape == (n_out,)
+    assert torch.equal(_bits(y), _bits(y2))
+    cpu = mm.spmv_minmax_pull_plain(ptr.cpu(), ind.cpu(), val.cpu(), x.cpu(),
+                                    sr, n_out)
+    np.testing.assert_array_equal(y.cpu().numpy(), cpu.numpy())
+    assert _same(y, mm.spmv_minmax_pull_plain(ptr, ind, val, x, sr, n_out))
+    empty = torch.from_numpy(length == 0).to(cuda)
+    assert bool((y[empty] == sr.identity(x.dtype).to(cuda)).all())
+
+
+def test_minmax_pull_refuses_a_call_without_a_schedule(cuda):
+    """A CUDA launch of S without its row schedule, or with another
+    row count's, raises; a dtype or semiring it does not take raises."""
+    ptr = torch.tensor([0, 1, 1], dtype=torch.int32, device=cuda)
+    ind = torch.tensor([0], dtype=torch.int32, device=cuda)
+    val = torch.ones(1, dtype=torch.int32, device=cuda)
+    x = torch.arange(5, 9, dtype=torch.int32, device=cuda)
+    sr = tgb.MaximumMultipliesSemiring
+    with pytest.raises(ValueError, match="schedule"):
+        mm.spmv_minmax_pull(ptr, ind, val, x, sr, 2)
+    with pytest.raises(ValueError, match="schedule"):
+        mm.spmv_minmax_pull(ptr, ind, val, x, sr, 2, sched=rs.build_schedule(
+            torch.tensor([0, 1], dtype=torch.int32, device=cuda)))
+    with pytest.raises(ValueError):
+        mm.spmv_minmax_pull(ptr, ind, val, x.double(), sr, 2,
+                            sched=rs.build_schedule(ptr))
+    y = mm.spmv_minmax_pull(ptr, ind, val, x, sr, 2,
+                            sched=rs.build_schedule(ptr))
+    assert y.tolist() == [5, 0]   # x[0] * 1, and the empty row's identity

@@ -321,7 +321,7 @@ def test_library_name_hashes_its_own_source(tmp_path, monkeypatch):
     before = {n: _build.library_path(n) for n in _build.SOURCES}
     header = tmp_path / "row_schedule.cuh"
     header.write_text(header.read_text() + "// edited\n")
-    users = {"value_pull", "monoid_pull", "bitmap_pull"}
+    users = {"value_pull", "monoid_pull", "bitmap_pull", "minmax_pull"}
     for n in _build.SOURCES:
         assert (_build.library_path(n) != before[n]) == (n in users), n
     before = {n: _build.library_path(n) for n in _build.SOURCES}
@@ -353,6 +353,8 @@ PORT_MODULES = [
     "graphblast_tpu_torch.ops.kernels.bitmap_pull",
     "graphblast_tpu_torch.ops.kernels.value_pull",
     "graphblast_tpu_torch.ops.kernels.monoid_pull",
+    "graphblast_tpu_torch.ops.kernels.minmax_pull",
+    "graphblast_tpu_torch.ops.kernels.orpull",
     "graphblast_tpu_torch.algorithms",
     "graphblast_tpu_torch.algorithms.bfs",
     "graphblast_tpu_torch.algorithms.pr",
