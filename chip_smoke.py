@@ -106,14 +106,36 @@ Phases, each of which fails the run on error (each prints its seconds):
   15. CC without a plan (the route of n >= 2^24) on the rmat18 graph:
      labels equal to the golden and verify_cc, one S launch an iteration
      and no other kernel; ms/run (40 calls) beside phase 8's;
-  16. cc() at n = 2^24 on the port's grid_matrix(4096) (67 M edges), which
+  16. triangle counting at rmat18 over T1, the masked-intersection count:
+     L = tril(A) (its build time), tc(L) warm and 10 timed calls (ms/run,
+     M edges/s as bench.py reckons them: A's nnz over a call), one T1
+     launch a call; the count equal to T1's plain version on the card and
+     to a second launch, printed beside the JAX bench's record on the same
+     graph (82,996,539; a record, not a check); tc equal to the host golden
+     tc_cpu at RMAT scale 16. T2, the semiring fold: mxm(L, L, mask L,
+     transpose_inp1) with PlusMultiplies and MinimumPlus over L and over a
+     seeded value-perturbed copy, and PlusMinus with that copy as B (⊗'s
+     A-then-B order), one T2 launch each, MinimumPlus equal to the plain
+     version, the sums within 1e-5·max|c| of a float64 plain version, all
+     bitwise equal to a second launch; MaximumMultiplies over negated
+     values, equal to the plain version, with negative values where the
+     walked list matched in full and the identity 0 elsewhere;
+     trace_mxm_transpose equal to its plain version, on A and on the
+     negated values (one T2 launch each). Times T1 and T2 (events, and
+     events with torch.profiler on the same 100 launches while nvidia-smi
+     samples the SM clock and power), their plain versions, the walk's
+     size, and
+     torch.sparse.mm of L by Lᵀ (cuSPARSE's SpGEMM, a yardstick only) where
+     it can run: fewer than 2^31 products (at rmat18 it takes 3.3e9, so it
+     is timed at rmat16 beside tc);
+  17. cc() at n = 2^24 on the port's grid_matrix(4096) (67 M edges), which
      takes the plan-less route: labels all 0 and verify_cc, one S launch
      an iteration over the CSR's cached schedule and no K4; the graph's
      build time and ms/run;
-  17. value pull in K3's regime: a seeded uniform random CSR built on the
+  18. value pull in K3's regime: a seeded uniform random CSR built on the
      card, 2^24 rows and columns, 8 edges a row, so that x (64 MB) exceeds
      the 50 MB L2; the same checks and timings as phase 4;
-  18. prints {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
+  19. prints {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
 
 Every check of results, launch counts and schedules raises. A
 torch.profiler reading that cannot be trusted (no device time, or more
@@ -130,6 +152,10 @@ import types
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM published memory rate
 RMAT18_N, RMAT18_NNZ = 262_144, 7_610_284
 PR_ALPHA, PR_EPS = 0.85, 1e-8
+# torch.sparse.mm of L by Lᵀ (cuSPARSE's SpGEMM) is timed where it can run:
+# fewer products than cuSPARSE counts in 32 bits, and about this many device
+# bytes a product (its output and buffers) free
+LIBRARY_BYTES_A_PRODUCT = 16
 
 
 def _event_ms(fn, reps: int) -> float:
@@ -148,12 +174,15 @@ def _event_ms(fn, reps: int) -> float:
 
 
 def _device_profile(fn, reps: int):
-    """(device µs by kernel name, wall ms, why not measured) of `reps`
-    synchronized calls of fn under torch.profiler: the kernels' own events
-    only, not the host ops that launched them. The table is empty, and the
-    reason says why, when the trace holds no device time or more device
-    time than wall time (events counted twice): a flaw of the reading, not
-    of the kernels, so it is printed and does not fail the run."""
+    """(device µs by kernel name, wall ms, why not measured, launches
+    recorded by kernel name) of `reps` synchronized calls of fn under
+    torch.profiler: the kernels' own events only, not the host ops that
+    launched them. The table is empty, and the reason says why, when the
+    trace holds no device time or more device time than wall time (events
+    counted twice): a flaw of the reading, not of the kernels, so it is
+    printed and does not fail the run. The trace may hold fewer launches
+    than were made (PERF.md, PR 9), so a time a launch divides by the
+    launches recorded."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -167,7 +196,7 @@ def _device_profile(fn, reps: int):
             fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    table = {}
+    table, counts = {}, {}
     # the kernels' own events; a host op's device time repeats theirs
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
@@ -177,30 +206,135 @@ def _device_profile(fn, reps: int):
             us = getattr(e, "self_cuda_time_total", 0)
         if us > 0:
             table[e.key] = table.get(e.key, 0.0) + us
+            counts[e.key] = counts.get(e.key, 0) + e.count
     busy_ms = sum(table.values()) / 1e3
     if not table:
-        return {}, wall_ms, "the trace holds no device time"
+        return {}, wall_ms, "the trace holds no device time", {}
     if busy_ms > wall_ms:
         return {}, wall_ms, (f"device busy {busy_ms:.6f} ms in a wall time "
                              f"of {wall_ms:.6f} ms: the trace counts some "
-                             "device time twice")
-    return table, wall_ms, None
+                             "device time twice"), {}
+    return table, wall_ms, None, counts
 
 
 def _device_ms(fn, reps: int, names) -> str:
     """Device ms per call of fn spent in kernels whose names contain one of
-    `names`, from a torch.profiler trace, or "not measured" and why."""
-    table, _, why = _device_profile(fn, reps)
-    us = sum(v for k, v in table.items() if any(n in k for n in names))
+    `names`, from a torch.profiler trace, over the calls the trace
+    recorded (a call launches each such kernel at most once, so the most
+    launches of any one of them), or "not measured" and why."""
+    table, _, why, counts = _device_profile(fn, reps)
     if why:
         return f"not measured ({why})"
-    return f"{us / reps / 1e3:.6f} ms" if us else (
-        "not measured (no kernel of that name in the trace)")
+    us = sum(v for k, v in table.items() if any(n in k for n in names))
+    calls = max((v for k, v in counts.items()
+                 if any(n in k for n in names)), default=0)
+    if not (us and calls):
+        return "not measured (no kernel of that name in the trace)"
+    text = f"{us / calls / 1e3:.6f} ms"
+    return text if calls == reps else (
+        f"{text} ({calls} of {reps} calls recorded)")
+
+
+def _smi_samples(text: str, t0: float, t1: float):
+    """(SM MHz, memory MHz, W) of the nvidia-smi samples (lines of
+    timestamp, clocks.sm, clocks.mem, power.draw) taken between the epoch
+    times t0 and t1."""
+    import datetime
+
+    out = []
+    for line in text.splitlines():
+        parts = [p.strip() for p in line.split(",")]
+        if len(parts) != 4:
+            continue
+        try:
+            ts = datetime.datetime.strptime(
+                parts[0], "%Y/%m/%d %H:%M:%S.%f").timestamp()
+            sample = tuple(float(p) for p in parts[1:])
+        except ValueError:
+            continue
+        if t0 <= ts <= t1:
+            out.append(sample)
+    return out
+
+
+def _window(fn, reps: int, names, warm_s: float = 1.0) -> dict:
+    """Events and torch.profiler on the same `reps` back-to-back calls of
+    fn, in one window, with nvidia-smi sampling the card's clocks and
+    power every 20 ms through it: {"events_ms": per call by CUDA events
+    around the loop, "device_ms": per launch the trace recorded of the
+    kernels whose names contain one of `names` (None if it holds none;
+    it may miss some), "launches": how many it recorded, "span_ms": from
+    the first such kernel's start to the last one's end, per launch
+    recorded, "kernel_ms": (min, max) of one launch, "smi": [(SM MHz,
+    memory MHz, W)]}. fn runs synchronized for `warm_s` seconds first, so the sampler
+    has started and the clocks have settled under this load."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    smi = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=timestamp,clocks.sm,clocks.mem,"
+         "power.draw", "--format=csv,noheader,nounits", "-lms", "20"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        until = time.perf_counter() + warm_s
+        while time.perf_counter() < until:
+            fn()
+            torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.time()
+            start.record()
+            for _ in range(reps):
+                fn()
+            end.record()
+            end.synchronize()
+            t1 = time.time()
+    finally:
+        smi.terminate()
+        try:
+            text = smi.communicate(timeout=10)[0]
+        except subprocess.TimeoutExpired:
+            smi.kill()
+            text = smi.communicate()[0]
+    spans = [e.time_range for e in prof.events()
+             if e.device_type == DeviceType.CUDA
+             and any(n in e.name for n in names)]
+    out = {"events_ms": start.elapsed_time(end) / reps, "device_ms": None,
+           "span_ms": None, "kernel_ms": None, "reps": reps,
+           "smi": _smi_samples(text, t0, t1)}
+    if spans:
+        lengths = [(r.end - r.start) / 1e3 for r in spans]
+        out["device_ms"] = sum(lengths) / len(spans)
+        out["span_ms"] = (max(r.end for r in spans)
+                          - min(r.start for r in spans)) / 1e3 / len(spans)
+        out["kernel_ms"] = (min(lengths), max(lengths))
+        out["launches"] = len(spans)
+    return out
+
+
+def _window_text(w: dict) -> str:
+    def rng(i):
+        vals = [s[i] for s in w["smi"]]
+        return f"{min(vals):.0f}-{max(vals):.0f}" if vals else "none"
+
+    dev = ("not measured (no kernel of that name in the trace)"
+           if w["device_ms"] is None else
+           f"{w['device_ms']:.6f} ms a launch over the {w['launches']} of "
+           f"{w['reps']} launches the trace recorded, span "
+           f"{w['span_ms']:.6f} ms a launch, one launch "
+           f"{w['kernel_ms'][0]:.6f}-{w['kernel_ms'][1]:.6f} ms")
+    return (f"same window: events {w['events_ms']:.6f} ms a call, device "
+            f"(torch.profiler) {dev}; {len(w['smi'])} nvidia-smi samples: "
+            f"SM {rng(0)} MHz, memory {rng(1)} MHz, {rng(2)} W")
 
 
 def _wrappers():
     from graphblast_tpu_torch.ops.kernels.bitmap_pull import spmv_bitmap_pull
     from graphblast_tpu_torch.ops.kernels.gather import gather_1d
+    from graphblast_tpu_torch.ops.kernels.masked_intersect import (
+        masked_intersect_count, masked_intersect_fold)
     from graphblast_tpu_torch.ops.kernels.minmax_pull import spmv_minmax_pull
     from graphblast_tpu_torch.ops.kernels.monoid_pull import spmv_monoid
     from graphblast_tpu_torch.ops.kernels.orpull import orpull_bit_csum
@@ -208,7 +342,9 @@ def _wrappers():
 
     return {"bitmap_pull": spmv_bitmap_pull, "value_pull": spmv_value_pull,
             "monoid_pull": spmv_monoid, "gather": gather_1d,
-            "orpull_csum": orpull_bit_csum, "minmax_pull": spmv_minmax_pull}
+            "orpull_csum": orpull_bit_csum, "minmax_pull": spmv_minmax_pull,
+            "masked_intersect_count": masked_intersect_count,
+            "masked_intersect_fold": masked_intersect_fold}
 
 
 def _reset_counts():
@@ -1229,7 +1365,7 @@ def _mis_breakdown(A, w0, rounds: int):
     print(f"[mis] a round's parts: MaximumMultiplies pull {max_ms:.6f} ms, "
           f"of which S alone {s_ms:.6f} ms ({100 * s_ms / max_ms:.1f}%); "
           f"LogicalOrAnd pull (K6, cumsum, K6) {or_ms:.6f} ms")
-    table, wall_ms, why = _device_profile(
+    table, wall_ms, why, _ = _device_profile(
         lambda: gt.algorithms.mis(A, seed=1), 1)
     if why:
         print(f"[mis] torch.profiler: device busy share not measured ({why})")
@@ -1332,6 +1468,252 @@ def phase_cc_plan_less(A, golden, k4_per_s: float, reps: int = 40):
           f"{reps} runs; phase 8's cc() over K4 "
           f"{k4_per_s * 1e3:.6f} ms/run ({per_s / k4_per_s:.2f}x)")
     return counts
+
+
+def _walk_stats(L):
+    """(mask edges, walked ids W, matches bound, probes P) of the walk of
+    tc(L) over L, Lᵀ on the host: W = Σ over the edges (i, j) of the shorter
+    of rows i and j; each walked id's search in the longer list of length
+    l takes about ceil(log2(l + 1)) halvings, the last three inside one
+    32-byte sector of eight ids, so P = Σ W_e · max(1, ceil(log2(l + 1)) -
+    3) sector reads."""
+    import numpy as np
+
+    ptr, ind, _ = L.host_csr()
+    deg = np.diff(ptr)
+    rows = np.repeat(np.arange(L.nrows), deg)
+    di, dj = deg[rows], deg[ind]
+    walked = np.minimum(di, dj)
+    longer = np.maximum(di, dj)
+    halvings = np.ceil(np.log2(longer + 1.0))
+    probes = walked * np.maximum(1.0, halvings - 3)
+    return len(rows), int(walked.sum()), int(probes.sum())
+
+
+def _library_spgemm(L):
+    """(ms or None, text) of the library route of tc(L): cuSPARSE's SpGEMM
+    of L by Lᵀ (torch.sparse.mm), timed without the masked sum that would
+    follow it, where it can run. With unit values its entries add up to
+    the number of products, Σ_k |column k of L|², which is checked."""
+    import torch
+
+    m = L.nvals
+    lc = torch.sparse_csr_tensor(L.row_ptr, L.col_ind[:m], L.val[:m],
+                                 size=L.shape, check_invariants=False)
+    ltc = torch.sparse_csr_tensor(L.col_ptr, L.csc_row_ind[:m],
+                                  L.csc_val[:m], size=L.shape,
+                                  check_invariants=False)
+    products = int(((L.col_ptr[1:] - L.col_ptr[:-1]).long() ** 2).sum())
+    free, _ = torch.cuda.mem_get_info()
+    if products >= 1 << 31 or products * LIBRARY_BYTES_A_PRODUCT > free:
+        return None, (f"not run: L·Lᵀ takes {products} products (its nnz is "
+                      f"at most that), beyond 2^31 or "
+                      f"{LIBRARY_BYTES_A_PRODUCT} B a product of the {free} "
+                      "B free")
+    prod = torch.sparse.mm(lc, ltc)
+    prod_nnz, total = prod._nnz(), float(prod.values().double().sum())
+    del prod
+    if abs(total - products) > 1e-6 * products:
+        raise AssertionError(f"tc: L·Lᵀ from torch.sparse.mm sums to "
+                             f"{total}, not {products}")
+    lib_ms = _event_ms(lambda: torch.sparse.mm(lc, ltc), 3)
+    torch.cuda.empty_cache()
+    return lib_ms, (f"{lib_ms:.6f} ms (torch.sparse.mm alone: L·Lᵀ has "
+                    f"{prod_nnz} entries from {products} products)")
+
+
+def phase_tc(A, reps: int = 10, golden_scale: int = 16):
+    """Triangle counting at RMAT scale 18 over T1 and the masked mxm over
+    T2 (ops/kernels/masked_intersect.py): L = tril(A); tc(L) warm, then
+    `reps` timed calls, one T1 launch each; the count equal to its plain
+    version on the card and a second launch, printed beside the JAX
+    bench's record; tc equal to the host golden tc_cpu at RMAT scale
+    `golden_scale`; mxm(L, L, mask L, transpose_inp1) with PlusMultiplies
+    and MinimumPlus over L and over a value-perturbed copy, and PlusMinus
+    with that copy as B (⊗'s operand order), each one T2 launch, held to
+    the plain version (min exact; plus within 1e-5·max|c| of a float64
+    plain version) and bitwise to a second launch; trace_mxm_transpose
+    against its plain version. Times T1, T2, their plain versions and the
+    library route (`_library_spgemm`), at rmat18 and at the golden's
+    scale."""
+    import numpy as np
+    import torch
+
+    import graphblast_tpu_torch as gt
+    from graphblast_tpu_torch.io.rmat import rmat_matrix
+    from graphblast_tpu_torch.ops import spgemm as sp
+    from graphblast_tpu_torch.ops.kernels.masked_intersect import (
+        masked_intersect_count, masked_intersect_count_plain,
+        masked_intersect_fold, masked_intersect_fold_plain)
+
+    jax_record = 82_996_539   # BENCH_r04.json, TPU v5 lite, same graph
+    t0 = time.perf_counter()
+    L = gt.tril(A)
+    torch.cuda.synchronize()
+    print(f"[tc] L = tril(A): n={L.nrows} nnz={L.nvals}, built on the host "
+          f"in {time.perf_counter() - t0:.2f} s")
+    _reset_counts()
+    ntris = gt.algorithms.tc(L)          # warm: the lists' check, once
+    _expect_launches("tc warm", {"masked_intersect_count": 1})
+    _reset_counts()
+    times, got = [], set()
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        got.add(gt.algorithms.tc(L))     # reads the total: synchronous
+        times.append(time.perf_counter() - t0)
+    counts = _expect_launches("tc", {"masked_intersect_count": reps})
+    tc_launches = counts["masked_intersect_count"]
+    per_s, tail = _median_and_tail(times)
+    ops = sp._operands(L, L, L, True)
+    args = sp._count_args(ops)
+    plain = masked_intersect_count_plain(*args)
+    again = masked_intersect_count(*args)
+    if got != {ntris} or ntris != plain or again != ntris:
+        raise AssertionError(f"tc: {sorted(got)} from tc(), {ntris} warm, "
+                             f"{plain} plain, {again} again")
+    print(f"[tc] rmat18: {ntris} triangles, equal to the plain version on "
+          f"the card and to a second launch; the JAX bench's record on the "
+          f"same graph {jax_record:,} "
+          f"({'equal' if ntris == jax_record else 'differs'})")
+    print(f"[tc] {per_s * 1e3:.6f} ms/run median, {tail}, {reps} runs; "
+          f"{A.nvals / per_s / 1e6:.1f} M edges/s (bench.py: A.nvals over a "
+          f"tc() call); launches {counts}")
+
+    t0 = time.perf_counter()
+    A16 = rmat_matrix(golden_scale, 16, seed=42, device="cuda")
+    L16 = gt.tril(A16)
+    t1 = time.perf_counter()
+    want16 = gt.algorithms.tc_cpu(L16)
+    t2 = time.perf_counter()
+    got16 = gt.algorithms.tc(L16)
+    if got16 != want16:
+        raise AssertionError(f"tc at rmat{golden_scale}: {got16} != host "
+                             f"golden {want16}")
+    tc16_ms = _event_ms(lambda: gt.algorithms.tc(L16), 10)
+    lib16_ms, lib16_text = _library_spgemm(L16)
+    print(f"[tc] rmat{golden_scale}: tc {got16} == host golden tc_cpu "
+          f"(graph {t1 - t0:.2f} s, golden {t2 - t1:.2f} s); tc "
+          f"{tc16_ms:.6f} ms a call, library {lib16_text}")
+    del A16, L16
+
+    m, walked, probes = _walk_stats(L)
+    n = L.nrows
+    t1_bytes = 8 * m + 4 * (n + 1)            # row ids, col ids, row_ptr
+    t2_bytes = t1_bytes + 4 * m + 4 * m       # values, c
+    walk_bytes = 8 * m + 16 * m + 4 * walked + 32 * probes
+    t1_bound = t1_bytes / HBM_BYTES_PER_S * 1e3
+    t2_bound = t2_bytes / HBM_BYTES_PER_S * 1e3
+    print(f"[tc] walk: {m} mask edges, {walked} walked ids (the shorter "
+          f"lists), about {probes} probed sectors; the walk's bytes (mask, "
+          f"pointers, walked ids, probes) {walk_bytes} B -> "
+          f"{walk_bytes / HBM_BYTES_PER_S * 1e3:.6f} ms at 3.35 TB/s")
+    ms = _event_ms(lambda: masked_intersect_count(*args), 20)
+    win = _window(lambda: masked_intersect_count(*args), 100,
+                  ["count_kernel"])
+    plain_ms = _event_ms(lambda: masked_intersect_count_plain(*args), 2)
+
+    lib_ms, lib_text = _library_spgemm(L)
+    print(f"[T1] count: kernel {ms:.6f} ms (events); "
+          f"{_window_text(win)}; plain {plain_ms:.6f} ms, library "
+          f"{lib_text}; bound {t1_bytes} B (inputs once) -> {t1_bound:.6f} "
+          f"ms at 3.35 TB/s")
+    t1_row = dict(max_abs_err=abs(again - plain), ms=ms, plain_ms=plain_ms,
+                  bound_ms=t1_bound, library_ms=lib_ms)
+
+    # T2: the masked mxm, TC's general route, over L and a perturbed copy;
+    # MaximumMultiplies over negated values, where its identity 0 must join
+    # only where a walked id has no partner
+    r, c, _ = L.extract_tuples()
+    rng = np.random.default_rng(42)
+    w = rng.uniform(1.0, 2.0, m).astype(np.float32)
+    Lp = gt.Matrix.from_coo(r, c, w, n, n, device="cuda")
+    Ln = gt.Matrix.from_coo(r, c, -w, n, n, device="cuda")
+    desc = gt.Descriptor(transpose_inp1=True)
+    fold_rows, fold_launches = {}, None
+    cases = [("plus_times", "PlusMultiplies", L, L),
+             ("min_plus", "MinimumPlus", L, L),
+             ("plus_times_w", "PlusMultiplies", Lp, Lp),
+             ("min_plus_w", "MinimumPlus", Lp, Lp),
+             ("plus_minus", "PlusMinus", L, Lp),
+             ("max_times_neg", "MaximumMultiplies", Ln, Lp)]
+    for tag, name, X, Y in cases:
+        sr = getattr(gt.semiring, f"{name}Semiring")
+        _reset_counts()
+        C = gt.mxm(X, Y, sr, mask=L, desc=desc)
+        counts = _expect_launches(f"mxm {tag}", {"masked_intersect_fold": 1})
+        if tag == "plus_times":
+            fold_launches = counts["masked_intersect_fold"]
+        ops = sp._operands(X, Y, L, True)
+        c = C.val[:m]
+        c2 = masked_intersect_fold(*ops, sr)
+        if not torch.equal(c.view(torch.int32), c2.view(torch.int32)):
+            raise AssertionError(f"T2 {tag}: differs from a second launch")
+        if name in ("MinimumPlus", "MaximumMultiplies"):
+            want = masked_intersect_fold_plain(*ops, sr)
+            err = float((c.double() - want.double()).abs().max())
+            if not torch.equal(c, want):
+                raise AssertionError(f"T2 {tag}: != plain (max diff {err})")
+            tol_text = "equal to the plain version"
+            if name == "MaximumMultiplies":
+                neg, zero = int((c < 0).sum()), int((c == 0).sum())
+                if not (neg and zero and neg + zero == m):
+                    raise AssertionError(f"T2 {tag}: {neg} negative and "
+                                         f"{zero} zero values of {m}")
+                tol_text += (f" ({neg} negative: the walked list matched "
+                             f"in full; {zero} the identity 0)")
+        else:
+            d_ops = ops[:4] + (ops[4].double(),) + ops[5:7] + (
+                ops[7].double(),)
+            want = masked_intersect_fold_plain(*d_ops, sr)
+            err = float((c.double() - want).abs().max())
+            tol = 1e-5 * float(want.abs().max())
+            if not err <= tol:
+                raise AssertionError(f"T2 {tag}: {err} from the float64 "
+                                     f"plain version, above {tol}")
+            tol_text = (f"within {err:.3g} of the float64 plain version "
+                        f"(bar {tol:.3g})")
+        if c.shape != (m,) or not bool(torch.isfinite(c).all()):
+            raise AssertionError(f"T2 {tag}: values not finite, or of "
+                                 f"shape {tuple(c.shape)}")
+        fold_ms = _event_ms(lambda: masked_intersect_fold(*ops, sr), 20)
+        line = (f"[T2 {tag}] mxm({name}, mask L, Lᵀ): one launch, bitwise "
+                f"equal to a second, {tol_text}; kernel {fold_ms:.6f} ms")
+        if tag == "plus_times":
+            fold_plain_ms = _event_ms(
+                lambda: masked_intersect_fold_plain(*ops, sr), 2)
+            fold_win = _window(lambda: masked_intersect_fold(*ops, sr), 100,
+                               ["fold_kernel"])
+            line += (f"; {_window_text(fold_win)}; plain "
+                     f"{fold_plain_ms:.6f} ms, library "
+                     f"{lib_text.split(' (')[0]}, bound {t2_bytes} B "
+                     f"-> {t2_bound:.6f} ms at 3.35 TB/s")
+            fold_rows = dict(max_abs_err=err, ms=fold_ms,
+                             plain_ms=fold_plain_ms, bound_ms=t2_bound,
+                             library_ms=lib_ms)
+        print(line)
+
+    _reset_counts()
+    sr = gt.MaximumMultipliesSemiring
+    tr = gt.trace_mxm_transpose(Ln, Lp, sr)
+    _expect_launches("trace max", {"masked_intersect_fold": 1})
+    tr_plain = sp.intersect_rows_reduce_plain(Ln, Lp, sr)
+    if not torch.equal(tr, tr_plain):
+        raise AssertionError(f"trace max: {float(tr)} != plain "
+                             f"{float(tr_plain)}")
+    print(f"[tc] trace_mxm_transpose(-L', L', MaximumMultiplies) = "
+          f"{float(tr)}, equal to its plain version; one T2 launch")
+    del Lp, Ln
+
+    _reset_counts()
+    tr = gt.trace_mxm_transpose(A, A, gt.PlusMultipliesSemiring)
+    _expect_launches("trace", {"masked_intersect_fold": 1})
+    tr_plain = sp.intersect_rows_reduce_plain(A, A,
+                                              gt.PlusMultipliesSemiring)
+    if float(tr) != float(tr_plain):
+        raise AssertionError(f"trace: {float(tr)} != plain {float(tr_plain)}")
+    print(f"[tc] trace_mxm_transpose(A, A) = {float(tr)} (nnz {A.nvals}), "
+          "equal to its plain version; one T2 launch")
+    return tc_launches, fold_launches, t1_row, fold_rows
 
 
 def phase_cc_2_24(reps: int = 5):
@@ -1505,6 +1887,9 @@ def main() -> int:
     t0 = time.perf_counter()
     cc_s_counts = phase_cc_plan_less(A, cc_golden, cc_per_s)
     print(f"[phase] plan-less CC {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    tc_launches, fold_launches, t1_row, t2_row = phase_tc(A)
+    print(f"[phase] TC and the masked mxm {time.perf_counter() - t0:.2f} s")
     del A
     t0 = time.perf_counter()
     phase_cc_2_24()
@@ -1576,6 +1961,17 @@ def main() -> int:
             "source": "graphblast_tpu_torch/csrc/gather.cu",
             "replaces": "graphblast_tpu/ops/pallas/gather.py:45",
             "launches": launches, "bound_by": "bytes", **k6[name]})
+    # T1 and T2: one kernel file in place of plain jnp, no Pallas
+    for name, replaces, launches, row in (
+            ("masked_intersect_count", "graphblast_tpu/ops/spgemm.py:159",
+             tc_launches, t1_row),
+            ("masked_intersect_fold", "graphblast_tpu/ops/spgemm.py:70",
+             fold_launches, t2_row)):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "graphblast_tpu_torch/csrc/masked_intersect.cu",
+            "replaces": replaces, "launches": launches, "bound_by": "bytes",
+            **row})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

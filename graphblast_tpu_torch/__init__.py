@@ -18,7 +18,9 @@ prep and the dimension checks (slice 2); pull-only SSSP and FastSV CC over
 the min/max monoid-pull kernel K4, with the postprocess epilogue of
 mxv_dual (slice 3); the plan-less pull (spmv_pull, segops, take) over the
 or-pull prefix count K5 and the gather K6, with MIS, graph colouring,
-stepped BFS and CC at n >= 2^24 on it (slice 4).
+stepped BFS and CC at n >= 2^24 on it (slice 4); triangle counting, the
+masked mxm and trace_mxm_transpose over the masked-intersection kernels T1
+and T2.
 """
 
 from .types import Direction, INDEX_DTYPE, LoadBalanceMode, SparseFormat, Storage
@@ -35,6 +37,7 @@ from .semiring import (
     MinimumSelectSecondSemiring,
     Monoid,
     PlusDividesSemiring,
+    PlusMinusSemiring,
     PlusMonoid,
     PlusMultipliesSemiring,
     Semiring,
@@ -45,12 +48,15 @@ from .matrix import Matrix
 from .vector import Vector
 from .operations import (
     eWiseMult_matrix_scalar,
+    mxm,
     reduce_matrix_to_vector,
     scale_matrix_rows,
+    trace_mxm_transpose,
+    tril,
 )
 from . import algorithms
 from .algorithms import (cc, cc_cpu, gc, gc_cpu, mis, mis_cpu, pr, pr_cpu,
-                         prepare_pr_matrix, sssp, sssp_cpu, verify_cc,
-                         verify_gc, verify_mis)
+                         prepare_pr_matrix, sssp, sssp_cpu, tc, tc_cpu,
+                         triangle_count, verify_cc, verify_gc, verify_mis)
 
 __version__ = "0.1.0"

@@ -1,6 +1,6 @@
 """Algorithm library. Ported so far: BFS (pull-only), PageRank, SSSP
-(pull-only), CC (FastSV), MIS and graph colouring, with their NumPy
-goldens."""
+(pull-only), CC (FastSV), MIS, graph colouring and triangle counting, with
+their NumPy goldens."""
 
 from .bfs import bfs, bfs_cpu
 from .cc import cc, cc_cpu, verify_cc
@@ -8,4 +8,5 @@ from .gc import gc, gc_cpu, verify_gc
 from .mis import mis, mis_cpu, verify_mis
 from .pr import pr, pr_cpu, prepare_pr_matrix
 from .sssp import sssp, sssp_cpu
+from .tc import tc, tc_cpu, triangle_count
 from . import reference

@@ -110,7 +110,7 @@ def cc(A: Matrix, seed: int = 0, desc: Descriptor = DEFAULT,
     if A.row_ptr is None:
         raise NotImplementedError(
             "cc pulls over A's CSR; a CSC-only matrix needs push, which is "
-            "not ported yet (ROADMAP queue 1 item 8)")
+            "not ported yet (ROADMAP queue 1 item 5)")
     plan = (plan_for_monoid(A, transpose=False, ones=True)
             if A.nrows < EXACT_IDS else None)
     parent, _ = _cc_fused(A, plan, max_niter=desc.max_niter,

@@ -241,6 +241,16 @@ class Matrix:
             return self._host_csc
         return self._fetch(self.col_ptr, self.csc_row_ind, self.csc_val)
 
+    def extract_tuples(self):
+        """(rows int64, cols int64, vals) of the stored entries on the host,
+        in CSR order (reference: matrix.hpp:171-194), from the host CSR."""
+        if self.row_ptr is None:
+            raise ValueError("extract_tuples reads the CSR; this Matrix is "
+                             "CSC-only")
+        ptr, ind, val = self.host_csr()
+        rows = np.repeat(np.arange(self.nrows, dtype=np.int64), np.diff(ptr))
+        return rows, ind.astype(np.int64), val
+
     def _fetch(self, ptr, ind, val):
         if ptr is None:
             return None

@@ -4,15 +4,20 @@ reference: graphblas/operations.hpp).
 Ported so far: the three operations PageRank's matrix prep composes
 (`prepare_pr_matrix`, reference example/gpr.cu:82-90): the row reduce
 `reduce_matrix_to_vector`, `eWiseMult_matrix_scalar` and
-`scale_matrix_rows`. The rest of the surface is ROADMAP queue 1 item 10.
+`scale_matrix_rows`; and triangle counting's: `tril`, the masked `mxm` and
+`trace_mxm_transpose` (ops/spgemm.py). The rest of the surface is ROADMAP
+queue 1 item 7.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
 from . import dimension as dim
 from .descriptor import DEFAULT, Descriptor
 from .matrix import Matrix
+from .ops import spgemm
 from .semiring import BinaryOp, Monoid, Semiring, extract_add, extract_mul
 from .types import Storage
 from .vector import Vector
@@ -41,7 +46,7 @@ def reduce_matrix_to_vector(A: Matrix, monoid: Monoid,
         raise NotImplementedError(
             f"row reduce over {monoid.name} is not ported (only the "
             f"associative monoids {sorted(_ROW_REDUCE)}): ROADMAP queue 1 "
-            "item 10")
+            "item 7")
     if A.row_ptr is None:
         raise ValueError("reduce_matrix_to_vector needs A's CSR")
     vals = A.val[: A.nvals]
@@ -88,3 +93,38 @@ def scale_matrix_rows(A: Matrix, vec: Vector, op) -> Matrix:
         return binop(v, vd[r.clamp(max=vec.n - 1).long()]).to(v.dtype)
 
     return _scale_vals(A, fn, breaks_symmetry=True)
+
+
+def mxm(A: Matrix, B: Matrix, semiring: Semiring,
+        mask: Optional[Matrix] = None, desc: Descriptor = DEFAULT) -> Matrix:
+    """C = A ⊕.⊗ B on the structure of `mask` (reference: spgemm.hpp:85-87,
+    C inherits the mask's sparsity); desc.transpose_inp1 takes Bᵀ (TC's
+    idiom, tc.hpp:24). Unmasked SpGEMM is not ported."""
+    b_inner = B.ncols if desc.transpose_inp1 else B.nrows
+    if A.ncols != b_inner:
+        raise dim.DimensionException(
+            f"mxm: dimension mismatch — A is {A.shape}, "
+            f"B{'ᵀ' if desc.transpose_inp1 else ''} inner dim {b_inner}")
+    if mask is None:
+        raise NotImplementedError("unmasked mxm (spgemm_esc) is not ported: "
+                                  "ROADMAP queue 1 item 7")
+    dim.check_row_row(A, mask, "mxm")
+    return spgemm.spgemm_masked(A, B, mask, semiring,
+                                transpose_b=desc.transpose_inp1)
+
+
+def tril(A: Matrix) -> Matrix:
+    """The strictly lower triangle (reference: tri.hpp:10-53, a host CSR
+    walk; TC's preprocessing): a host filter c < r, built on A's device."""
+    r, c, v = A.extract_tuples()
+    keep = c < r
+    return Matrix.from_coo(r[keep], c[keep], v[keep], A.nrows, A.ncols,
+                           dtype=A.dtype, device=A.device)
+
+
+def trace_mxm_transpose(A: Matrix, B: Matrix,
+                        semiring: Semiring) -> torch.Tensor:
+    """Tr(A ⊕.⊗ Bᵀ) = ⊕_i ⊕_k A[i,k] ⊗ B[i,k] over the ids rows i of A and
+    B share (reference: operations.hpp:700-711 → trace.hpp:13-49), a 0-d
+    tensor of A's dtype."""
+    return spgemm.intersect_rows_reduce(A, B, semiring)

@@ -11,7 +11,7 @@ BFS) or a unit-valued value plan, the PlusMultiplies pull over a value plan
 for stepped BFS, the row fold S for a min/max semiring, with the
 orientation's cached row schedule), as the JAX package pulls when it has no
 plan and no TPU; and the `postprocess` epilogue. Push, and therefore
-PUSHONLY and PUSHPULL, is ROADMAP queue 1 item 8: it raises
+PUSHONLY and PUSHPULL, is ROADMAP queue 1 item 5: it raises
 NotImplementedError here rather than run another path.
 """
 from __future__ import annotations
@@ -33,7 +33,7 @@ from .kernels.value_pull import ValuePlan, spmv_value_pull
 from .spmv import mask_pass, spmv_pull
 
 PUSH_TODO = ("push (PUSHONLY / PUSHPULL) is not ported yet: ROADMAP queue 1 "
-             "item 8; run pull-only with mode=Direction.PULLONLY")
+             "item 5; run pull-only with mode=Direction.PULLONLY")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,0 +1,297 @@
+"""T1 and T2, the masked intersection of sorted rows: for each mask edge
+e = (mi[e], mj[e]), la is A's row mi[e] (a_ptr, a_ind) and lb is B's list
+mj[e] (b_ptr, b_ind: B's rows when B is taken transposed, else its CSC).
+
+  T1 `masked_intersect_count`: Σ_e |la ∩ lb|, an exact Python int
+     (triangle counting);
+  T2 `masked_intersect_fold`: c[e] = ⊕_{k ∈ la ∩ lb} a_val[i,k] ⊗
+     b_val[k,j], in a_val's dtype, with ⊕'s identity joined as below (the
+     masked mxm, the trace).
+
+Replaces no Pallas kernel: the JAX package computes both as plain jnp
+(graphblast_tpu/ops/spgemm.py:159 _masked_count_chunk, :70
+_masked_join_chunk), chunked sort joins shaped by the TPU's memory and its
+lack of a fast binary search. On Hopper one kernel file
+(csrc/masked_intersect.cu) walks each mask edge with one warp: the lanes
+stride the shorter list (B's only when strictly shorter, as the JAX plan
+chooses) and find each id with a lower_bound in the longer one. Nothing is
+expanded, so no workspace, no chunk plan and no lane cap is needed. T1 adds
+each block's count to one 64-bit total with one atomicAdd (exact, and the
+same on every run); T2 folds each lane's matches in walk order from the
+identity, then the lanes through a fixed butterfly of shuffles, so a launch
+is bitwise equal to any other. ⊗ takes A's value first whichever list is
+walked. Both lists must be sorted with no duplicate ids; ops/spgemm.py
+checks that once per Matrix. Bound: memory, the mask and walked lists read
+once and the sectors each binary search probes (chip_smoke.py reckons
+them from the run's data).
+
+Each fold starts at ⊕'s neutral element (±inf or the int32 limits for
+min and max, 0 for plus and or). The semiring's identity joins it where
+the JAX join brings it in, one identity for each walked id with no partner
+(graphblast_tpu/ops/spgemm.py:145-154): for the masked mxm, whose plan
+walks the shorter list, where the lists share fewer ids than the shorter
+holds, or none (so an empty intersection gives the identity); for the
+trace (`trace=True`), which tests every id of A's row (:705-723), where
+A's row holds an id B's lacks. Only min and max see it, since there the
+identity is not neutral: MaximumMonoid's is 0 (the reference's quirk), so
+a max of negative products is 0 exactly where a walked id missed.
+
+The plain versions are independent of the kernel's walk: they always
+expand A's side and look each (j, k) up with `torch.searchsorted` on int64
+keys over B's lists, chunked so the expansion fits (`_chunk_lanes`); on
+CPU tensors the wrappers run them, on CUDA tensors they launch the kernel
+or raise. Each launch is counted in the wrapper's `.launches`.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from ...types import INDEX_DTYPE
+from . import _build
+
+_LIBRARY = "masked_intersect"
+_ERROR = "gb_masked_intersect_error_string"
+_ERROR_SIG = ([ctypes.c_int], ctypes.c_char_p)
+_COUNT_SIG = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong]
+              + [ctypes.c_void_p] * 6, ctypes.c_int)
+_FOLD_SIG = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong]
+             + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
+             + [ctypes.c_uint, ctypes.c_int, ctypes.c_void_p], ctypes.c_int)
+_SIGNATURES = {"gb_masked_intersect_count": _COUNT_SIG,
+               "gb_masked_intersect_fold": _FOLD_SIG, _ERROR: _ERROR_SIG}
+_LAUNCH_COUNT = _build.launcher(_LIBRARY, _SIGNATURES,
+                                "gb_masked_intersect_count", _ERROR)
+_LAUNCH_FOLD = _build.launcher(_LIBRARY, _SIGNATURES,
+                               "gb_masked_intersect_fold", _ERROR)
+
+# the kernel's codes for ⊕ (by monoid) and ⊗ (by operator name)
+_ADD_CODE = {"PlusMonoid": 0, "MinimumMonoid": 1, "MaximumMonoid": 2,
+             "LogicalOrMonoid": 3}
+_MUL_CODE = {"plus": 0, "minus": 1, "multiplies": 2, "divides": 3,
+             "greater": 4, "less": 5, "not_equal_to": 6, "select_second": 7,
+             "logical_and": 8}
+# the catalogue's semirings whose ⊕ is plus, min, max or logical or: the
+# pairs csrc/masked_intersect.cu instantiates
+FOLD_SEMIRINGS = ("LogicalOrAnd", "PlusMultiplies", "MinimumPlus",
+                  "MaximumMultiplies", "PlusDivides", "PlusGreater",
+                  "PlusMinus", "PlusLess", "MinimumMultiplies",
+                  "MinimumSelectSecond", "PlusNotEqualTo",
+                  "MinimumNotEqualTo")
+DTYPES = (torch.float32, torch.int32)
+# scatter_reduce's reduction for each ⊕ (logical or: max of the 0/1 truths)
+_REDUCE = {"PlusMonoid": "sum", "MinimumMonoid": "amin",
+           "MaximumMonoid": "amax", "LogicalOrMonoid": "amax"}
+# the ⊕ whose identity is not its neutral element
+_MIN_MAX = ("MinimumMonoid", "MaximumMonoid")
+
+# the plain versions' expansion: at most this many lanes at once, fewer
+# where the card's free memory asks for it (about this many bytes a lane
+# in int64 temporaries)
+PLAIN_CHUNK_LANES = 1 << 25
+_PLAIN_BYTES_A_LANE = 128
+
+
+def fold_supported(semiring, dtype: torch.dtype) -> bool:
+    """Whether T2 folds `semiring` on values of `dtype` (PlusDivides only
+    on float32: true division leaves int32)."""
+    return (semiring.name in FOLD_SEMIRINGS and dtype in DTYPES
+            and not (semiring.name == "PlusDivides"
+                     and dtype == torch.int32))
+
+
+@functools.lru_cache(maxsize=None)
+def _identity_bits(semiring, dtype: torch.dtype) -> int:
+    """The semiring's identity in `dtype`, as the 32 bits the kernel takes."""
+    ident = semiring.identity(dtype).reshape(1)
+    return int(ident.view(torch.int32)) & 0xFFFFFFFF
+
+
+def _neutral(add: str, dtype: torch.dtype) -> float:
+    """⊕'s neutral element in `dtype`, where each fold starts."""
+    if add not in _MIN_MAX:
+        return 0
+    if dtype.is_floating_point:
+        lo, hi = float("-inf"), float("inf")
+    else:
+        lo, hi = torch.iinfo(dtype).min, torch.iinfo(dtype).max
+    return hi if add == "MinimumMonoid" else lo
+
+
+def _check(mi, mj, a_ptr, a_ind, b_ptr, b_ind, a_val=None, b_val=None):
+    """Raise on operands the walk does not take."""
+    idx = (mi, mj, a_ptr, a_ind, b_ptr, b_ind)
+    if any(t.dtype != INDEX_DTYPE or t.dim() != 1 for t in idx):
+        raise TypeError("mask ids, pointers and ids must be 1-D int32")
+    if mi.shape != mj.shape:
+        raise ValueError(f"{mi.shape[0]} mask row ids, {mj.shape[0]} "
+                         "column ids")
+    vals = [v for v in (a_val, b_val) if v is not None]
+    if any(v.dim() != 1 for v in vals):
+        raise ValueError("values must be 1-D")
+    if a_val is not None and (a_val.shape[0] < a_ind.shape[0]
+                              or b_val.shape[0] < b_ind.shape[0]):
+        raise ValueError("values need an entry for each stored id")
+    if any(t.device != mi.device for t in idx[1:] + tuple(vals)):
+        raise ValueError("mask, A and B must be on one device")
+    if not all(t.is_contiguous() for t in idx + tuple(vals)):
+        raise ValueError("operands must be contiguous")
+
+
+def _check_fold(semiring, dtype=None):
+    """Raise NotImplementedError unless T2 folds `semiring` (on `dtype`,
+    where one is given: the plain versions take any dtype)."""
+    if semiring.name not in FOLD_SEMIRINGS or (
+            dtype is not None and not fold_supported(semiring, dtype)):
+        raise NotImplementedError(
+            f"no masked fold for {semiring.name} on {dtype}: T2 folds "
+            f"{list(FOLD_SEMIRINGS)} on float32 and int32 (PlusDivides on "
+            "float32); the rest is ROADMAP queue 1 item 11")
+
+
+def _chunk_lanes(device: torch.device) -> int:
+    if device.type != "cuda":
+        return PLAIN_CHUNK_LANES
+    free, _ = torch.cuda.mem_get_info(device)
+    return max(1 << 16, min(PLAIN_CHUNK_LANES, free // _PLAIN_BYTES_A_LANE))
+
+
+def _plain_matches(mi, mj, a_ptr, a_ind, b_ptr, b_ind):
+    """Chunks of (mask edge, A position, B position) of every id the two
+    lists of a mask edge share: A's lists expanded, each (j, k) looked up
+    by torch.searchsorted among B's int64 keys (list id << 32 | id)."""
+    dev = mi.device
+    a_ptr, b_ptr = a_ptr.long(), b_ptr.long()
+    mi64, mj64 = mi.long(), mj.long()
+    nb = int(b_ptr[-1])
+    if mi.shape[0] == 0 or nb == 0:
+        return
+    owner = torch.repeat_interleave(
+        torch.arange(b_ptr.shape[0] - 1, device=dev), b_ptr[1:] - b_ptr[:-1],
+        output_size=nb)
+    b_keys = (owner << 32) | b_ind[:nb].long()
+    a_start = a_ptr[mi64]
+    deg = a_ptr[mi64 + 1] - a_start
+    ends = torch.cumsum(deg, 0)
+    ends_host = ends.cpu()
+    cap = _chunk_lanes(dev)
+    s, m = 0, mi.shape[0]
+    while s < m:
+        base = int(ends_host[s - 1]) if s else 0
+        t = int(torch.searchsorted(ends_host, base + cap, right=True))
+        t = min(max(t, s + 1), m)
+        lanes = int(ends_host[t - 1]) - base
+        if lanes:
+            d = deg[s:t]
+            local = torch.repeat_interleave(torch.arange(t - s, device=dev),
+                                            d, output_size=lanes)
+            edge = local + s
+            first = ends[s:t] - d - base     # each edge's first lane
+            pos = a_start[edge] + torch.arange(lanes, device=dev) \
+                - first[local]
+            q = (mj64[edge] << 32) | a_ind[pos].long()
+            hit = torch.searchsorted(b_keys, q).clamp_(max=nb - 1)
+            found = b_keys[hit] == q
+            yield edge[found], pos[found], hit[found]
+        s = t
+
+
+def masked_intersect_count_plain(mi, mj, a_ptr, a_ind, b_ptr, b_ind) -> int:
+    """Plain PyTorch version of T1."""
+    _check(mi, mj, a_ptr, a_ind, b_ptr, b_ind)
+    return sum(int(e.shape[0]) for e, _, _ in
+               _plain_matches(mi, mj, a_ptr, a_ind, b_ptr, b_ind))
+
+
+def masked_intersect_fold_plain(mi, mj, a_ptr, a_ind, a_val, b_ptr, b_ind,
+                                b_val, semiring,
+                                trace: bool = False) -> torch.Tensor:
+    """Plain PyTorch version of T2, in a_val's dtype (any dtype the torch
+    ops take): the products of the matches, ⊗ with A's value first,
+    scatter-reduced into ⊕'s neutral element; then ⊕ the identity where
+    the module's rule joins it (`trace`: the trace's rule)."""
+    _check(mi, mj, a_ptr, a_ind, b_ptr, b_ind, a_val, b_val)
+    _check_fold(semiring)
+    add = semiring.add.name
+    dtype = a_val.dtype
+    b_val = b_val.to(dtype)
+    m = mi.shape[0]
+    c = torch.full((m,), _neutral(add, dtype), dtype=dtype, device=mi.device)
+    hits = torch.zeros(m, dtype=torch.int64, device=mi.device)
+    for edge, a_pos, b_pos in _plain_matches(mi, mj, a_ptr, a_ind, b_ptr,
+                                             b_ind):
+        prod = semiring.mul(a_val[a_pos], b_val[b_pos])
+        if add == "LogicalOrMonoid":
+            prod = prod != 0
+        c.scatter_reduce_(0, edge, prod.to(dtype), _REDUCE[add],
+                          include_self=True)
+        hits += torch.bincount(edge, minlength=m)
+    if add in _MIN_MAX and m:
+        mi64, mj64 = mi.long(), mj.long()
+        len_a = (a_ptr[mi64 + 1] - a_ptr[mi64]).long()
+        len_b = (b_ptr[mj64 + 1] - b_ptr[mj64]).long()
+        miss = (hits < len_a if trace
+                else (hits < torch.minimum(len_a, len_b)) | (hits == 0))
+        ident = semiring.identity(dtype).to(mi.device)
+        c = torch.where(miss, semiring.add(c, ident), c)
+    return c
+
+
+def masked_intersect_count(mi, mj, a_ptr, a_ind, b_ptr, b_ind) -> int:
+    """T1: Σ over the mask edges of |la ∩ lb|, a Python int read from the
+    card once. CPU tensors run the plain version; CUDA tensors launch the
+    kernel on the current stream, or raise."""
+    if mi.device.type == "cpu":
+        return masked_intersect_count_plain(mi, mj, a_ptr, a_ind, b_ptr,
+                                            b_ind)
+    _check(mi, mj, a_ptr, a_ind, b_ptr, b_ind)
+    if mi.device.type != "cuda":
+        raise ValueError(f"no masked intersection for device {mi.device}")
+    m = mi.shape[0]
+    if m == 0:      # a zero-size grid is an invalid launch
+        return 0
+    total = torch.empty(1, dtype=torch.int64, device=mi.device)
+    _LAUNCH_COUNT(mi.get_device(), mi.data_ptr(), mj.data_ptr(), m,
+                  a_ptr.data_ptr(), a_ind.data_ptr(), b_ptr.data_ptr(),
+                  b_ind.data_ptr(), total.data_ptr())
+    masked_intersect_count.launches += 1
+    return int(total.item())
+
+
+def masked_intersect_fold(mi, mj, a_ptr, a_ind, a_val, b_ptr, b_ind, b_val,
+                          semiring, trace: bool = False) -> torch.Tensor:
+    """T2: c[e] = ⊕_{k ∈ la ∩ lb} a_val ⊗ b_val with ⊕'s identity joined
+    by the masked mxm's rule, or the trace's where `trace` (module
+    docstring); (m,) of a_val's dtype; b_val is cast to it. CPU tensors run
+    the plain version; CUDA tensors launch the kernel on the current
+    stream, or raise (NotImplementedError for a semiring or dtype it does
+    not fold)."""
+    if mi.device.type == "cpu":
+        return masked_intersect_fold_plain(mi, mj, a_ptr, a_ind, a_val,
+                                           b_ptr, b_ind, b_val, semiring,
+                                           trace)
+    _check(mi, mj, a_ptr, a_ind, b_ptr, b_ind, a_val, b_val)
+    if mi.device.type != "cuda":
+        raise ValueError(f"no masked intersection for device {mi.device}")
+    dtype = a_val.dtype
+    _check_fold(semiring, dtype)
+    if b_val.dtype != dtype:
+        b_val = b_val.to(dtype)
+    m = mi.shape[0]
+    c = torch.empty(m, dtype=dtype, device=mi.device)
+    if m == 0:
+        return c
+    _LAUNCH_FOLD(mi.get_device(), mi.data_ptr(), mj.data_ptr(), m,
+                 a_ptr.data_ptr(), a_ind.data_ptr(), a_val.data_ptr(),
+                 b_ptr.data_ptr(), b_ind.data_ptr(), b_val.data_ptr(),
+                 c.data_ptr(), _ADD_CODE[semiring.add.name],
+                 _MUL_CODE[semiring.mul.name], int(dtype == torch.float32),
+                 _identity_bits(semiring, dtype), int(trace))
+    masked_intersect_fold.launches += 1
+    return c
+
+
+masked_intersect_count.launches = 0
+masked_intersect_fold.launches = 0

@@ -134,7 +134,7 @@ def test_push_modes_raise(graphs):
     and name the queue item; nothing falls back to another path."""
     _, T = graphs["chesapeake"]
     for mode in (tgb.Direction.PUSHPULL, tgb.Direction.PUSHONLY):
-        with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+        with pytest.raises(NotImplementedError, match="queue 1 item 5"):
             bfs(T, 0, tgb.BFS_TUNED.replace(mxv_mode=mode))
     with pytest.raises(ValueError):
         bfs(T, 0, PULL, mode="async")
@@ -159,7 +159,7 @@ def test_pull_without_a_plan_matches_the_plan_and_push_raises(graphs):
     np.testing.assert_array_equal(
         bfs(T, 0, PULL.replace(structure_only=False)).to_numpy(),
         bfs_cpu(T, 0))
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
         mxv_dual(T, f, tgb.LogicalOrAndSemiring, 0.0,
                  **dict(kw, mode=tgb.Direction.PUSHONLY))
 

@@ -11,12 +11,17 @@ import torch
 
 import graphblast_tpu_torch as tgb
 from graphblast_tpu_torch.ops.kernels import bitmap_pull as bp
+from graphblast_tpu_torch.ops import spgemm as sg
 from graphblast_tpu_torch.ops.kernels import gather as kg
+from graphblast_tpu_torch.ops.kernels import masked_intersect as mx
 from graphblast_tpu_torch.ops.kernels import minmax_pull as mm
 from graphblast_tpu_torch.ops.kernels import monoid_pull as mp
 from graphblast_tpu_torch.ops.kernels import orpull as ko
 from graphblast_tpu_torch.ops.kernels import row_schedule as rs
 from graphblast_tpu_torch.ops.kernels import value_pull as vp
+
+from test_torch_intersect_replay import (SEMIRING_DTYPES, fuzz_matrices,
+                                         nested_coo, replay_ops)
 
 pytestmark = pytest.mark.cuda
 
@@ -636,3 +641,150 @@ def test_minmax_pull_refuses_a_call_without_a_schedule(cuda):
     y = mm.spmv_minmax_pull(ptr, ind, val, x, sr, 2,
                             sched=rs.build_schedule(ptr))
     assert y.tolist() == [5, 0]   # x[0] * 1, and the empty row's identity
+
+
+def _on_cpu(ops):
+    return tuple(None if t is None else t.cpu() for t in ops)
+
+
+@pytest.mark.parametrize("transpose_b", [False, True])
+@pytest.mark.parametrize("name,dtype", SEMIRING_DTYPES)
+def test_masked_intersect_matches_replay_on_the_card(cuda, name, dtype,
+                                                     transpose_b):
+    """T2 bitwise equal to the CPU replay of its walk and fold order and to
+    a second launch, within its tolerance of the plain version; T1 equal
+    to the replay's count. Each launch counted once."""
+    _, (A, B, M) = fuzz_matrices(5, dtype, device=cuda)
+    ops = sg._operands(A, B, M, transpose_b)
+    sr = getattr(tgb.semiring, f"{name}Semiring")
+    folds, counts = mx.masked_intersect_fold.launches, \
+        mx.masked_intersect_count.launches
+    c = mx.masked_intersect_fold(*ops, sr)
+    c2 = mx.masked_intersect_fold(*ops, sr)
+    count = mx.masked_intersect_count(*sg._count_args(ops))
+    torch.cuda.synchronize()
+    assert mx.masked_intersect_fold.launches == folds + 2
+    assert mx.masked_intersect_count.launches == counts + 1
+    assert torch.equal(_bits(c), _bits(c2))
+    want_count, want, sides = replay_ops(_on_cpu(ops), name, dtype)
+    assert sides == {True, False}
+    assert count == want_count
+    np.testing.assert_array_equal(c.cpu().numpy().view(np.int32),
+                                  want.view(np.int32))
+    plain = mx.masked_intersect_fold_plain(*ops, sr).cpu().numpy()
+    if name.startswith("Plus") and dtype == np.float32:
+        np.testing.assert_allclose(c.cpu().numpy(), plain, rtol=1e-5,
+                                   atol=1e-5 * float(np.abs(plain).max()))
+    else:
+        np.testing.assert_array_equal(c.cpu().numpy(), plain)
+
+
+@pytest.mark.parametrize("transpose_b", [False, True])
+@pytest.mark.parametrize("name,dtype", SEMIRING_DTYPES)
+def test_masked_intersect_on_nested_lists_on_the_card(cuda, name, dtype,
+                                                      transpose_b):
+    """T2 bitwise equal to the CPU replay on `nested_coo` (walked lists
+    matched in full, empty lists, negative products), where the identity
+    joins only as the JAX join brings it in: the masked mxm's rule, and
+    the trace's over the diagonal pairs."""
+    _, (A, B, M) = fuzz_matrices(2, dtype, device=cuda, make=nested_coo,
+                                 transpose_b=transpose_b)
+    sr = getattr(tgb.semiring, f"{name}Semiring")
+    for ops, trace in ((sg._operands(A, B, M, transpose_b), False),
+                       (sg._diagonal_operands(A, B), True)):
+        c = mx.masked_intersect_fold(*ops, sr, trace=trace)
+        _, want, _ = replay_ops(_on_cpu(ops), name, dtype, trace=trace)
+        np.testing.assert_array_equal(c.cpu().numpy().view(np.int32),
+                                      want.view(np.int32))
+        if not (name.startswith("Plus") and dtype == np.float32):
+            assert torch.equal(c, mx.masked_intersect_fold_plain(
+                *ops, sr, trace=trace))
+
+
+def _hub_graph(cuda, n, m, hubs, hub_deg, seed):
+    """A symmetric graph of n vertices: m random edges and `hubs` vertices
+    with hub_deg more each, so that hub x hub mask edges walk lists of
+    thousands of ids."""
+    rng = np.random.default_rng(seed)
+    rows, cols = rng.integers(0, n, m), rng.integers(0, n, m)
+    h = rng.integers(0, n, hubs)
+    rows = np.r_[rows, np.repeat(h, hub_deg)]
+    cols = np.r_[cols, rng.integers(0, n, hubs * hub_deg)]
+    from graphblast_tpu_torch.io.mmio import canonicalize_coo
+
+    r, c, v = canonicalize_coo(rows, cols, np.ones(len(rows), np.float32),
+                               undirected=True, remove_self_loops=True)
+    v = rng.uniform(0.5, 2.0, len(r)).astype(np.float32)
+    return tgb.Matrix.from_coo(r, c, v, n, n, device=cuda)
+
+
+@pytest.mark.parametrize("transpose_b", [False, True])
+def test_masked_intersect_on_hub_lists_on_the_card(cuda, transpose_b):
+    """Lists of thousands of ids (many rounds of the 32 lanes, long
+    searches): T1 equal to the plain count and T2 MinimumPlus equal to the
+    plain version, PlusMultiplies within 1e-5·max|c| of its float64 plain
+    version, bitwise equal to a second launch."""
+    A = _hub_graph(cuda, 6000, 40000, 4, 3000, 17)
+    L = tgb.tril(A)
+    for X in (A, L):
+        ops = sg._operands(X, X, X, transpose_b)
+        args = sg._count_args(ops)
+        assert mx.masked_intersect_count(*args) == \
+            mx.masked_intersect_count_plain(*args)
+        mp_ = mx.masked_intersect_fold(*ops, tgb.MinimumPlusSemiring)
+        assert torch.equal(mp_, mx.masked_intersect_fold_plain(
+            *ops, tgb.MinimumPlusSemiring))
+        c = mx.masked_intersect_fold(*ops, tgb.PlusMultipliesSemiring)
+        assert torch.equal(_bits(c), _bits(mx.masked_intersect_fold(
+            *ops, tgb.PlusMultipliesSemiring)))
+        d_ops = ops[:4] + (ops[4].double(),) + ops[5:7] + (ops[7].double(),)
+        want = mx.masked_intersect_fold_plain(*d_ops,
+                                              tgb.PlusMultipliesSemiring)
+        err = float((c.double() - want).abs().max())
+        assert err <= 1e-5 * float(want.abs().max())
+
+
+def test_tc_and_masked_mxm_on_the_card(cuda):
+    """tc at RMAT scale 12 equal to the host golden and the plain count,
+    one T1 launch a call; triangle_count, the general mxm route (one T2
+    launch) and trace_mxm_transpose (one T2 launch) against their plain
+    versions."""
+    from graphblast_tpu_torch.io.rmat import rmat_matrix
+
+    A = rmat_matrix(12, 16, seed=42, device=cuda)
+    L = tgb.tril(A)
+    counts = mx.masked_intersect_count.launches
+    got = tgb.algorithms.tc(L)
+    assert mx.masked_intersect_count.launches == counts + 1
+    assert got == tgb.algorithms.tc_cpu(L)
+    assert got == sg.spgemm_masked_count_plain(L, L, L, transpose_b=True)
+    assert got == tgb.algorithms.triangle_count(A)
+    folds = mx.masked_intersect_fold.launches
+    C = tgb.mxm(L, L, tgb.PlusMultipliesSemiring, mask=L,
+                desc=tgb.Descriptor(transpose_inp1=True))
+    assert mx.masked_intersect_fold.launches == folds + 1
+    assert int(C.val[: C.nvals].round().long().sum()) == got
+    P = sg.spgemm_masked_plain(L, L, L, tgb.PlusMultipliesSemiring,
+                               transpose_b=True)
+    assert torch.equal(C.val, P.val)      # small integer sums are exact
+    tr = tgb.trace_mxm_transpose(A, A, tgb.PlusMultipliesSemiring)
+    assert mx.masked_intersect_fold.launches == folds + 2
+    assert float(tr) == float(sg.intersect_rows_reduce_plain(
+        A, A, tgb.PlusMultipliesSemiring)) == float(A.nvals)
+
+
+def test_masked_fold_refuses_on_the_card(cuda):
+    """A semiring or dtype T2 does not fold raises on the card; nothing
+    falls back to the plain version."""
+    _, (A, B, M) = fuzz_matrices(1, device=cuda)
+    ops = sg._operands(A, B, M, True)
+    for sr in (tgb.semiring.GreaterPlusSemiring,
+               tgb.semiring.MultipliesMultipliesSemiring):
+        with pytest.raises(NotImplementedError, match="queue 1 item 11"):
+            mx.masked_intersect_fold(*ops, sr)
+    d_ops = ops[:4] + (ops[4].double(),) + ops[5:]
+    with pytest.raises(NotImplementedError):
+        mx.masked_intersect_fold(*d_ops, tgb.PlusMultipliesSemiring)
+    i_ops = ops[:4] + (ops[4].int(),) + ops[5:]
+    with pytest.raises(NotImplementedError):
+        mx.masked_intersect_fold(*i_ops, tgb.semiring.PlusDividesSemiring)

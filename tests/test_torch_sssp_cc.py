@@ -181,7 +181,7 @@ def test_sssp_push_modes_raise(graphs):
     _, T = graphs["chesapeake"]
     for desc in (tgb.DEFAULT,
                  tgb.DEFAULT.replace(mxv_mode=tgb.Direction.PUSHONLY)):
-        with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+        with pytest.raises(NotImplementedError, match="queue 1 item 5"):
             sssp(T, 0, desc)
     with pytest.raises(ValueError):
         sssp(T, 0, PULL, mode="async")
@@ -259,7 +259,7 @@ def test_cc_refuses_csc_only_and_unknown_mode(graphs):
     raises. (At n >= 2^24 cc takes the plan-less spmv_pull, held in
     tests/test_torch_mis_gc.py.)"""
     _, T = graphs["test_cc"]
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
         cc(dataclasses.replace(T, row_ptr=None, col_ind=None, row_ind=None,
                                val=None))
     with pytest.raises(ValueError):
