@@ -2,6 +2,8 @@
 """Chip check of graphblast_tpu_torch on one NVIDIA GPU.
 
     python3 chip_smoke.py            # from the repository root; needs one card
+    python3 chip_smoke.py --tc-classes   # only the build and phase 16's
+                                         # class split of T1
 
 Phases, each of which fails the run on error (each prints its seconds):
   1. device and build: prints the card's name and power limit, builds every
@@ -106,36 +108,47 @@ Phases, each of which fails the run on error (each prints its seconds):
   15. CC without a plan (the route of n >= 2^24) on the rmat18 graph:
      labels equal to the golden and verify_cc, one S launch an iteration
      and no other kernel; ms/run (40 calls) beside phase 8's;
-  16. triangle counting at rmat18 over T1, the masked-intersection count:
-     L = tril(A) (its build time), tc(L) warm and 10 timed calls (ms/run,
-     M edges/s as bench.py reckons them: A's nnz over a call), one T1
-     launch a call; the count equal to T1's plain version on the card and
-     to a second launch, printed beside the JAX bench's record on the same
-     graph (82,996,539; a record, not a check); tc equal to the host golden
-     tc_cpu at RMAT scale 16. T2, the semiring fold: mxm(L, L, mask L,
-     transpose_inp1) with PlusMultiplies and MinimumPlus over L and over a
-     seeded value-perturbed copy, and PlusMinus with that copy as B (⊗'s
-     A-then-B order), one T2 launch each, MinimumPlus equal to the plain
-     version, the sums within 1e-5·max|c| of a float64 plain version, all
-     bitwise equal to a second launch; MaximumMultiplies over negated
-     values, equal to the plain version, with negative values where the
-     walked list matched in full and the identity 0 elsewhere;
-     trace_mxm_transpose equal to its plain version, on A and on the
-     negated values (one T2 launch each). Times T1 and T2 (events, and
-     events with torch.profiler on the same 100 launches while nvidia-smi
-     samples the SM clock and power), their plain versions, the walk's
-     size, and
-     torch.sparse.mm of L by Lᵀ (cuSPARSE's SpGEMM, a yardstick only) where
-     it can run: fewer than 2^31 products (at rmat18 it takes 3.3e9, so it
-     is timed at rmat16 beside tc);
-  17. cc() at n = 2^24 on the port's grid_matrix(4096) (67 M edges), which
+  16. triangle counting at rmat18 over T1, the masked-intersection count,
+     over its intersection schedule (each edge on the bitmap or the search
+     route): L = tril(A) (its build time), the first tc(L) (the lists'
+     check and the schedule build, timed, and the build alone), then 10
+     timed calls (ms/run, M edges/s as bench.py reckons them: A's nnz over
+     a call), one T1 launch a call, no second schedule; the route split
+     (edges and ids on each route, units, pieces) and the route counters
+     of every launch equal to the schedule's; the count equal to T1's
+     plain version on the card and to a second launch, printed beside the
+     JAX bench's record on the same graph (82,996,539; a record, not a
+     check); tc equal to the host golden tc_cpu at RMAT scale 16. T2, the
+     semiring fold: mxm(L, L, mask L, transpose_inp1) with PlusMultiplies
+     and MinimumPlus over L and over a seeded value-perturbed copy, and
+     PlusMinus with that copy as B (⊗'s A-then-B order), one T2 launch
+     each, MinimumPlus equal to the plain version, the sums within
+     1e-5·max|c| of a float64 plain version, all bitwise equal to a second
+     launch; MaximumMultiplies over negated values, equal to the plain
+     version, with negative values where the walked list matched in full
+     and the identity 0 elsewhere; trace_mxm_transpose equal to its plain
+     version, on A and on the negated values (one T2 launch each). Times
+     T1 and T2 (events, and events with torch.profiler on the same 100
+     launches while nvidia-smi samples the SM clock and power), their
+     plain versions, the walk's size and the schedule's cost model in L1
+     wavefronts, and torch.sparse.mm of L by Lᵀ (cuSPARSE's SpGEMM, a
+     yardstick only) where it can run: fewer than 2^31 products (at
+     rmat18 it takes 3.3e9, so it is timed at rmat16 beside tc). Last, T1
+     alone over sub-masks of L holding one walked-length class each
+     (`--tc-classes` runs only this, on the package beside the script);
+  17. TC past the shared-memory budget: a seeded random graph made on the
+     card, n = 2^21 (its bitmap 256 KB), about 6 M edges: tc, the masked
+     mxm (PlusMultiplies, MinimumPlus) and the trace (MinimumPlus) send
+     every edge down the search route, one launch each, equal to their
+     plain versions;
+  18. cc() at n = 2^24 on the port's grid_matrix(4096) (67 M edges), which
      takes the plan-less route: labels all 0 and verify_cc, one S launch
      an iteration over the CSR's cached schedule and no K4; the graph's
      build time and ms/run;
-  18. value pull in K3's regime: a seeded uniform random CSR built on the
+  19. value pull in K3's regime: a seeded uniform random CSR built on the
      card, 2^24 rows and columns, 8 edges a row, so that x (64 MB) exceeds
      the 50 MB L2; the same checks and timings as phase 4;
-  19. prints {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
+  20. prints {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
 
 Every check of results, launch counts and schedules raises. A
 torch.profiler reading that cannot be trusted (no device time, or more
@@ -350,6 +363,8 @@ def _wrappers():
 def _reset_counts():
     for fn in _wrappers().values():
         fn.launches = 0
+        if hasattr(fn, "routes"):     # T1's and T2's edges by route
+            fn.routes = dict.fromkeys(fn.routes, 0)
     _wrappers()["gather"].sorted_launches = 0
 
 
@@ -1490,6 +1505,107 @@ def _walk_stats(L):
     return len(rows), int(walked.sum()), int(probes.sum())
 
 
+# the walked-length classes of the class split: w <= 32, 33-128, 129-512,
+# 513-2048 and more than 2048 ids
+WALK_CLASSES = ((0, 32), (33, 128), (129, 512), (513, 2048), (2049, None))
+H100_SMS = 132
+
+
+def _edge_walk(L):
+    """Per edge of L, on the host: (walked length w, probed sectors) of the
+    search walk of tc(L), as `_walk_stats` counts them."""
+    import numpy as np
+
+    ptr, ind, _ = L.host_csr()
+    deg = np.diff(ptr)
+    rows = np.repeat(np.arange(L.nrows), deg)
+    di, dj = deg[rows], deg[ind]
+    walked = np.minimum(di, dj)
+    halvings = np.ceil(np.log2(np.maximum(di, dj) + 1.0))
+    return walked, walked * np.maximum(1.0, halvings - 3)
+
+
+def _sub_mask(L, keep):
+    """The CSR mask of L's edges where the host bool array `keep` holds,
+    built on L's device."""
+    import numpy as np
+    import torch
+
+    import graphblast_tpu_torch as gt
+
+    idx = torch.from_numpy(np.flatnonzero(keep)).to(L.device)
+    ri, ci = L.row_ind[idx], L.col_ind[idx]
+    ptr = torch.zeros(L.nrows + 1, dtype=torch.int64, device=L.device)
+    ptr[1:] = torch.cumsum(torch.bincount(ri, minlength=L.nrows), 0)
+    return gt.Matrix(L.nrows, L.ncols, int(idx.shape[0]),
+                     ptr.to(torch.int32), ci.contiguous(), ri.contiguous(),
+                     torch.ones(idx.shape[0], device=L.device), None, None,
+                     None, None, format=gt.SparseFormat.CSRONLY)
+
+
+def phase_tc_classes(L, reps: int = 20):
+    """T1 over sub-masks of L that hold only the edges of one walked-length
+    class (WALK_CLASSES), through spgemm_masked_count(L, L, mask, Lᵀ):
+    each class's edges, walked ids, probed sectors, its T1 time (events
+    and torch.profiler over the same `reps` calls, the SM clock sampled
+    by nvidia-smi) and the probed sectors a clock on each SM that device
+    time gives. The counts of the classes must add up to tc(L)."""
+    import numpy as np
+
+    from graphblast_tpu_torch.ops import spgemm as sp
+
+    walked, probes = _edge_walk(L)
+    total, rows = 0, []
+    for lo, hi in WALK_CLASSES:
+        keep = (walked >= lo) & (walked <= (hi or walked.max()))
+        if not keep.any():
+            continue
+        M = _sub_mask(L, keep)
+        fn = lambda: sp.spgemm_masked_count(L, L, M, True)  # noqa: E731
+        total += fn()                    # warm: builds what it caches
+        win = _window(fn, reps, ["count_kernel"])
+        mhz = max((s[0] for s in win["smi"]), default=0.0)
+        sectors = float(probes[keep].sum())
+        clocks = (win["device_ms"] or 0.0) * 1e-3 * H100_SMS * mhz * 1e6
+        rate = f"{sectors / clocks:.3f}" if clocks else "not measured"
+        name = f"{lo}-{hi}" if hi else f">{lo - 1}"
+        rows.append((name, win["device_ms"] or 0.0))
+        print(f"[T1 class w {name}] {int(keep.sum())} edges, "
+              f"{int(walked[keep].sum())} walked ids, {sectors:.6g} probed "
+              f"sectors; {_window_text(win)}; {rate} sectors a clock an "
+              f"SM (device time, {H100_SMS} SMs, top SM clock sampled)")
+    whole = sp.spgemm_masked_count(L, L, L, True)
+    if total != whole:
+        raise AssertionError(f"T1 classes count {total}, tc(L) {whole}")
+    dev = sum(ms for _, ms in rows)
+    print("[T1 classes] share of the classes' device time: " + ", ".join(
+        f"w {name} {100 * ms / dev:.2f}%" for name, ms in rows)
+        + f"; counts add up to {whole}")
+
+
+def main_tc_classes() -> int:
+    """`--tc-classes`: the build, the rmat18 graph, L = tril(A) and the
+    class split of T1 alone (phase_tc_classes), on whichever
+    graphblast_tpu_torch lies beside this script."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this check "
+              "needs one CUDA card", file=sys.stderr)
+        return 1
+    import graphblast_tpu_torch as gt
+    from graphblast_tpu_torch.io.rmat import rmat_matrix
+
+    phase_device_and_build()
+    A = rmat_matrix(18, 16, seed=42, device="cuda")
+    if (A.nrows, A.nvals) != (RMAT18_N, RMAT18_NNZ):
+        raise AssertionError("rmat18 differs from the recorded graph")
+    t0 = time.perf_counter()
+    phase_tc_classes(gt.tril(A))
+    print(f"[phase] T1 class split {time.perf_counter() - t0:.2f} s")
+    return 0
+
+
 def _library_spgemm(L):
     """(ms or None, text) of the library route of tc(L): cuSPARSE's SpGEMM
     of L by Lᵀ (torch.sparse.mm), timed without the masked sum that would
@@ -1542,6 +1658,8 @@ def phase_tc(A, reps: int = 10, golden_scale: int = 16):
     import graphblast_tpu_torch as gt
     from graphblast_tpu_torch.io.rmat import rmat_matrix
     from graphblast_tpu_torch.ops import spgemm as sp
+    from graphblast_tpu_torch.ops.kernels.intersect_schedule import (
+        build_intersect_schedule)
     from graphblast_tpu_torch.ops.kernels.masked_intersect import (
         masked_intersect_count, masked_intersect_count_plain,
         masked_intersect_fold, masked_intersect_fold_plain)
@@ -1553,8 +1671,19 @@ def phase_tc(A, reps: int = 10, golden_scale: int = 16):
     print(f"[tc] L = tril(A): n={L.nrows} nnz={L.nvals}, built on the host "
           f"in {time.perf_counter() - t0:.2f} s")
     _reset_counts()
-    ntris = gt.algorithms.tc(L)          # warm: the lists' check, once
-    _expect_launches("tc warm", {"masked_intersect_count": 1})
+    t0 = time.perf_counter()
+    ntris = gt.algorithms.tc(L)   # first: the lists' check, the schedule
+    first_s = time.perf_counter() - t0
+    _expect_launches("tc first", {"masked_intersect_count": 1})
+    sched = L._plans["intersect/mask"][0][2]
+    _expect_routes("tc first", masked_intersect_count, sched)
+    ops = sp._operands(L, L, L, True)
+    args = sp._count_args(ops)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    build_intersect_schedule(ops[0], ops[1], ops[2], ops[5], L.ncols, False)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
     _reset_counts()
     times, got = [], set()
     for _ in range(reps):
@@ -1562,14 +1691,15 @@ def phase_tc(A, reps: int = 10, golden_scale: int = 16):
         got.add(gt.algorithms.tc(L))     # reads the total: synchronous
         times.append(time.perf_counter() - t0)
     counts = _expect_launches("tc", {"masked_intersect_count": reps})
+    _expect_routes("tc", masked_intersect_count, sched, reps)
+    if len(L._plans["intersect/mask"]) != 1:
+        raise AssertionError("tc built its schedule more than once")
     tc_launches = counts["masked_intersect_count"]
     per_s, tail = _median_and_tail(times)
-    ops = sp._operands(L, L, L, True)
-    args = sp._count_args(ops)
     plain = masked_intersect_count_plain(*args)
-    again = masked_intersect_count(*args)
+    again = masked_intersect_count(*args, sched=sched)
     if got != {ntris} or ntris != plain or again != ntris:
-        raise AssertionError(f"tc: {sorted(got)} from tc(), {ntris} warm, "
+        raise AssertionError(f"tc: {sorted(got)} from tc(), {ntris} first, "
                              f"{plain} plain, {again} again")
     print(f"[tc] rmat18: {ntris} triangles, equal to the plain version on "
           f"the card and to a second launch; the JAX bench's record on the "
@@ -1577,8 +1707,10 @@ def phase_tc(A, reps: int = 10, golden_scale: int = 16):
           f"({'equal' if ntris == jax_record else 'differs'})")
     print(f"[tc] {per_s * 1e3:.6f} ms/run median, {tail}, {reps} runs; "
           f"{A.nvals / per_s / 1e6:.1f} M edges/s (bench.py: A.nvals over a "
-          f"tc() call); launches {counts}")
-
+          f"tc() call); launches {counts}; the first tc() "
+          f"{first_s * 1e3:.3f} ms (the lists' check and the schedule "
+          f"build, which alone takes {build_s * 1e3:.3f} ms), once")
+    print(f"[tc] schedule: {_route_text(sched, ops)}")
     t0 = time.perf_counter()
     A16 = rmat_matrix(golden_scale, 16, seed=42, device="cuda")
     L16 = gt.tril(A16)
@@ -1598,18 +1730,21 @@ def phase_tc(A, reps: int = 10, golden_scale: int = 16):
 
     m, walked, probes = _walk_stats(L)
     n = L.nrows
+    new_wf, search_wf = _model_wavefronts(sched, ops)
     t1_bytes = 8 * m + 4 * (n + 1)            # row ids, col ids, row_ptr
     t2_bytes = t1_bytes + 4 * m + 4 * m       # values, c
     walk_bytes = 8 * m + 16 * m + 4 * walked + 32 * probes
     t1_bound = t1_bytes / HBM_BYTES_PER_S * 1e3
     t2_bound = t2_bytes / HBM_BYTES_PER_S * 1e3
     print(f"[tc] walk: {m} mask edges, {walked} walked ids (the shorter "
-          f"lists), about {probes} probed sectors; the walk's bytes (mask, "
-          f"pointers, walked ids, probes) {walk_bytes} B -> "
-          f"{walk_bytes / HBM_BYTES_PER_S * 1e3:.6f} ms at 3.35 TB/s")
-    ms = _event_ms(lambda: masked_intersect_count(*args), 20)
-    win = _window(lambda: masked_intersect_count(*args), 100,
-                  ["count_kernel"])
+          f"lists), about {probes} probed sectors by search alone; the "
+          f"walk's bytes (mask, pointers, walked ids, probes) {walk_bytes} "
+          f"B -> {walk_bytes / HBM_BYTES_PER_S * 1e3:.6f} ms at 3.35 TB/s; "
+          f"the schedule's cost model: {new_wf:.6g} L1 wavefronts on its "
+          f"routes, {search_wf:.6g} on the search route alone")
+    count = lambda: masked_intersect_count(*args, sched=sched)  # noqa: E731
+    ms = _event_ms(count, 20)
+    win = _window(count, 100, ["count_kernel"])
     plain_ms = _event_ms(lambda: masked_intersect_count_plain(*args), 2)
 
     lib_ms, lib_text = _library_spgemm(L)
@@ -1644,8 +1779,12 @@ def phase_tc(A, reps: int = 10, golden_scale: int = 16):
         if tag == "plus_times":
             fold_launches = counts["masked_intersect_fold"]
         ops = sp._operands(X, Y, L, True)
+        fsched = sp.schedule_for(L, ops, L.ncols, True)   # mxm's, cached
+        _expect_routes(f"mxm {tag}", masked_intersect_fold, fsched)
+        fold = lambda: masked_intersect_fold(  # noqa: E731
+            *ops, sr, sched=fsched)
         c = C.val[:m]
-        c2 = masked_intersect_fold(*ops, sr)
+        c2 = fold()
         if not torch.equal(c.view(torch.int32), c2.view(torch.int32)):
             raise AssertionError(f"T2 {tag}: differs from a second launch")
         if name in ("MinimumPlus", "MaximumMultiplies"):
@@ -1675,15 +1814,15 @@ def phase_tc(A, reps: int = 10, golden_scale: int = 16):
         if c.shape != (m,) or not bool(torch.isfinite(c).all()):
             raise AssertionError(f"T2 {tag}: values not finite, or of "
                                  f"shape {tuple(c.shape)}")
-        fold_ms = _event_ms(lambda: masked_intersect_fold(*ops, sr), 20)
+        fold_ms = _event_ms(fold, 20)
         line = (f"[T2 {tag}] mxm({name}, mask L, Lᵀ): one launch, bitwise "
                 f"equal to a second, {tol_text}; kernel {fold_ms:.6f} ms")
         if tag == "plus_times":
             fold_plain_ms = _event_ms(
                 lambda: masked_intersect_fold_plain(*ops, sr), 2)
-            fold_win = _window(lambda: masked_intersect_fold(*ops, sr), 100,
-                               ["fold_kernel"])
-            line += (f"; {_window_text(fold_win)}; plain "
+            fold_win = _window(fold, 100, ["fold_kernel"])
+            line += (f"; schedule {_route_text(fsched, ops)}; "
+                     f"{_window_text(fold_win)}; plain "
                      f"{fold_plain_ms:.6f} ms, library "
                      f"{lib_text.split(' (')[0]}, bound {t2_bytes} B "
                      f"-> {t2_bound:.6f} ms at 3.35 TB/s")
@@ -1696,6 +1835,8 @@ def phase_tc(A, reps: int = 10, golden_scale: int = 16):
     sr = gt.MaximumMultipliesSemiring
     tr = gt.trace_mxm_transpose(Ln, Lp, sr)
     _expect_launches("trace max", {"masked_intersect_fold": 1})
+    _expect_routes("trace max", masked_intersect_fold,
+                   Ln._plans["intersect/trace"][0][2])
     tr_plain = sp.intersect_rows_reduce_plain(Ln, Lp, sr)
     if not torch.equal(tr, tr_plain):
         raise AssertionError(f"trace max: {float(tr)} != plain "
@@ -1707,13 +1848,134 @@ def phase_tc(A, reps: int = 10, golden_scale: int = 16):
     _reset_counts()
     tr = gt.trace_mxm_transpose(A, A, gt.PlusMultipliesSemiring)
     _expect_launches("trace", {"masked_intersect_fold": 1})
+    tsched = A._plans["intersect/trace"][0][2]
+    _expect_routes("trace", masked_intersect_fold, tsched)
     tr_plain = sp.intersect_rows_reduce_plain(A, A,
                                               gt.PlusMultipliesSemiring)
     if float(tr) != float(tr_plain):
         raise AssertionError(f"trace: {float(tr)} != plain {float(tr_plain)}")
     print(f"[tc] trace_mxm_transpose(A, A) = {float(tr)} (nnz {A.nvals}), "
-          "equal to its plain version; one T2 launch")
+          f"equal to its plain version; one T2 launch; schedule "
+          f"{_route_text(tsched, sp._diagonal_operands(A, A))}")
+    phase_tc_classes(L)
     return tc_launches, fold_launches, t1_row, fold_rows
+
+
+def _expect_routes(path: str, fn, sched, launches: int = 1) -> None:
+    """Raise unless the edges fn sent down each route since
+    _reset_counts() are `launches` times those of `sched`, and they add up
+    to its edges."""
+    want = {k: launches * v for k, v in sched.routes.items()}
+    if fn.routes != want or sum(sched.routes.values()) != sched.edges:
+        raise AssertionError(f"{path}: routes {fn.routes}, expected {want}")
+
+
+def _route_text(sched, ops) -> str:
+    """The route split of an intersection schedule over the walk `ops`:
+    edges, and ids walked (the shorter lists on the search route, B's
+    lists streamed on the bitmap route), on each route."""
+    import torch
+
+    mi, mj, a_ptr, _, _, b_ptr, _, _ = ops
+    la = (a_ptr[mi.long() + 1] - a_ptr[mi.long()]).long()
+    lb = (b_ptr[mj.long() + 1] - b_ptr[mj.long()]).long()
+    on = sched.bitmap
+    ids_b = int(lb[on].sum())
+    ids_s = int(torch.minimum(la, lb)[~on].sum())
+    r = sched.routes
+    return (f"{sched.units} units, {sched.pieces} bitmap pieces; bitmap "
+            f"route {r['bitmap']} edges "
+            f"({100 * r['bitmap'] / max(1, sched.edges):.2f}%), {ids_b} ids "
+            f"streamed; search route {r['search']} edges, {ids_s} ids "
+            f"walked; bitmap {sched.words} words")
+
+
+def _model_wavefronts(sched, ops):
+    """(L1 wavefronts of the schedule's routes, of the search route alone)
+    by the cost model of ops/kernels/intersect_schedule.py."""
+    import torch
+
+    from graphblast_tpu_torch.ops.kernels import intersect_schedule as isch
+
+    search, bitmap_r, r, _ = isch.edge_costs(ops[0], ops[1], ops[2], ops[5])
+    routed = torch.where(sched.bitmap, -(-bitmap_r // r), search)
+    return ((int(routed.sum()) + isch.EDGE * sched.edges) / 8,
+            (int(search.sum()) + isch.EDGE * sched.edges) / 8)
+
+
+def phase_tc_past_budget(n: int = 1 << 21, m: int = 3_000_000,
+                         seed: int = 21):
+    """A seeded random graph made on the card whose bitmap does not fit the
+    shared-memory budget (n = 2^21: 256 KB for T1): A symmetric with about
+    2m edges, L its lower triangle, both CSR on the card. tc(L), the
+    masked mxm over (L, L, mask L, Lᵀ) with PlusMultiplies and
+    MinimumPlus, and the trace of A with MinimumPlus take the search route
+    alone, one launch each, and equal their plain versions (the sums of
+    ones are small integers, so exactly)."""
+    import torch
+
+    import graphblast_tpu_torch as gt
+    from graphblast_tpu_torch.ops import spgemm as sp
+    from graphblast_tpu_torch.ops.kernels.intersect_schedule import (
+        SMEM_BUDGET)
+    from graphblast_tpu_torch.ops.kernels.masked_intersect import (
+        masked_intersect_count, masked_intersect_fold)
+
+    t0 = time.perf_counter()
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    e = torch.randint(0, n, (2, m), generator=g, device="cuda")
+    key = torch.unique(torch.cat([e[0] * n + e[1], e[1] * n + e[0]]))
+    key = key[key // n != key % n]
+
+    def csr(k):
+        rows, cols = (k // n).to(torch.int32), (k % n).to(torch.int32)
+        ptr = torch.zeros(n + 1, dtype=torch.int64, device="cuda")
+        ptr[1:] = torch.cumsum(torch.bincount(rows, minlength=n), 0)
+        return gt.Matrix(n, n, k.shape[0], ptr.to(torch.int32), cols, rows,
+                         torch.ones(k.shape[0], device="cuda"), None, None,
+                         None, None, format=gt.SparseFormat.CSRONLY)
+
+    A, L = csr(key), csr(key[key // n > key % n])
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    if n // 8 <= SMEM_BUDGET:
+        raise AssertionError(f"n = {n}: its bitmap fits the budget")
+    _reset_counts()
+    got = gt.algorithms.tc(L)
+    _expect_launches("tc past the budget", {"masked_intersect_count": 1})
+    want = sp.spgemm_masked_count_plain(L, L, L, transpose_b=True)
+    if got != want or masked_intersect_count.routes != {
+            "bitmap": 0, "search": L.nvals}:
+        raise AssertionError(f"tc past the budget: {got} != plain {want}, "
+                             f"or routes {masked_intersect_count.routes}")
+    for name in ("PlusMultiplies", "MinimumPlus"):
+        sr = getattr(gt.semiring, f"{name}Semiring")
+        _reset_counts()
+        c = sp.spgemm_masked(L, L, L, sr, transpose_b=True).val
+        _expect_launches(f"mxm {name} past the budget",
+                         {"masked_intersect_fold": 1})
+        if not torch.equal(c, sp.spgemm_masked_plain(
+                L, L, L, sr, transpose_b=True).val) or \
+                masked_intersect_fold.routes != {"bitmap": 0,
+                                                 "search": L.nvals}:
+            raise AssertionError(f"mxm {name} past the budget differs from "
+                                 f"plain, or routes "
+                                 f"{masked_intersect_fold.routes}")
+    _reset_counts()
+    sr = gt.MinimumPlusSemiring
+    tr = sp.intersect_rows_reduce(A, A, sr)
+    _expect_launches("trace past the budget", {"masked_intersect_fold": 1})
+    if not torch.equal(tr, sp.intersect_rows_reduce_plain(A, A, sr)) or \
+            masked_intersect_fold.routes != {"bitmap": 0, "search": n}:
+        raise AssertionError(f"trace past the budget: {float(tr)} differs "
+                             f"from plain, or routes "
+                             f"{masked_intersect_fold.routes}")
+    print(f"[tc past budget] random graph on the card: n={n} (bitmap "
+          f"{n // 8} B > budget {SMEM_BUDGET} B), A {A.nvals} edges, L "
+          f"{L.nvals}, built in {build_s:.2f} s; tc {got} == plain; mxm "
+          f"PlusMultiplies and MinimumPlus, trace MinimumPlus == plain; "
+          f"every edge on the search route, one launch each")
 
 
 def phase_cc_2_24(reps: int = 5):
@@ -1890,6 +2152,10 @@ def main() -> int:
     t0 = time.perf_counter()
     tc_launches, fold_launches, t1_row, t2_row = phase_tc(A)
     print(f"[phase] TC and the masked mxm {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    phase_tc_past_budget()
+    print(f"[phase] TC past the shared-memory budget "
+          f"{time.perf_counter() - t0:.2f} s")
     del A
     t0 = time.perf_counter()
     phase_cc_2_24()
@@ -1980,4 +2246,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main_tc_classes() if sys.argv[1:] == ["--tc-classes"]
+             else main())

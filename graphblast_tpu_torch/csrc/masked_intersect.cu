@@ -15,48 +15,73 @@
 // entry) fits the TPU's memory, and every chunk sorts its query keys
 // together with B's keys and carries run heads with cummax. The GPU design
 // they re-derive is GraphBLAST's warp-per-mask-row kernel, which binary-
-// searches each row entry (kernels/spgemm.hpp:17-79). Here one warp takes
-// one mask edge: its lanes stride the SHORTER of la and lb (min side, as
-// the JAX package's plan chooses: B's list when it is strictly shorter)
-// and find each key with a lower_bound in the longer one. A lane's keys
-// ascend, so each search starts where the lane's last one ended. No
-// expansion is stored: nothing here needs workspace.
+// searches each row entry (kernels/spgemm.hpp:17-79).
+//
+// What bounds it on an H100: not the bytes (the inputs read once take
+// microseconds) but the L1: a binary search makes dependent, divergent
+// loads, and a walk by search alone ran at 3.5-5.4 probed 32-byte sectors
+// a clock on every SM (PERF.md), while its hub edges, thousands of ids on
+// one warp each, held a tail. So the design removes probes. Each launch
+// reads an intersection schedule (ops/kernels/intersect_schedule.py),
+// built once from the lengths alone, which gives every edge one of two
+// routes and cuts the mask into work units, one block each:
+//   - the bitmap route: all edges of a mask row share la, so the block
+//     writes la once into a bitmap of n_ids bits in shared memory
+//     (atomicOr, la read coalesced, 4 loads in flight a thread), and a
+//     warp takes each of the row's bitmap edges: its lanes stream lb,
+//     16-byte loads of 4 ids a lane where the list is aligned, two loads
+//     in flight a lane, and test one bit an id; then the block clears the
+//     words from la's first id to its last (stores, no loads). A lookup is
+//     one shared-memory word in place of a search's ~log2(l) - 3 sectors,
+//     and a hub edge streams 128 ids a round.
+//   - the search route: one warp walks the SHORTER of la and lb (B's list
+//     only when strictly shorter) and finds each key with a lower_bound in
+//     the longer one, each lane's search starting where its last ended.
+// The schedule takes, edge by edge, the route its cost formula calls
+// cheaper, and every edge takes the search route where the bitmap (and T2's
+// prefix counts) would exceed kSmemBudget, the shared memory a block may
+// hold while two blocks fit an SM. A unit is a run of consecutive mask
+// rows, or the piece of one row whose cost alone passes the unit target;
+// each piece of a row stages la itself. Within a block, warps take the
+// unit's search edges, then each bitmap piece's edges, from a counter in
+// shared memory, up to 32 at a time, whose ends the lanes load together.
+// T2's blocks have twice T1's warps, since its prefix counts double the
+// shared memory a block holds. No expansion is stored and no workspace is
+// needed.
 //
 // Both lists must be sorted with no duplicate ids (the JAX precondition,
 // spgemm.py:381-382; ops/spgemm.py checks it once per Matrix).
 //
-// T1 sums each edge's matches (int32) across the warp, each block sums its
-// warps' totals in 64 bits and adds them to the total with one atomicAdd
-// on an unsigned long long: integer sums do not depend on the order, so the
-// total is exact and the same on every run.
+// T1 counts each edge's matches in int32 lanes, adds them into 64-bit lane
+// totals, and each block adds its sum to the total with one atomicAdd on an
+// unsigned long long: integer sums do not depend on the order, so the total
+// is exact and the same on every run.
 //
-// T2's fold order is fixed: each lane folds its own matches in the order
-// it walks them, starting at (+)'s neutral element (-inf or INT_MIN for
-// max, +inf or INT_MAX for min, 0 for plus and or), then a butterfly of
-// shuffles (offsets 16, 8, 4, 2, 1) combines the lanes. So a launch is
-// bitwise equal to any other on the same inputs. (x) always takes A's
-// value first, whichever list is walked (the JAX package's swap_mul).
+// T2's fold order is fixed by the schedule, which a launch only reads:
+// each lane folds its own matches in the order it walks them, starting at
+// (+)'s neutral element (-inf or INT_MIN for max, +inf or INT_MAX for min,
+// 0 for plus and or), then a butterfly of shuffles (offsets 16, 8, 4, 2, 1)
+// combines the lanes. On the bitmap route lane l walks lb's ids before the
+// first index of lb that is a multiple of 4 (lane l takes the l-th of
+// them), then the ids at that index + 4l + 128r + q, r = 0, 1, ... and q =
+// 0..3; A's position of a hit k is a0 + prefix[k >> 5] + popc(bits of
+// word k >> 5 below k), prefix[w] being the count of la's ids in the
+// words before w, written in the staging pass. So a launch is bitwise
+// equal to any other on the same inputs and schedule. (x) always takes
+// A's value first, whichever list is walked (the JAX package's swap_mul).
 // The semiring's identity joins the fold where the JAX package's join
 // brings it in: there each walked id with no partner adds one identity
 // (spgemm.py:145-154), so for the masked mxm it joins where the lists
 // share fewer ids than the shorter holds, or none; for the trace, which
 // tests every id of A's row (spgemm.py:705-723), where A's row holds an id
-// B's lacks. This matters for min and max only, where the identity is not
-// neutral: MaximumMonoid's is 0 (the reference's quirk), so a max of
+// B's lacks. The rule reads the hit count and the two lengths only, so both
+// routes keep it. This matters for min and max only, where the identity is
+// not neutral: MaximumMonoid's is 0 (the reference's quirk), so a max of
 // negative products is 0 exactly where a walked id missed.
 // Float products and sums round once (__fmul_rn, __fadd_rn, __fdiv_rn: no
 // fused multiply-add); int32 arithmetic wraps, formed in uint32_t; min and
 // max propagate NaN, as torch.minimum and torch.maximum do; logical ops
 // give 1 or 0 in the value type.
-//
-// Bound on an H100 SXM: memory, and the probes of the searched lists are
-// scattered. Each call must read the mask (8 B an edge), A's and B's
-// pointers at the edge's ends (16 B), the walked entries once (4 B each,
-// 8 B for T2's values) and, for each walked entry, the 32-byte sectors its
-// binary search touches in the longer list (about log2 of its length);
-// T2 writes 4 B an edge. chip_smoke.py reckons the bytes from the run's
-// data. The first design's open question is balance: a warp per edge
-// leaves hub x hub edges on a few warps (PERF.md, open questions).
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //             -Xcompiler -fPIC (graphblast_tpu_torch/ops/kernels/_build.py)
@@ -67,10 +92,17 @@
 
 namespace {
 
-constexpr int kWarps = 8;                  // warps a block
-constexpr int kThreads = 32 * kWarps;
-constexpr int kCountEdgesPerBlock = 64;    // T1: edges a block, one atomic
+// warps a block: T1's blocks hold the bitmap (32 KB at 2^18 ids), T2's
+// the bitmap and the prefix counts (64 KB), so T2's are larger to keep as
+// many warps on an SM
+constexpr int kCountWarps = 8, kFoldWarps = 16;
 constexpr unsigned kFull = 0xffffffffu;
+// the bitmap (and T2's prefix counts) a block may hold in shared memory:
+// two such blocks fit an SM's 227 KB (ops/kernels/intersect_schedule.py
+// SMEM_BUDGET mirrors it)
+constexpr int kSmemBudget = 112 * 1024;
+// the kernels' own __shared__ arrays take less than this
+constexpr size_t kStaticSmem = 1024;
 
 // (+) and (x) codes; the wrapper passes the same numbers
 constexpr int kAddPlus = 0, kAddMin = 1, kAddMax = 2, kAddLor = 3;
@@ -81,11 +113,25 @@ constexpr int kMulPlus = 0, kMulMinus = 1, kMulTimes = 2, kMulDiv = 3,
 struct Operands {
   const int32_t* mi;      // mask row ids, one an edge
   const int32_t* mj;      // mask column ids
-  long long m;            // mask edges
   const int32_t* a_ptr;   // A's CSR
   const int32_t* a_ind;
   const int32_t* b_ptr;   // B's rows (transposed) or columns (its CSC)
   const int32_t* b_ind;
+};
+
+// The intersection schedule, as ops/kernels/intersect_schedule.py lays it
+// out: unit u (block u) takes the search edges search_edges[unit_search[u]
+// .. unit_search[u + 1]) and the pieces unit_piece[u] .. unit_piece[u + 1]
+// - 1; piece p is the bitmap edges bitmap_edges[piece_begin[p] ..
+// piece_begin[p + 1]), all of one mask row.
+struct Schedule {
+  const int32_t* search_edges;
+  const int32_t* unit_search;
+  const int32_t* bitmap_edges;
+  const int32_t* piece_begin;
+  const int32_t* unit_piece;
+  long long units;
+  int words;              // bitmap words, n_ids / 32 rounded up; 0: no piece
 };
 
 // first position in s[lo, hi) whose id is not below key
@@ -101,16 +147,14 @@ __device__ __forceinline__ int lower_bound(const int32_t* __restrict__ s,
   return lo;
 }
 
-// The walk of mask edge e by one lane of its warp: visit(a_pos, b_pos) for
-// every id the two lists share that lies in this lane's share of the walked
-// list (its entries lane, lane + 32, ...), in the order walked. Returns the
-// lengths of la (x) and lb (y).
+// The search route of a mask edge by one lane of its warp, la =
+// a_ind[a0, a1) and lb = b_ind[b0, b1): visit(a_pos, b_pos) for every id
+// the two lists share that lies in this lane's share of the walked list
+// (its entries lane, lane + 32, ...), in the order walked.
 template <class Visit>
-__device__ __forceinline__ int2 walk_edge(const Operands& o, long long e,
-                                          int lane, Visit&& visit) {
-  const int i = __ldg(o.mi + e), j = __ldg(o.mj + e);
-  const int a0 = __ldg(o.a_ptr + i), a1 = __ldg(o.a_ptr + i + 1);
-  const int b0 = __ldg(o.b_ptr + j), b1 = __ldg(o.b_ptr + j + 1);
+__device__ __forceinline__ void walk_edge(const Operands& o, int a0, int a1,
+                                          int b0, int b1, int lane,
+                                          Visit&& visit) {
   const bool walk_a = !(b1 - b0 < a1 - a0);   // B only when strictly shorter
   const int32_t* w = walk_a ? o.a_ind : o.b_ind;
   const int32_t* s = walk_a ? o.b_ind : o.a_ind;
@@ -128,31 +172,182 @@ __device__ __forceinline__ int2 walk_edge(const Operands& o, long long e,
         visit(lo, t);
     }
   }
-  return make_int2(a1 - a0, b1 - b0);
+}
+
+// The bitmap route of lb = b_ind[b0, b1) by one lane of its warp, against
+// the staged bitmap bm of la: hit(t, k, word) for every id k = b_ind[t]
+// whose bit is set, in the lane's walk order (file header).
+template <class Hit>
+__device__ __forceinline__ void stream_list(const int32_t* __restrict__ b_ind,
+                                            int b0, int b1, int lane,
+                                            const unsigned* bm, Hit&& hit) {
+  const auto test = [&](int t, int k) {
+    const unsigned word = bm[k >> 5];
+    if ((word >> (k & 31)) & 1u) hit(t, k, word);
+  };
+  const int body = min((b0 + 3) & ~3, b1);    // lb's first index 4 | t
+  if (b0 + lane < body) test(b0 + lane, __ldg(b_ind + b0 + lane));
+  const bool vec = (reinterpret_cast<uintptr_t>(b_ind) & 15) == 0;
+  int t = body + 4 * lane;
+  if (vec) {
+    for (; t + 128 + 3 < b1; t += 256) {   // two loads in flight a lane
+      const int4 k = __ldg(reinterpret_cast<const int4*>(b_ind + t));
+      const int4 g = __ldg(reinterpret_cast<const int4*>(b_ind + t + 128));
+      test(t, k.x);
+      test(t + 1, k.y);
+      test(t + 2, k.z);
+      test(t + 3, k.w);
+      test(t + 128, g.x);
+      test(t + 129, g.y);
+      test(t + 130, g.z);
+      test(t + 131, g.w);
+    }
+  }
+  for (; t < b1; t += 128) {
+    if (vec && t + 3 < b1) {
+      const int4 k = __ldg(reinterpret_cast<const int4*>(b_ind + t));
+      test(t, k.x);
+      test(t + 1, k.y);
+      test(t + 2, k.z);
+      test(t + 3, k.w);
+    } else {
+      for (int q = 0; q < 4 && t + q < b1; ++q)
+        test(t + q, __ldg(b_ind + t + q));
+    }
+  }
+}
+
+// A warp's share of the edges list[k0, k1): it takes up to `chunk`
+// consecutive entries at a time from the shared counter *next, its lanes
+// load their edges' ends and lists' bounds together, then the warp works
+// them one by one: work(e, a0, a1, b0, b1), la = a_ind[a0, a1) and lb =
+// b_ind[b0, b1). la is the mask row `row`'s when it is not negative (a
+// bitmap piece's), else the edge's own.
+template <class Work>
+__device__ __forceinline__ void deal_edges(const Operands& o,
+                                           const int32_t* list, int k0,
+                                           int k1, int chunk, int* next,
+                                           int row, int lane, Work&& work) {
+  for (;;) {
+    int k = 0;
+    if (lane == 0) k = atomicAdd(next, chunk);
+    k = k0 + __shfl_sync(kFull, k, 0);
+    if (k >= k1) break;
+    const int n = min(chunk, k1 - k);
+    int e = 0, i = row, a0 = 0, a1 = 0, b0 = 0, b1 = 0;
+    if (lane < n) {
+      e = __ldg(list + k + lane);
+      const int j = __ldg(o.mj + e);
+      if (row < 0) i = __ldg(o.mi + e);
+      b0 = __ldg(o.b_ptr + j);
+      b1 = __ldg(o.b_ptr + j + 1);
+      a0 = __ldg(o.a_ptr + i);
+      a1 = __ldg(o.a_ptr + i + 1);
+    }
+    for (int x = 0; x < n; ++x)
+      work(__shfl_sync(kFull, e, x), __shfl_sync(kFull, a0, x),
+           __shfl_sync(kFull, a1, x), __shfl_sync(kFull, b0, x),
+           __shfl_sync(kFull, b1, x));
+  }
+}
+
+// entries a warp takes at a time: up to a warp's lanes, fewer where the
+// list would leave warps of the block idle
+template <int kWarps>
+__device__ __forceinline__ int chunk_of(int n) {
+  return max(1, min(32, n / (2 * kWarps)));
+}
+
+// Block u's walk of its unit, kWarps warps. search(e, a0, a1, b0, b1) and
+// bitmap(e, a0, a1, b0, b1) are a warp's work on one edge; bm is the
+// dynamic shared memory (the bitmap, then T2's prefix counts when prefix is
+// not null).
+template <int kWarps, class Search, class Bitmap>
+__device__ __forceinline__ void walk_unit(const Operands& o,
+                                          const Schedule& s, unsigned* bm,
+                                          int* prefix, Search&& search,
+                                          Bitmap&& bitmap) {
+  constexpr int kThreads = 32 * kWarps;
+  constexpr int kUnroll = 4;   // ids of la a thread loads at once
+  __shared__ int next[2];      // the warps' counters: search edges, a piece's
+  __shared__ int span[2];      // the first and last word la set
+  const int u = blockIdx.x, lane = threadIdx.x & 31;
+  const int p0 = __ldg(s.unit_piece + u), p1 = __ldg(s.unit_piece + u + 1);
+  const int s0 = __ldg(s.unit_search + u), s1 = __ldg(s.unit_search + u + 1);
+  if (threadIdx.x == 0) next[0] = next[1] = 0;
+  if (p0 < p1)
+    for (int w = threadIdx.x; w < s.words; w += kThreads) bm[w] = 0u;
+  __syncthreads();
+  deal_edges(o, s.search_edges, s0, s1, chunk_of<kWarps>(s1 - s0), &next[0],
+             -1, lane, search);
+  for (int p = p0; p < p1; ++p) {
+    const int q0 = __ldg(s.piece_begin + p), q1 = __ldg(s.piece_begin + p + 1);
+    const int i = __ldg(o.mi + __ldg(s.bitmap_edges + q0));
+    const int a0 = __ldg(o.a_ptr + i), a1 = __ldg(o.a_ptr + i + 1);
+    // stage la: kUnroll loads in flight a thread, then their bits
+    for (int t = a0 + threadIdx.x; t < a1; t += kUnroll * kThreads) {
+      int k[kUnroll], before[kUnroll];
+#pragma unroll
+      for (int q = 0; q < kUnroll; ++q) {
+        const int tq = t + q * kThreads;
+        k[q] = tq < a1 ? __ldg(o.a_ind + tq) : -1;
+        before[q] = prefix && tq > a0 && tq < a1 ? __ldg(o.a_ind + tq - 1)
+                                                 : -1;
+      }
+#pragma unroll
+      for (int q = 0; q < kUnroll; ++q) {
+        const int tq = t + q * kThreads;
+        if (k[q] < 0) break;
+        atomicOr(bm + (k[q] >> 5), 1u << (k[q] & 31));
+        if (tq == a0) span[0] = k[q] >> 5;
+        if (tq == a1 - 1) span[1] = k[q] >> 5;
+        // la's first id in its word: the ids of la before it
+        if (prefix && (tq == a0 || (before[q] >> 5) != (k[q] >> 5)))
+          prefix[k[q] >> 5] = tq - a0;
+      }
+    }
+    __syncthreads();
+    deal_edges(o, s.bitmap_edges, q0, q1, chunk_of<kWarps>(q1 - q0),
+               &next[1], i, lane, bitmap);
+    __syncthreads();
+    // clear the words from la's first to its last: stores, no loads
+    if (a0 < a1)
+      for (int w = span[0] + threadIdx.x; w <= span[1]; w += kThreads)
+        bm[w] = 0u;
+    if (threadIdx.x == 0) next[1] = 0;
+    __syncthreads();
+  }
 }
 
 // ---- T1: the count ------------------------------------------------------
 
-__global__ void __launch_bounds__(kThreads)
-count_kernel(Operands o, unsigned long long* __restrict__ total) {
-  __shared__ unsigned long long warp_sums[kWarps];
+__global__ void __launch_bounds__(32 * kCountWarps)
+count_kernel(Operands o, Schedule s, unsigned long long* __restrict__ total) {
+  extern __shared__ unsigned bm[];
+  __shared__ unsigned long long warp_sums[kCountWarps];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  unsigned long long mine = 0;
-  const long long base = (long long)blockIdx.x * kCountEdgesPerBlock;
-  for (int r = warp; r < kCountEdgesPerBlock; r += kWarps) {
-    const long long e = base + r;
-    if (e >= o.m) break;
-    int c = 0;
-    walk_edge(o, e, lane, [&](int, int) { ++c; });
-    for (int off = 16; off > 0; off >>= 1) c += __shfl_xor_sync(kFull, c, off);
-    mine += (unsigned)c;
-  }
+  unsigned long long mine = 0;   // this lane's matches
+  walk_unit<kCountWarps>(
+      o, s, bm, nullptr,
+      [&](int, int a0, int a1, int b0, int b1) {
+        int c = 0;
+        walk_edge(o, a0, a1, b0, b1, lane, [&](int, int) { ++c; });
+        mine += (unsigned)c;
+      },
+      [&](int, int, int, int b0, int b1) {
+        int c = 0;
+        stream_list(o.b_ind, b0, b1, lane, bm,
+                    [&](int, int, unsigned) { ++c; });
+        mine += (unsigned)c;
+      });
+  for (int off = 16; off > 0; off >>= 1)
+    mine += __shfl_xor_sync(kFull, mine, off);
   if (lane == 0) warp_sums[warp] = mine;
   __syncthreads();
   if (threadIdx.x == 0) {
-    unsigned long long s = 0;
-    for (int w = 0; w < kWarps; ++w) s += warp_sums[w];
-    if (s) atomicAdd(total, s);
+    unsigned long long sum = 0;
+    for (int w = 0; w < kCountWarps; ++w) sum += warp_sums[w];
+    if (sum) atomicAdd(total, sum);
   }
 }
 
@@ -239,59 +434,99 @@ __device__ __forceinline__ T neutral() {
   return T(0);
 }
 
-// when the semiring's identity joins an edge's fold (header)
-constexpr int kRuleMask = 0, kRuleTrace = 1;
+// when the semiring's identity joins an edge's fold (header): rule 0 the
+// masked mxm's, 1 the trace's
+constexpr int kRuleTrace = 1;
 
 template <class T, int kAdd, int kMul>
-__global__ void __launch_bounds__(kThreads)
-fold_kernel(Operands o, const T* __restrict__ a_val,
+__global__ void __launch_bounds__(32 * kFoldWarps)
+fold_kernel(Operands o, Schedule s, const T* __restrict__ a_val,
             const T* __restrict__ b_val, T* __restrict__ c, T identity,
             int rule) {
   constexpr bool kMinMax = kAdd == kAddMin || kAdd == kAddMax;
-  const long long e = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
+  extern __shared__ unsigned bm[];
+  int* prefix = reinterpret_cast<int*>(bm + s.words);
   const int lane = threadIdx.x & 31;
-  if (e >= o.m) return;   // the whole warp leaves together
-  T acc = neutral<T, kAdd>();
-  int hits = 0;
-  const int2 len = walk_edge(o, e, lane, [&](int a_pos, int b_pos) {
-    ++hits;
-    acc = add_op<T, kAdd>(
-        acc, mul_op<T, kMul>(__ldg(a_val + a_pos), __ldg(b_val + b_pos)));
-  });
-  for (int off = 16; off > 0; off >>= 1) {
-    acc = add_op<T, kAdd>(acc, __shfl_xor_sync(kFull, acc, off));
-    if (kMinMax) hits += __shfl_xor_sync(kFull, hits, off);
-  }
-  if (lane != 0) return;
-  if (kMinMax) {   // plus and or start at their identity, 0
-    const bool miss = rule == kRuleTrace
-                          ? hits < len.x
-                          : hits < min(len.x, len.y) || hits == 0;
-    if (miss) acc = add_op<T, kAdd>(acc, identity);
-  }
-  c[e] = acc;
+  // the lanes' folds of edge e, combined by the butterfly; lane 0 writes
+  const auto finish = [&](int e, T acc, int hits, int la, int lb) {
+    for (int off = 16; off > 0; off >>= 1) {
+      acc = add_op<T, kAdd>(acc, __shfl_xor_sync(kFull, acc, off));
+      if (kMinMax) hits += __shfl_xor_sync(kFull, hits, off);
+    }
+    if (lane != 0) return;
+    if (kMinMax) {   // plus and or start at their identity, 0
+      const bool miss = rule == kRuleTrace ? hits < la
+                                           : hits < min(la, lb) || hits == 0;
+      if (miss) acc = add_op<T, kAdd>(acc, identity);
+    }
+    c[e] = acc;
+  };
+  walk_unit<kFoldWarps>(
+      o, s, bm, prefix,
+      [&](int e, int a0, int a1, int b0, int b1) {
+        T acc = neutral<T, kAdd>();
+        int hits = 0;
+        walk_edge(o, a0, a1, b0, b1, lane, [&](int a_pos, int b_pos) {
+          ++hits;
+          acc = add_op<T, kAdd>(acc, mul_op<T, kMul>(__ldg(a_val + a_pos),
+                                                     __ldg(b_val + b_pos)));
+        });
+        finish(e, acc, hits, a1 - a0, b1 - b0);
+      },
+      [&](int e, int a0, int a1, int b0, int b1) {
+        T acc = neutral<T, kAdd>();
+        int hits = 0;
+        stream_list(o.b_ind, b0, b1, lane, bm,
+                    [&](int t, int k, unsigned word) {
+                      const int a_pos = a0 + prefix[k >> 5] +
+                                        __popc(word & ((1u << (k & 31)) - 1u));
+                      ++hits;
+                      acc = add_op<T, kAdd>(
+                          acc, mul_op<T, kMul>(__ldg(a_val + a_pos),
+                                               __ldg(b_val + t)));
+                    });
+        finish(e, acc, hits, a1 - a0, b1 - b0);
+      });
+}
+
+// The dynamic shared memory of a launch: the bitmap, and T2's prefix
+// counts; none when the schedule has no bitmap piece. Opts in above 48 KB.
+template <class Kernel>
+cudaError_t shared_bytes(Kernel kernel, const Schedule& s, int per_word,
+                         size_t* bytes) {
+  *bytes = (size_t)s.words * per_word;
+  if (*bytes > (size_t)kSmemBudget) return cudaErrorInvalidValue;
+  if (*bytes + kStaticSmem > 48 * 1024)
+    return cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*bytes);
+  return cudaSuccess;
 }
 
 template <class T, int kAdd, int kMul>
-cudaError_t launch_fold(const Operands& o, const void* a_val,
-                        const void* b_val, void* c, uint32_t identity_bits,
-                        int rule, cudaStream_t stream) {
+cudaError_t launch_fold(const Operands& o, const Schedule& s,
+                        const void* a_val, const void* b_val, void* c,
+                        uint32_t identity_bits, int rule,
+                        cudaStream_t stream) {
   T identity;
   std::memcpy(&identity, &identity_bits, sizeof(T));
-  const long long blocks = (o.m + kWarps - 1) / kWarps;
-  fold_kernel<T, kAdd, kMul><<<(unsigned)blocks, kThreads, 0, stream>>>(
-      o, (const T*)a_val, (const T*)b_val, (T*)c, identity, rule);
+  const auto kernel = fold_kernel<T, kAdd, kMul>;
+  size_t bytes = 0;
+  const cudaError_t err = shared_bytes(kernel, s, 8, &bytes);
+  if (err != cudaSuccess) return err;
+  kernel<<<(unsigned)s.units, 32 * kFoldWarps, bytes, stream>>>(
+      o, s, (const T*)a_val, (const T*)b_val, (T*)c, identity, rule);
   return cudaGetLastError();
 }
 
 // the catalogue's semirings whose (+) is plus, min, max or logical or
 template <class T>
 cudaError_t launch_pair(int add, int mul, const Operands& o,
-                        const void* a_val, const void* b_val, void* c,
-                        uint32_t bits, int rule, cudaStream_t st) {
-#define GB_PAIR(A, M)                                                  \
-  if (add == A && mul == M)                                            \
-    return launch_fold<T, A, M>(o, a_val, b_val, c, bits, rule, st);
+                        const Schedule& s, const void* a_val,
+                        const void* b_val, void* c, uint32_t bits, int rule,
+                        cudaStream_t st) {
+#define GB_PAIR(A, M)                                                     \
+  if (add == A && mul == M)                                               \
+    return launch_fold<T, A, M>(o, s, a_val, b_val, c, bits, rule, st);
   GB_PAIR(kAddLor, kMulLand)       // LogicalOrAnd
   GB_PAIR(kAddPlus, kMulTimes)     // PlusMultiplies
   GB_PAIR(kAddMin, kMulPlus)       // MinimumPlus
@@ -312,53 +547,59 @@ cudaError_t launch_pair(int add, int mul, const Operands& o,
 extern "C" {
 
 // T1. Zeroes *total (one unsigned 64-bit word) on `stream`, then adds
-// sum over the m mask edges of |la ∩ lb| to it. Returns the first error
-// (0 on success). The caller passes m >= 1 and ids within the pointers.
-int gb_masked_intersect_count(const void* mi, const void* mj, long long m,
+// sum over the mask edges of |la ∩ lb| to it, walking the schedule *s (a
+// host struct, copied into the launch). Returns the first error (0 on
+// success). The caller passes a schedule of at least one unit, built for
+// these operands, and ids within the pointers and below 32 * s->words.
+int gb_masked_intersect_count(const void* mi, const void* mj,
                               const void* a_ptr, const void* a_ind,
                               const void* b_ptr, const void* b_ind,
-                              void* total, void* stream) {
-  const Operands o{(const int32_t*)mi, (const int32_t*)mj, m,
+                              const void* sched, void* total, void* stream) {
+  const Operands o{(const int32_t*)mi, (const int32_t*)mj,
                    (const int32_t*)a_ptr, (const int32_t*)a_ind,
                    (const int32_t*)b_ptr, (const int32_t*)b_ind};
-  cudaError_t err = cudaMemsetAsync(total, 0, sizeof(unsigned long long),
-                                    (cudaStream_t)stream);
+  const Schedule s = *(const Schedule*)sched;
+  const cudaStream_t st = (cudaStream_t)stream;
+  size_t bytes = 0;
+  cudaError_t err = shared_bytes(count_kernel, s, 4, &bytes);
   if (err != cudaSuccess) return (int)err;
-  const long long blocks =
-      (m + kCountEdgesPerBlock - 1) / kCountEdgesPerBlock;
-  count_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      o, (unsigned long long*)total);
+  err = cudaMemsetAsync(total, 0, sizeof(unsigned long long), st);
+  if (err != cudaSuccess) return (int)err;
+  count_kernel<<<(unsigned)s.units, 32 * kCountWarps, bytes, st>>>(
+      o, s, (unsigned long long*)total);
   return (int)cudaGetLastError();
 }
 
-// T2. Writes c[e] for the m mask edges. add: 0 plus, 1 min, 2 max, 3
-// logical or; mul: 0 plus, 1 minus, 2 multiplies, 3 divides, 4 greater, 5
-// less, 6 not-equal-to, 7 select-second, 8 logical and; is_float: a_val,
-// b_val and c are float32, else int32. identity_bits is the semiring's
-// identity as the 32 bits of the value type. Returns the launch's error (0
-// on success), or cudaErrorInvalidValue for a pair with no instantiation.
-// rule: 0 the masked mxm's (the identity joins where the lists share fewer
-// ids than the shorter holds, or none), 1 the trace's (where la holds an
-// id lb lacks).
-int gb_masked_intersect_fold(const void* mi, const void* mj, long long m,
+// T2. Writes c[e] for the mask edges, walking the schedule *s (as T1).
+// add: 0 plus, 1 min, 2 max, 3 logical or; mul: 0 plus, 1 minus, 2
+// multiplies, 3 divides, 4 greater, 5 less, 6 not-equal-to, 7
+// select-second, 8 logical and; is_float: a_val, b_val and c are float32,
+// else int32. identity_bits is the semiring's identity as the 32 bits of
+// the value type. Returns the launch's error (0 on success), or
+// cudaErrorInvalidValue for a pair with no instantiation. rule: 0 the
+// masked mxm's (the identity joins where the lists share fewer ids than
+// the shorter holds, or none), 1 the trace's (where la holds an id lb
+// lacks).
+int gb_masked_intersect_fold(const void* mi, const void* mj,
                              const void* a_ptr, const void* a_ind,
                              const void* a_val, const void* b_ptr,
-                             const void* b_ind, const void* b_val, void* c,
-                             int add, int mul, int is_float,
-                             unsigned int identity_bits, int rule,
-                             void* stream) {
-  const Operands o{(const int32_t*)mi, (const int32_t*)mj, m,
+                             const void* b_ind, const void* b_val,
+                             const void* sched, void* c, int add, int mul,
+                             int is_float, unsigned int identity_bits,
+                             int rule, void* stream) {
+  const Operands o{(const int32_t*)mi, (const int32_t*)mj,
                    (const int32_t*)a_ptr, (const int32_t*)a_ind,
                    (const int32_t*)b_ptr, (const int32_t*)b_ind};
+  const Schedule s = *(const Schedule*)sched;
   const cudaStream_t st = (cudaStream_t)stream;
   if (is_float) {
     if (add == kAddPlus && mul == kMulDiv)   // PlusDivides, float32 only
       return (int)launch_fold<float, kAddPlus, kMulDiv>(
-          o, a_val, b_val, c, identity_bits, rule, st);
-    return (int)launch_pair<float>(add, mul, o, a_val, b_val, c,
+          o, s, a_val, b_val, c, identity_bits, rule, st);
+    return (int)launch_pair<float>(add, mul, o, s, a_val, b_val, c,
                                    identity_bits, rule, st);
   }
-  return (int)launch_pair<int32_t>(add, mul, o, a_val, b_val, c,
+  return (int)launch_pair<int32_t>(add, mul, o, s, a_val, b_val, c,
                                    identity_bits, rule, st);
 }
 

@@ -12,18 +12,23 @@ Replaces no Pallas kernel: the JAX package computes both as plain jnp
 (graphblast_tpu/ops/spgemm.py:159 _masked_count_chunk, :70
 _masked_join_chunk), chunked sort joins shaped by the TPU's memory and its
 lack of a fast binary search. On Hopper one kernel file
-(csrc/masked_intersect.cu) walks each mask edge with one warp: the lanes
-stride the shorter list (B's only when strictly shorter, as the JAX plan
-chooses) and find each id with a lower_bound in the longer one. Nothing is
-expanded, so no workspace, no chunk plan and no lane cap is needed. T1 adds
-each block's count to one 64-bit total with one atomicAdd (exact, and the
-same on every run); T2 folds each lane's matches in walk order from the
-identity, then the lanes through a fixed butterfly of shuffles, so a launch
-is bitwise equal to any other. ⊗ takes A's value first whichever list is
-walked. Both lists must be sorted with no duplicate ids; ops/spgemm.py
-checks that once per Matrix. Bound: memory, the mask and walked lists read
-once and the sectors each binary search probes (chip_smoke.py reckons
-them from the run's data).
+(csrc/masked_intersect.cu) walks the mask over an intersection schedule
+(intersect_schedule.py, built once from the lengths and cached by
+ops/spgemm.py): each edge takes the bitmap route (the block writes A's row
+into a bitmap in shared memory once for the mask row, a warp streams B's
+list against it) or the search route (a warp strides the shorter list, B's
+only when strictly shorter as the JAX plan chooses, and finds each id with
+a lower_bound in the longer one), whichever the schedule's cost formula
+calls cheaper, and the search route where the bitmap would not fit the
+shared-memory budget. Nothing is expanded, so no workspace, no chunk plan
+and no lane cap is needed. T1 adds each block's count to one 64-bit total
+with one atomicAdd (exact, and the same on every run); T2 folds each lane's
+matches in its walk order from ⊕'s neutral, then the lanes through a fixed
+butterfly of shuffles, so a launch is bitwise equal to any other on the
+same schedule. ⊗ takes A's value first on either route. Both lists must be
+sorted with no duplicate ids; ops/spgemm.py checks that once per Matrix.
+Bound: the L1's rate of probes, which the bitmap route removes; the inputs
+read once are the bytes bound chip_smoke.py reports.
 
 Each fold starts at ⊕'s neutral element (±inf or the int32 limits for
 min and max, 0 for plus and or). The semiring's identity joins it where
@@ -40,7 +45,8 @@ The plain versions are independent of the kernel's walk: they always
 expand A's side and look each (j, k) up with `torch.searchsorted` on int64
 keys over B's lists, chunked so the expansion fits (`_chunk_lanes`); on
 CPU tensors the wrappers run them, on CUDA tensors they launch the kernel
-or raise. Each launch is counted in the wrapper's `.launches`.
+or raise. Each launch is counted in the wrapper's `.launches`, and the edges
+it sent down each route in its `.routes`.
 """
 from __future__ import annotations
 
@@ -51,14 +57,13 @@ import torch
 
 from ...types import INDEX_DTYPE
 from . import _build
+from .intersect_schedule import IntersectSchedule, build_intersect_schedule
 
 _LIBRARY = "masked_intersect"
 _ERROR = "gb_masked_intersect_error_string"
 _ERROR_SIG = ([ctypes.c_int], ctypes.c_char_p)
-_COUNT_SIG = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong]
-              + [ctypes.c_void_p] * 6, ctypes.c_int)
-_FOLD_SIG = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong]
-             + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
+_COUNT_SIG = ([ctypes.c_void_p] * 9, ctypes.c_int)
+_FOLD_SIG = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 3
              + [ctypes.c_uint, ctypes.c_int, ctypes.c_void_p], ctypes.c_int)
 _SIGNATURES = {"gb_masked_intersect_count": _COUNT_SIG,
                "gb_masked_intersect_fold": _FOLD_SIG, _ERROR: _ERROR_SIG}
@@ -239,35 +244,61 @@ def masked_intersect_fold_plain(mi, mj, a_ptr, a_ind, a_val, b_ptr, b_ind,
     return c
 
 
-def masked_intersect_count(mi, mj, a_ptr, a_ind, b_ptr, b_ind) -> int:
+def _schedule(mi, mj, a_ptr, a_ind, b_ptr, b_ind, sched, fold: bool):
+    """`sched`, checked against the operands, or where it is None one
+    built for them (ids below the largest stored id + 1)."""
+    if sched is None:
+        tops = [int(ind[: int(ptr[-1])].max()) + 1
+                for ptr, ind in ((a_ptr, a_ind), (b_ptr, b_ind))
+                if int(ptr[-1])]
+        return build_intersect_schedule(mi, mj, a_ptr, b_ptr,
+                                        max(tops, default=0), fold)
+    if not isinstance(sched, IntersectSchedule) or sched.edges != \
+            mi.shape[0] or sched.bitmap.device != mi.device:
+        raise ValueError("the schedule was built for other operands")
+    if fold and not sched.fold:
+        raise ValueError("T2 needs a schedule built for the fold")
+    return sched
+
+
+def _count_routes(fn, sched: IntersectSchedule) -> None:
+    fn.launches += 1
+    for route, edges in sched.routes.items():
+        fn.routes[route] += edges
+
+
+def masked_intersect_count(mi, mj, a_ptr, a_ind, b_ptr, b_ind,
+                           sched=None) -> int:
     """T1: Σ over the mask edges of |la ∩ lb|, a Python int read from the
     card once. CPU tensors run the plain version; CUDA tensors launch the
-    kernel on the current stream, or raise."""
+    kernel on the current stream over `sched` (built here when None), or
+    raise."""
     if mi.device.type == "cpu":
         return masked_intersect_count_plain(mi, mj, a_ptr, a_ind, b_ptr,
                                             b_ind)
     _check(mi, mj, a_ptr, a_ind, b_ptr, b_ind)
     if mi.device.type != "cuda":
         raise ValueError(f"no masked intersection for device {mi.device}")
-    m = mi.shape[0]
-    if m == 0:      # a zero-size grid is an invalid launch
+    if mi.shape[0] == 0:      # a zero-size grid is an invalid launch
         return 0
+    sched = _schedule(mi, mj, a_ptr, a_ind, b_ptr, b_ind, sched, False)
     total = torch.empty(1, dtype=torch.int64, device=mi.device)
-    _LAUNCH_COUNT(mi.get_device(), mi.data_ptr(), mj.data_ptr(), m,
+    _LAUNCH_COUNT(mi.get_device(), mi.data_ptr(), mj.data_ptr(),
                   a_ptr.data_ptr(), a_ind.data_ptr(), b_ptr.data_ptr(),
-                  b_ind.data_ptr(), total.data_ptr())
-    masked_intersect_count.launches += 1
+                  b_ind.data_ptr(), sched.arg, total.data_ptr())
+    _count_routes(masked_intersect_count, sched)
     return int(total.item())
 
 
 def masked_intersect_fold(mi, mj, a_ptr, a_ind, a_val, b_ptr, b_ind, b_val,
-                          semiring, trace: bool = False) -> torch.Tensor:
+                          semiring, trace: bool = False,
+                          sched=None) -> torch.Tensor:
     """T2: c[e] = ⊕_{k ∈ la ∩ lb} a_val ⊗ b_val with ⊕'s identity joined
     by the masked mxm's rule, or the trace's where `trace` (module
     docstring); (m,) of a_val's dtype; b_val is cast to it. CPU tensors run
     the plain version; CUDA tensors launch the kernel on the current
-    stream, or raise (NotImplementedError for a semiring or dtype it does
-    not fold)."""
+    stream over `sched` (built for the fold here when None), or raise
+    (NotImplementedError for a semiring or dtype it does not fold)."""
     if mi.device.type == "cpu":
         return masked_intersect_fold_plain(mi, mj, a_ptr, a_ind, a_val,
                                            b_ptr, b_ind, b_val, semiring,
@@ -283,15 +314,18 @@ def masked_intersect_fold(mi, mj, a_ptr, a_ind, a_val, b_ptr, b_ind, b_val,
     c = torch.empty(m, dtype=dtype, device=mi.device)
     if m == 0:
         return c
-    _LAUNCH_FOLD(mi.get_device(), mi.data_ptr(), mj.data_ptr(), m,
+    sched = _schedule(mi, mj, a_ptr, a_ind, b_ptr, b_ind, sched, True)
+    _LAUNCH_FOLD(mi.get_device(), mi.data_ptr(), mj.data_ptr(),
                  a_ptr.data_ptr(), a_ind.data_ptr(), a_val.data_ptr(),
                  b_ptr.data_ptr(), b_ind.data_ptr(), b_val.data_ptr(),
-                 c.data_ptr(), _ADD_CODE[semiring.add.name],
+                 sched.arg, c.data_ptr(), _ADD_CODE[semiring.add.name],
                  _MUL_CODE[semiring.mul.name], int(dtype == torch.float32),
                  _identity_bits(semiring, dtype), int(trace))
-    masked_intersect_fold.launches += 1
+    _count_routes(masked_intersect_fold, sched)
     return c
 
 
 masked_intersect_count.launches = 0
 masked_intersect_fold.launches = 0
+masked_intersect_count.routes = {"bitmap": 0, "search": 0}
+masked_intersect_fold.routes = {"bitmap": 0, "search": 0}

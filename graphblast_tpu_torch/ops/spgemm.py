@@ -6,14 +6,16 @@ kernels/spgemm.hpp:17-79, and trace.hpp:13-49).
 For each stored (i, j) of the mask M, C[i, j] is the semiring dot of A's row
 i and B's column j (B's row j when B is taken transposed, TC's idiom): an
 intersection of two sorted id lists. All three operations run on T1 and T2
-(ops/kernels/masked_intersect.py), one warp a mask edge over the shorter
-list; each has a plain version, `*_plain`, beside it, which the tests and
-the CPU path use.
+(ops/kernels/masked_intersect.py) over an intersection schedule
+(ops/kernels/intersect_schedule.py: each edge's route, bitmap or search,
+and the work units), built once per mask and pair of operands and cached
+in the mask's plans (the trace's in A's); each has a plain version,
+`*_plain`, beside it, which the tests and the CPU path use.
 
 Not ported: the unmasked `spgemm_esc` and its dense fallback (ROADMAP queue
 1 item 7), and `_mask_chunk_plan`'s host chunking, lane caps and knobs
 (GRB_SPGEMM_LANES, GRB_SPGEMM_MINSIDE). Those fit the TPU's memory; the
-kernel stores no expansion, and always walks the shorter list.
+kernel stores no expansion, and its schedule picks each edge's route.
 """
 from __future__ import annotations
 
@@ -23,10 +25,16 @@ from .. import dimension as dim
 from ..matrix import Matrix
 from ..semiring import Semiring
 from ..types import INDEX_DTYPE, SparseFormat
+from .kernels.intersect_schedule import (IntersectSchedule,
+                                         build_intersect_schedule)
 from .kernels.masked_intersect import (masked_intersect_count,
                                        masked_intersect_count_plain,
                                        masked_intersect_fold,
                                        masked_intersect_fold_plain)
+
+# schedules kept per mask (or per A, for the trace): those of the most
+# recently used pairs of A's and B's pointer tensors
+SCHEDULES_KEPT = 4
 
 
 def _check_lists(X: Matrix, orient: str) -> None:
@@ -72,6 +80,27 @@ def _operands(A: Matrix, B: Matrix, M: Matrix, transpose_b: bool) -> tuple:
     return (M.row_ind[:m], M.col_ind[:m], A.row_ptr, A.col_ind, A.val) + b
 
 
+def schedule_for(holder: Matrix, ops: tuple, n_ids: int, fold: bool,
+                 trace: bool = False) -> IntersectSchedule:
+    """The intersection schedule of the walk `ops` (`_operands`, or
+    `_diagonal_operands` when `trace`) over ids below n_ids, built on the
+    first call and cached in holder._plans: the mask, or A for the trace.
+    An entry holds A's and B's pointer tensors themselves, so only the
+    same operands hit it, and T1 and T2 keep one each (their bitmap
+    budgets differ)."""
+    mi, mj, a_ptr, _, _, b_ptr, _, _ = ops
+    cache = holder._plans.setdefault(
+        "intersect/trace" if trace else "intersect/mask", [])
+    for k, (a, b, sched) in enumerate(cache):
+        if a is a_ptr and b is b_ptr and sched.fold == fold:
+            cache.append(cache.pop(k))   # the most recently used goes last
+            return sched
+    sched = build_intersect_schedule(mi, mj, a_ptr, b_ptr, n_ids, fold)
+    cache.append((a_ptr, b_ptr, sched))
+    del cache[:-SCHEDULES_KEPT]
+    return sched
+
+
 def _count_args(ops: tuple) -> tuple:
     mi, mj, a_ptr, a_ind, _, b_ptr, b_ind, _ = ops
     return mi, mj, a_ptr, a_ind, b_ptr, b_ind
@@ -82,8 +111,9 @@ def spgemm_masked_count(A: Matrix, B: Matrix, M: Matrix,
     """Σ_{(i,j)∈M} |N_A(i) ∩ N_B(j)|, the structural masked-SpGEMM total
     that triangle counting reads (values count as 1): one T1 launch, or its
     plain version on CPU tensors."""
+    ops = _operands(A, B, M, transpose_b)
     return masked_intersect_count(
-        *_count_args(_operands(A, B, M, transpose_b)))
+        *_count_args(ops), sched=schedule_for(M, ops, A.ncols, False))
 
 
 def spgemm_masked_count_plain(A: Matrix, B: Matrix, M: Matrix,
@@ -110,8 +140,9 @@ def spgemm_masked(A: Matrix, B: Matrix, M: Matrix, semiring: Semiring,
     than the shorter holds, as in the JAX package's join, so an entry whose
     lists share no id holds the identity. Needs A's CSR, M's CSR and B's
     CSC (its CSR when transpose_b)."""
+    ops = _operands(A, B, M, transpose_b)
     return _masked_result(M, masked_intersect_fold(
-        *_operands(A, B, M, transpose_b), semiring))
+        *ops, semiring, sched=schedule_for(M, ops, A.ncols, True)))
 
 
 def spgemm_masked_plain(A: Matrix, B: Matrix, M: Matrix, semiring: Semiring,
@@ -161,8 +192,10 @@ def intersect_rows_reduce(A: Matrix, B: Matrix,
     holds an id B's lacks, and for A's padded slots): one T2 launch over
     the diagonal pairs (i, i), then one ⊕ reduce of the n values. A 0-d
     tensor of A's dtype."""
+    ops = _diagonal_operands(A, B)
+    sched = schedule_for(A, ops, A.ncols, True, trace=True)
     return _trace_total(A, masked_intersect_fold(
-        *_diagonal_operands(A, B), semiring, trace=True), semiring)
+        *ops, semiring, trace=True, sched=sched), semiring)
 
 
 def intersect_rows_reduce_plain(A: Matrix, B: Matrix,

@@ -13,6 +13,7 @@ import graphblast_tpu_torch as tgb
 from graphblast_tpu_torch.ops.kernels import bitmap_pull as bp
 from graphblast_tpu_torch.ops import spgemm as sg
 from graphblast_tpu_torch.ops.kernels import gather as kg
+from graphblast_tpu_torch.ops.kernels import intersect_schedule as isch
 from graphblast_tpu_torch.ops.kernels import masked_intersect as mx
 from graphblast_tpu_torch.ops.kernels import minmax_pull as mm
 from graphblast_tpu_torch.ops.kernels import monoid_pull as mp
@@ -20,7 +21,8 @@ from graphblast_tpu_torch.ops.kernels import orpull as ko
 from graphblast_tpu_torch.ops.kernels import row_schedule as rs
 from graphblast_tpu_torch.ops.kernels import value_pull as vp
 
-from test_torch_intersect_replay import (SEMIRING_DTYPES, fuzz_matrices,
+from test_torch_intersect_replay import (ROUTINGS, SEMIRING_DTYPES,
+                                         _ids_bound, fuzz_matrices,
                                          nested_coo, replay_ops)
 
 pytestmark = pytest.mark.cuda
@@ -647,36 +649,58 @@ def _on_cpu(ops):
     return tuple(None if t is None else t.cpu() for t in ops)
 
 
+def _schedules(ops, fold=True):
+    """(budget, all_bitmap, schedule) of the operands `ops` under each of
+    ROUTINGS, as the replay builds them."""
+    n_ids = _ids_bound(_on_cpu(ops))
+    return [(b, ab, isch.build_intersect_schedule(
+        ops[0], ops[1], ops[2], ops[5], n_ids, fold, b, all_bitmap=ab))
+        for b, ab in ROUTINGS]
+
+
+def _routes_since(fn, before):
+    return {k: fn.routes[k] - before[k] for k in before}
+
+
 @pytest.mark.parametrize("transpose_b", [False, True])
 @pytest.mark.parametrize("name,dtype", SEMIRING_DTYPES)
 def test_masked_intersect_matches_replay_on_the_card(cuda, name, dtype,
                                                      transpose_b):
-    """T2 bitwise equal to the CPU replay of its walk and fold order and to
+    """On each routing of the schedule (by cost, all bitmap, all search):
+    T2 bitwise equal to the CPU replay of its walk and fold order and to
     a second launch, within its tolerance of the plain version; T1 equal
-    to the replay's count. Each launch counted once."""
+    to the replay's count. Each launch counted once, and its edges once
+    on the route the schedule gave them."""
     _, (A, B, M) = fuzz_matrices(5, dtype, device=cuda)
     ops = sg._operands(A, B, M, transpose_b)
     sr = getattr(tgb.semiring, f"{name}Semiring")
-    folds, counts = mx.masked_intersect_fold.launches, \
-        mx.masked_intersect_count.launches
-    c = mx.masked_intersect_fold(*ops, sr)
-    c2 = mx.masked_intersect_fold(*ops, sr)
-    count = mx.masked_intersect_count(*sg._count_args(ops))
-    torch.cuda.synchronize()
-    assert mx.masked_intersect_fold.launches == folds + 2
-    assert mx.masked_intersect_count.launches == counts + 1
-    assert torch.equal(_bits(c), _bits(c2))
-    want_count, want, sides = replay_ops(_on_cpu(ops), name, dtype)
-    assert sides == {True, False}
-    assert count == want_count
-    np.testing.assert_array_equal(c.cpu().numpy().view(np.int32),
-                                  want.view(np.int32))
     plain = mx.masked_intersect_fold_plain(*ops, sr).cpu().numpy()
-    if name.startswith("Plus") and dtype == np.float32:
-        np.testing.assert_allclose(c.cpu().numpy(), plain, rtol=1e-5,
-                                   atol=1e-5 * float(np.abs(plain).max()))
-    else:
-        np.testing.assert_array_equal(c.cpu().numpy(), plain)
+    for budget, all_bitmap, sched in _schedules(ops):
+        folds, counts = mx.masked_intersect_fold.launches, \
+            mx.masked_intersect_count.launches
+        routes = dict(mx.masked_intersect_fold.routes)
+        c = mx.masked_intersect_fold(*ops, sr, sched=sched)
+        c2 = mx.masked_intersect_fold(*ops, sr, sched=sched)
+        count = mx.masked_intersect_count(*sg._count_args(ops), sched=sched)
+        torch.cuda.synchronize()
+        assert mx.masked_intersect_fold.launches == folds + 2
+        assert mx.masked_intersect_count.launches == counts + 1
+        assert _routes_since(mx.masked_intersect_fold, routes) == {
+            k: 2 * v for k, v in sched.routes.items()}
+        assert sum(sched.routes.values()) == M.nvals
+        assert torch.equal(_bits(c), _bits(c2))
+        want_count, want, sides, taken = replay_ops(
+            _on_cpu(ops), name, dtype, budget=budget, all_bitmap=all_bitmap)
+        assert taken == set(sched.bitmap.tolist())
+        assert count == want_count
+        np.testing.assert_array_equal(c.cpu().numpy().view(np.int32),
+                                      want.view(np.int32))
+        if name.startswith("Plus") and dtype == np.float32:
+            np.testing.assert_allclose(
+                c.cpu().numpy(), plain, rtol=1e-5,
+                atol=1e-5 * float(np.abs(plain).max()))
+        else:
+            np.testing.assert_array_equal(c.cpu().numpy(), plain)
 
 
 @pytest.mark.parametrize("transpose_b", [False, True])
@@ -684,21 +708,24 @@ def test_masked_intersect_matches_replay_on_the_card(cuda, name, dtype,
 def test_masked_intersect_on_nested_lists_on_the_card(cuda, name, dtype,
                                                       transpose_b):
     """T2 bitwise equal to the CPU replay on `nested_coo` (walked lists
-    matched in full, empty lists, negative products), where the identity
-    joins only as the JAX join brings it in: the masked mxm's rule, and
-    the trace's over the diagonal pairs."""
+    matched in full, empty lists, negative products), on each routing of
+    the schedule, where the identity joins only as the JAX join brings it
+    in: the masked mxm's rule, and the trace's over the diagonal pairs."""
     _, (A, B, M) = fuzz_matrices(2, dtype, device=cuda, make=nested_coo,
                                  transpose_b=transpose_b)
     sr = getattr(tgb.semiring, f"{name}Semiring")
     for ops, trace in ((sg._operands(A, B, M, transpose_b), False),
                        (sg._diagonal_operands(A, B), True)):
-        c = mx.masked_intersect_fold(*ops, sr, trace=trace)
-        _, want, _ = replay_ops(_on_cpu(ops), name, dtype, trace=trace)
-        np.testing.assert_array_equal(c.cpu().numpy().view(np.int32),
-                                      want.view(np.int32))
-        if not (name.startswith("Plus") and dtype == np.float32):
-            assert torch.equal(c, mx.masked_intersect_fold_plain(
-                *ops, sr, trace=trace))
+        for budget, all_bitmap, sched in _schedules(ops):
+            c = mx.masked_intersect_fold(*ops, sr, trace=trace, sched=sched)
+            _, want, _, _ = replay_ops(_on_cpu(ops), name, dtype,
+                                       trace=trace, budget=budget,
+                                       all_bitmap=all_bitmap)
+            np.testing.assert_array_equal(c.cpu().numpy().view(np.int32),
+                                          want.view(np.int32))
+            if not (name.startswith("Plus") and dtype == np.float32):
+                assert torch.equal(c, mx.masked_intersect_fold_plain(
+                    *ops, sr, trace=trace))
 
 
 def _hub_graph(cuda, n, m, hubs, hub_deg, seed):
@@ -754,8 +781,11 @@ def test_tc_and_masked_mxm_on_the_card(cuda):
     A = rmat_matrix(12, 16, seed=42, device=cuda)
     L = tgb.tril(A)
     counts = mx.masked_intersect_count.launches
+    routes = dict(mx.masked_intersect_count.routes)
     got = tgb.algorithms.tc(L)
     assert mx.masked_intersect_count.launches == counts + 1
+    taken = _routes_since(mx.masked_intersect_count, routes)
+    assert sum(taken.values()) == L.nvals and taken["bitmap"] > 0
     assert got == tgb.algorithms.tc_cpu(L)
     assert got == sg.spgemm_masked_count_plain(L, L, L, transpose_b=True)
     assert got == tgb.algorithms.triangle_count(A)
@@ -771,6 +801,46 @@ def test_tc_and_masked_mxm_on_the_card(cuda):
     assert mx.masked_intersect_fold.launches == folds + 2
     assert float(tr) == float(sg.intersect_rows_reduce_plain(
         A, A, tgb.PlusMultipliesSemiring)) == float(A.nvals)
+
+
+def test_masked_intersect_past_the_budget_on_the_card(cuda):
+    """n = 2^21 vertices, whose bitmap (256 KB for T1, 512 KB with T2's
+    prefix counts) passes the shared-memory budget: tc, the masked mxm and
+    the trace take the search route alone, one launch each, and equal
+    their plain versions (PlusMultiplies within 1e-5·max|c|; small integer
+    sums here are exact)."""
+    n, m = 1 << 21, 3_000_000
+    g = torch.Generator(device=cuda)
+    g.manual_seed(21)
+    e = torch.randint(0, n, (2, m), generator=g, device=cuda)
+    r, c = torch.cat([e[0], e[1]]), torch.cat([e[1], e[0]])
+    from graphblast_tpu_torch.io.mmio import canonicalize_coo
+
+    rr, cc, vv = canonicalize_coo(r.cpu().numpy(), c.cpu().numpy(),
+                                  np.ones(2 * m, np.float32),
+                                  undirected=True, remove_self_loops=True)
+    A = tgb.Matrix.from_coo(rr, cc, vv, n, n, device=cuda)
+    L = tgb.tril(A)
+    assert L.ncols // 8 > isch.SMEM_BUDGET
+    before = {fn: (fn.launches, dict(fn.routes)) for fn in
+              (mx.masked_intersect_count, mx.masked_intersect_fold)}
+    assert tgb.algorithms.tc(L) == sg.spgemm_masked_count_plain(
+        L, L, L, transpose_b=True)
+    C = sg.spgemm_masked(L, L, L, tgb.PlusMultipliesSemiring,
+                         transpose_b=True)
+    P = sg.spgemm_masked_plain(L, L, L, tgb.PlusMultipliesSemiring,
+                               transpose_b=True)
+    assert torch.equal(C.val, P.val)
+    tr = sg.intersect_rows_reduce(A, A, tgb.MinimumPlusSemiring)
+    assert torch.equal(tr, sg.intersect_rows_reduce_plain(
+        A, A, tgb.MinimumPlusSemiring))
+    count, fold = (mx.masked_intersect_count, mx.masked_intersect_fold)
+    assert count.launches == before[count][0] + 1
+    assert fold.launches == before[fold][0] + 2
+    assert _routes_since(count, before[count][1]) == {
+        "bitmap": 0, "search": L.nvals}
+    assert _routes_since(fold, before[fold][1]) == {
+        "bitmap": 0, "search": L.nvals + A.nrows}
 
 
 def test_masked_fold_refuses_on_the_card(cuda):

@@ -1,18 +1,26 @@
 """The walk of T1 and T2 (csrc/masked_intersect.cu), replayed on the CPU.
 
-The kernels walk each mask edge with one warp: the side choice (B's list
-only when strictly shorter), the 32 lanes striding the walked list, each
-lane's lower_bound starting where its last one ended, each lane's fold in
-walk order from ⊕'s neutral element, a butterfly over offsets 16, 8, 4, 2,
-1, then, for min and max, ⊕ the identity where the JAX join brings it in
-(the masked mxm's rule, or the trace's).
+The kernels walk each mask edge with one warp, on the route the
+intersection schedule gives it (ops/kernels/intersect_schedule.py). The
+search route: the side choice (B's list only when strictly shorter), the
+32 lanes striding the walked list, each lane's lower_bound starting where
+its last one ended. The bitmap route: A's row staged as a bitmap with
+per-word prefix counts, the lanes striding B's list in groups of 4 ids
+from its first index that is a multiple of 4 (a lane each for the ids
+before it), each hit's A position from the prefix count and a popcount.
+Then each lane's fold in walk order from ⊕'s neutral element, a butterfly
+over offsets 16, 8, 4, 2, 1, then, for min and max, ⊕ the identity where
+the JAX join brings it in (the masked mxm's rule, or the trace's).
 `_replay` repeats that in Python with the kernel's arithmetic (float32
 rounded once per operation, int32 wrapping, NaN-propagating min and max,
 logical ops and comparisons giving 1 or 0) and must equal the plain
 versions, which always expand A's side and search B's int64 keys, for every
 semiring T2 folds on int32 and float32 values, on inputs whose hub rows make
-the walk take both sides. This file imports no JAX: tests/test_torch_cuda.py
-holds the kernels bitwise to the same replay on the card. Tolerances:
+the walk take both sides, over schedules that send each edge down the
+route its cost picks, every edge down the bitmap route, and (with no
+shared-memory budget) every edge down the search route. This file imports
+no JAX: tests/test_torch_cuda.py holds the kernels bitwise to the same
+replay on the card. Tolerances:
 counts, min, max, or and int32 exact; Plus on float32 within rtol 1e-5 and
 1e-5·max|c| absolute (another order of a sum of signed terms).
 """
@@ -25,6 +33,7 @@ import torch
 
 import graphblast_tpu_torch as tgb
 from graphblast_tpu_torch.ops import spgemm as sp
+from graphblast_tpu_torch.ops.kernels import intersect_schedule as isch
 from graphblast_tpu_torch.ops.kernels import masked_intersect as mx
 
 DATA = os.path.join(os.path.dirname(__file__), "..", "data", "small")
@@ -164,11 +173,75 @@ def _np_neutral(name, dtype):
     return (1 << 31) - 1 if add == "MinimumMonoid" else -(1 << 31)
 
 
+def _ids_bound(ops):
+    """One more than the largest id of A's and B's lists (the ids a
+    schedule built by the wrappers covers)."""
+    _, _, a_ptr, a_ind, _, b_ptr, b_ind, _ = ops
+    return max([int(ind[: int(ptr[-1])].max()) + 1
+                for ptr, ind in ((a_ptr, a_ind), (b_ptr, b_ind))
+                if int(ptr[-1])], default=0)
+
+
+def _search_lanes(w0, w1, s, s0, s1, w):
+    """The search route's lanes: lane -> [(walked pos, partner pos)] of the
+    ids the lists share, in the lane's walk order (lanes stride the walked
+    list; each lower_bound starts where the lane's last one ended)."""
+    lanes = []
+    for lane in range(32):
+        hits, lo = [], s0
+        for t in range(w0 + lane, w1, 32):
+            key = w[t]
+            lo = bisect.bisect_left(s, key, lo, s1)
+            if lo == s1:
+                break
+            if s[lo] == key:
+                hits.append((t, lo))
+        lanes.append(hits)
+    return lanes
+
+
+def _bitmap_lanes(a_ind, a0, a1, b_ind, b0, b1):
+    """The bitmap route's lanes: lane -> [(A pos, B pos)] of the hits, in
+    the lane's walk order: lane l takes lb's l-th id before its first
+    index that is a multiple of 4, then the ids at that index + 4l + 128r
+    + q; each hit's A position from the staged bitmap and prefix counts,
+    a0 + prefix[k >> 5] + popc(word k >> 5 below k)."""
+    words, prefix = {}, {}
+    for p in range(a0, a1):
+        k = a_ind[p]
+        words[k >> 5] = words.get(k >> 5, 0) | (1 << (k & 31))
+        if p == a0 or a_ind[p - 1] >> 5 != k >> 5:
+            prefix[k >> 5] = p - a0
+    body = min((b0 + 3) & ~3, b1)
+    lanes = []
+    for lane in range(32):
+        order = [b0 + lane] if b0 + lane < body else []
+        for t in range(body + 4 * lane, b1, 128):
+            order += [t + q for q in range(4) if t + q < b1]
+        hits = []
+        for t in order:
+            k = b_ind[t]
+            word = words.get(k >> 5, 0)
+            if word >> (k & 31) & 1:
+                below = bin(word & ((1 << (k & 31)) - 1)).count("1")
+                hits.append((a0 + prefix[k >> 5] + below, t))
+        lanes.append(hits)
+    return lanes
+
+
 def _replay(ops, add=None, mul=None, ident=None, neutral=None,
-            minmax=False, trace=False):
+            minmax=False, trace=False, budget=isch.SMEM_BUDGET,
+            all_bitmap=False):
     """T1's count and T2's values (when ⊕, ⊗, the identity and ⊕'s neutral
     are given; `minmax` when ⊕ is min or max, `trace` for the trace's
-    rule), and the set of sides walked (True: A's row)."""
+    rule) over the schedule the wrappers build (T2's, with a bitmap budget
+    of `budget` bytes; `all_bitmap`: every edge on the bitmap route where
+    it fits), the set of sides the search route walked (True: A's row) and
+    the set of routes taken (True: the bitmap)."""
+    sched = isch.build_intersect_schedule(ops[0], ops[1], ops[2], ops[5],
+                                          _ids_bound(ops), True, budget,
+                                          all_bitmap=all_bitmap)
+    routes = sched.bitmap.tolist()
     mi, mj, a_ptr, a_ind, a_val, b_ptr, b_ind, b_val = [
         None if t is None else t.tolist() for t in ops]
     if a_val is not None and ident is not None:
@@ -176,37 +249,33 @@ def _replay(ops, add=None, mul=None, ident=None, neutral=None,
         a_val = [cast(v) for v in a_val]
         b_val = [cast(v) for v in b_val]
     c, count, sides = [], 0, set()
-    for i, j in zip(mi, mj):
+    for i, j, bitmap in zip(mi, mj, routes):
         a0, a1, b0, b1 = a_ptr[i], a_ptr[i + 1], b_ptr[j], b_ptr[j + 1]
-        walk_a = not (b1 - b0 < a1 - a0)
-        sides.add(walk_a)
-        w, s = (a_ind, b_ind) if walk_a else (b_ind, a_ind)
-        w0, w1 = (a0, a1) if walk_a else (b0, b1)
-        s0, s1 = (b0, b1) if walk_a else (a0, a1)
-        lanes = [neutral] * 32
-        hits = 0
-        for lane in range(32):
-            lo = s0
-            for t in range(w0 + lane, w1, 32):
-                key = w[t]
-                lo = bisect.bisect_left(s, key, lo, s1)
-                if lo == s1:
-                    break
-                if s[lo] == key:
-                    count += 1
-                    hits += 1
-                    if ident is not None:
-                        ap, bp = (t, lo) if walk_a else (lo, t)
-                        lanes[lane] = add(lanes[lane],
-                                          mul(a_val[ap], b_val[bp]))
-        if ident is not None:
-            for off in (16, 8, 4, 2, 1):
-                lanes = [add(lanes[x], lanes[x ^ off]) for x in range(32)]
-            la, lb = a1 - a0, b1 - b0
-            miss = (hits < la if trace
-                    else hits < min(la, lb) or hits == 0)
-            c.append(add(lanes[0], ident) if minmax and miss else lanes[0])
-    return count, c, sides
+        if bitmap:
+            lanes = _bitmap_lanes(a_ind, a0, a1, b_ind, b0, b1)
+        else:
+            walk_a = not (b1 - b0 < a1 - a0)
+            sides.add(walk_a)
+            if walk_a:
+                lanes = _search_lanes(a0, a1, b_ind, b0, b1, a_ind)
+            else:
+                lanes = [[(s_, t) for t, s_ in hits] for hits in
+                         _search_lanes(b0, b1, a_ind, a0, a1, b_ind)]
+        hits = sum(len(h) for h in lanes)
+        count += hits
+        if ident is None:
+            continue
+        acc = [neutral] * 32
+        for lane, lane_hits in enumerate(lanes):
+            for ap, bp in lane_hits:
+                acc[lane] = add(acc[lane], mul(a_val[ap], b_val[bp]))
+        for off in (16, 8, 4, 2, 1):
+            acc = [add(acc[x], acc[x ^ off]) for x in range(32)]
+        la, lb = a1 - a0, b1 - b0
+        miss = (hits < la if trace
+                else hits < min(la, lb) or hits == 0)
+        c.append(add(acc[0], ident) if minmax and miss else acc[0])
+    return count, c, sides, set(routes)
 
 
 SEMIRING_DTYPES = [(name, dt) for name in mx.FOLD_SEMIRINGS
@@ -214,15 +283,41 @@ SEMIRING_DTYPES = [(name, dt) for name in mx.FOLD_SEMIRINGS
                    if not (name == "PlusDivides" and dt == np.int32)]
 
 
-def replay_ops(ops, name, dtype, trace=False):
-    """(count, values as a NumPy array of dtype, sides walked) of T1 and T2
-    on the operands `ops` (ops/spgemm.py `_operands` on CPU tensors)."""
+def replay_ops(ops, name, dtype, trace=False, budget=isch.SMEM_BUDGET,
+               all_bitmap=False):
+    """(count, values as a NumPy array of dtype, sides the search route
+    walked, routes taken) of T1 and T2 on the operands `ops`
+    (ops/spgemm.py `_operands` on CPU tensors), over the schedule of
+    bitmap budget `budget` bytes (and `all_bitmap`)."""
     add, mul, ident = _np_ops(name, dtype)
     minmax = _sr(name).add.name in ("MinimumMonoid", "MaximumMonoid")
     with np.errstate(all="ignore"):
-        count, c, sides = _replay(ops, add, mul, ident,
-                                  _np_neutral(name, dtype), minmax, trace)
-    return count, np.array(c, dtype=dtype), sides
+        count, c, sides, routes = _replay(ops, add, mul, ident,
+                                          _np_neutral(name, dtype), minmax,
+                                          trace, budget, all_bitmap)
+    return count, np.array(c, dtype=dtype), sides, routes
+
+
+# the schedules the replays walk, as (budget, all_bitmap): each edge on
+# the route its cost picks; every edge on the bitmap route; every edge on
+# the search route (no budget)
+ROUTINGS = ((isch.SMEM_BUDGET, False), (isch.SMEM_BUDGET, True), (0, False))
+
+
+def replay_both_routes(ops, name, dtype, trace=False):
+    """[(count, values)] of `replay_ops` under each of ROUTINGS, checking
+    that the second sends every edge down the bitmap route and the third
+    every edge down the search route, on both sides."""
+    out = []
+    for budget, all_bitmap in ROUTINGS:
+        count, got, sides, routes = replay_ops(ops, name, dtype, trace,
+                                               budget, all_bitmap)
+        if all_bitmap:
+            assert routes == {True}
+        elif not budget:
+            assert routes == {False} and sides == {True, False}
+        out.append((count, got))
+    return out
 
 
 @pytest.mark.parametrize("transpose_b", [False, True])
@@ -232,24 +327,25 @@ def test_replay_of_the_fold_equals_plain(name, dtype, transpose_b):
     count against the plain count and the wrapper (plain on the CPU)."""
     _, (A, B, M) = fuzz_matrices(5, dtype)
     ops = sp._operands(A, B, M, transpose_b)
-    count, got, sides = replay_ops(ops, name, dtype)
-    assert sides == {True, False}
     want = mx.masked_intersect_fold_plain(*ops, _sr(name))
     assert want.dtype == torch.from_numpy(np.zeros(0, dtype)).dtype
-    _close(got, want.numpy(), plus=name.startswith("Plus"))
     args = sp._count_args(ops)
-    assert count == mx.masked_intersect_count_plain(*args)
-    assert count == mx.masked_intersect_count(*args)
+    for count, got in replay_both_routes(ops, name, dtype):
+        _close(got, want.numpy(), plus=name.startswith("Plus"))
+        assert count == mx.masked_intersect_count_plain(*args)
+        assert count == mx.masked_intersect_count(*args)
 
 
 def test_replay_of_the_trace_equals_plain():
     T = tgb.Matrix.from_mtx(os.path.join(DATA, "chesapeake.mtx"),
                             device="cpu")
     ops = sp._diagonal_operands(T, T)
-    _, c, _ = replay_ops(ops, "PlusMultiplies", np.float32)
     want = sp.intersect_rows_reduce_plain(T, T, tgb.PlusMultipliesSemiring)
-    assert float(c.sum(dtype=np.float32)) == pytest.approx(float(want),
-                                                           rel=1e-5)
+    for budget, all_bitmap in ROUTINGS:
+        _, c, _, _ = replay_ops(ops, "PlusMultiplies", np.float32,
+                                budget=budget, all_bitmap=all_bitmap)
+        assert float(c.sum(dtype=np.float32)) == pytest.approx(
+            float(want), rel=1e-5)
 
 
 @pytest.mark.parametrize("transpose_b", [False, True])
@@ -261,10 +357,9 @@ def test_replay_on_nested_lists_equals_plain(name, dtype, transpose_b):
     _, (A, B, M) = fuzz_matrices(2, dtype, make=nested_coo,
                                  transpose_b=transpose_b)
     ops = sp._operands(A, B, M, transpose_b)
-    _, got, sides = replay_ops(ops, name, dtype)
-    assert sides == {True, False}
     want = mx.masked_intersect_fold_plain(*ops, _sr(name))
-    _close(got, want.numpy(), plus=name.startswith("Plus"))
+    for _, got in replay_both_routes(ops, name, dtype):
+        _close(got, want.numpy(), plus=name.startswith("Plus"))
 
 
 @pytest.mark.parametrize("name", ["MaximumMultiplies", "MinimumPlus",
@@ -275,10 +370,9 @@ def test_replay_of_the_trace_rule_equals_plain(name, dtype):
     lacks), replayed row by row against the plain version."""
     _, (A, B, _) = fuzz_matrices(3, dtype, make=nested_coo)
     ops = sp._diagonal_operands(A, B)
-    _, got, sides = replay_ops(ops, name, dtype, trace=True)
-    assert sides == {True, False}
     want = mx.masked_intersect_fold_plain(*ops, _sr(name), trace=True)
-    np.testing.assert_array_equal(got, want.numpy())
+    for _, got in replay_both_routes(ops, name, dtype, trace=True):
+        np.testing.assert_array_equal(got, want.numpy())
 
 
 def test_max_identity_joins_only_on_a_miss():
@@ -300,4 +394,10 @@ def test_max_identity_joins_only_on_a_miss():
                          transpose_b=True)
     # (0,0): {1,2} in full, max(-1, -4); (0,1): B's {2} in full, -10;
     # (1,0): {1,3} in full, max(-3, -12); (1,1): {2} misses, 0; (2,0): 0
-    assert c.val[: c.nvals].tolist() == [-1.0, -10.0, -3.0, 0.0, 0.0]
+    want = [-1.0, -10.0, -3.0, 0.0, 0.0]
+    assert c.val[: c.nvals].tolist() == want
+    ops = sp._operands(a, b, m, True)
+    for budget, all_bitmap in ROUTINGS:   # the kernel's walk, either route
+        _, got, _, _ = replay_ops(ops, "MaximumMultiplies", np.float32,
+                                  budget=budget, all_bitmap=all_bitmap)
+        assert got.tolist() == want
