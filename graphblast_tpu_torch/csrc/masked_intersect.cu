@@ -19,7 +19,7 @@
 //
 // What bounds it on an H100: not the bytes (the inputs read once take
 // microseconds) but the L1: a binary search makes dependent, divergent
-// loads, and a walk by search alone ran at 3.5-5.4 probed 32-byte sectors
+// loads, and a walk by search alone ran at up to 5.4 probed 32-byte sectors
 // a clock on every SM (PERF.md), while its hub edges, thousands of ids on
 // one warp each, held a tail. So the design removes probes. Each launch
 // reads an intersection schedule (ops/kernels/intersect_schedule.py),
