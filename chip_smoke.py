@@ -141,14 +141,34 @@ Phases, each of which fails the run on error (each prints its seconds):
      mxm (PlusMultiplies, MinimumPlus) and the trace (MinimumPlus) send
      every edge down the search route, one launch each, equal to their
      plain versions;
-  18. cc() at n = 2^24 on the port's grid_matrix(4096) (67 M edges), which
+  18. push BFS: PUSHONLY BFS (BFS_TUNED's structure-only MERGE push over
+     the CSR) at rmat18 from the 8 hubs: levels equal to the golden, K6
+     launched 8 times an iteration (2 degree gathers, 5 in the expansion,
+     1 of the mask; all at ascending indices) and no other kernel; ms/run
+     (median and tail) and GTEPS beside phase 3's pull; the stepped trace
+     of the first hub (each iteration's frontier, degree total, workspace
+     tier, host reads counted by torch.cuda.set_sync_debug_mode and ms);
+     one push iteration at the hub's level-2 frontier split into the
+     expansion, the sort, the fill and the compaction, each timed alone
+     by CUDA events, beside mxv_dual whole; and K6 at the push's largest
+     gather (the adjacency ids at the expansion's edge ids) torch.equal
+     to its plain version, to a second launch and to torch.index_select,
+     timed beside both with its bound (the `gather_push` entry);
+  19. push SSSP: PUSHONLY SSSP at rmat18 from the 8 hubs: distances equal
+     to the golden, K6 launched 11 times an iteration (the expansion's 7
+     with the two value gathers, 1 Min fill, 1 filter) and no K4; ms/run
+     and GTEPS beside phase 7's pull;
+  20. grid_matrix(512) (n = 262,144, diameter 1,022): BFS from vertex 0,
+     PUSHONLY (8 K6 an iteration) and PULLONLY (one K1 an iteration),
+     levels equal to the golden in both; ms/run and ms an iteration;
+  21. cc() at n = 2^24 on the port's grid_matrix(4096) (67 M edges), which
      takes the plan-less route: labels all 0 and verify_cc, one S launch
      an iteration over the CSR's cached schedule and no K4; the graph's
      build time and ms/run;
-  19. value pull in K3's regime: a seeded uniform random CSR built on the
+  22. value pull in K3's regime: a seeded uniform random CSR built on the
      card, 2^24 rows and columns, 8 edges a row, so that x (64 MB) exceeds
      the 50 MB L2; the same checks and timings as phase 4;
-  20. prints {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
+  23. prints {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
 
 Every check of results, launch counts and schedules raises. A
 torch.profiler reading that cannot be trusted (no device time, or more
@@ -891,7 +911,7 @@ def phase_sssp(A, sources, k4_ms: float, reps: int = 10):
     print(f"[sssp] K4 time per run ({iters[0]} launches x {k4_ms:.6f} ms, "
           f"min_plus above) = {k4:.6f} ms, {100 * k4 / (per_s * 1e3):.2f}% "
           "of the median run")
-    return launches
+    return launches, goldens, per_s
 
 
 def phase_cc(A, k4_ms: float, reps: int = 40):
@@ -1978,6 +1998,313 @@ def phase_tc_past_budget(n: int = 1 << 21, m: int = 3_000_000,
           f"every edge on the search route, one launch each")
 
 
+# ---------------------------------------------------------------- the push
+BFS_PUSH_K6 = 8      # 2 degree gathers, 5 in the expansion, 1 of the mask
+SSSP_PUSH_K6 = 11    # 2, 5 + 2 value gathers, 1 Min fill, 1 filter
+
+
+def _count_syncs(fn):
+    """(fn's result, the synchronizing CUDA operations it made, as the
+    file:line that made each): each host read of a device value waits for
+    the stream, and torch.cuda.set_sync_debug_mode("warn") warns at each
+    such wait."""
+    import warnings
+
+    import torch
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, [f"{w.filename.rsplit('/', 1)[-1]}:{w.lineno}"
+                 for w in caught if "synchroniz" in str(w.message)]
+
+
+def _push_trace(A, source: int, desc):
+    """Stepped PUSHONLY BFS from `source`, one iteration at a time: each
+    iteration's frontier count, degree total, the tier it runs in, its
+    host reads (the push's and the loop's succ) and its host ms."""
+    import torch
+
+    import graphblast_tpu_torch as gt
+    from graphblast_tpu_torch.algorithms.bfs import (_bfs_step,
+                                                     _initial_frontier)
+    from graphblast_tpu_torch.algorithms.common import edge_cap_for
+    from graphblast_tpu_torch.ops.dispatch import (_frontier_degree_total,
+                                                   pick_tier, push_tiers)
+
+    tiers = push_tiers(edge_cap_for(A, desc), desc.push_tiers)
+    v = torch.zeros(A.nrows, device="cuda")
+    f = _initial_frontier(A.nrows, source, "cuda")
+    kw = dict(struconly=desc.structure_only, switchpoint=desc.switchpoint,
+              mode=desc.mxv_mode, edge_cap=edge_cap_for(A, desc),
+              sort_push=desc.sort_push, tiers=desc.push_tiers)
+    rows, it, succ = [], 1, 1
+    while succ > 0:
+        # read apart from the iteration, which reads them itself
+        deg_total = int(_frontier_degree_total(A.row_ptr, f, 0.0))
+        nv = int(f.snvals)
+        cap = pick_tier(tiers, deg_total, nv)
+
+        def step():
+            t0 = time.perf_counter()
+            out = _bfs_step(A, v, f, it, **kw)
+            return out, int(out[2]), (time.perf_counter() - t0) * 1e3
+
+        ((v, f, _, _), succ, ms), reads = _count_syncs(step)
+        rows.append(dict(it=it, snvals=nv, deg_total=deg_total, tier=cap,
+                         host_reads=len(reads), read_at=sorted(set(reads)),
+                         ms=ms))
+        it += 1
+    return rows, tiers
+
+
+def _push_split(A, golden_hub, reps: int = 50):
+    """One BFS push iteration at the hub's level-2 frontier (vxm over the
+    CSR, the visited mask complemented), by its steps, each timed alone by
+    CUDA events: the expansion, the destination sort, the fill and the
+    compaction (the mask gather included); and mxv_dual whole. Returns the
+    step ms, the workspace and the expansion's edge_idx (the largest
+    gather's indices)."""
+    import torch
+
+    import graphblast_tpu_torch as gt
+    from graphblast_tpu_torch.ops import spmspv
+    from graphblast_tpu_torch.ops.dispatch import (
+        DualFrontier, _frontier_degree_total, mxv_dual, pick_tier,
+        push_tiers)
+    from graphblast_tpu_torch.ops.gather_dispatch import take
+    from graphblast_tpu_torch.ops.spmv import mask_pass
+
+    n = A.nrows
+    sr = gt.LogicalOrAndSemiring
+    f = DualFrontier.from_dense(torch.from_numpy(
+        (golden_hub == 2).astype("float32")).cuda(), 0.0)
+    v = torch.from_numpy(((golden_hub >= 1) & (golden_hub <= 2)).astype(
+        "float32")).cuda()
+    deg_total = int(_frontier_degree_total(A.row_ptr, f, 0.0))
+    tiers = push_tiers(A.nnz_pad)
+    cap = pick_tier(tiers, deg_total, int(f.snvals))
+    fs = f.sind[:cap] if cap < tiers[-1] else f.sind
+    ptr, ind = A.row_ptr, A.col_ind
+
+    def expansion():
+        return spmspv.expand_frontier(ptr, ind, None, fs, None, f.snvals,
+                                      cap, True, sr, torch.float32)
+
+    dst, mv, valid, _ = expansion()
+    tgt = torch.where(valid, dst, n)
+
+    def sort():
+        return spmspv.sort_segments(tgt, mv, sr, True)
+
+    keys, vals, heads = sort()
+
+    def fill():
+        return spmspv.fill_segments(keys, vals, heads, sr, torch.float32)
+
+    seg_val = fill()
+
+    def compaction():
+        key_ids = keys.clamp(max=n - 1)
+        keep = (heads & (keys < n) & (seg_val != 0)
+                & mask_pass(take(v, key_ids, sorted=True), True))
+        return spmspv.compact_heads(keys, seg_val, keep, n, 0.0, False)
+
+    def whole():
+        return mxv_dual(A, f, sr, 0.0, transpose=True, mask_dense=v,
+                        mask_scmp=True, structure_only=True,
+                        mode=gt.Direction.PUSHONLY)
+
+    want = whole()[0]
+    got = compaction()
+    if not (torch.equal(got[0], want.dense)
+            and torch.equal(got[1], want.sind)):
+        raise AssertionError("the push's steps, run one by one, differ "
+                             "from mxv_dual")
+    split = {name: _event_ms(fn, reps) for name, fn in (
+        ("expansion", expansion), ("sort", sort), ("fill", fill),
+        ("compaction", compaction), ("mxv_dual", whole))}
+    edge_idx = spmspv.expand_lanes(ptr, ind.shape[0], fs, f.snvals, cap)[1]
+    return split, dict(frontier=int(f.snvals), deg_total=deg_total, cap=cap,
+                       new=int(want.snvals)), edge_idx
+
+
+def _gather_push(A, edge_idx):
+    """K6 at the push's largest gather, the adjacency ids `ind` at the
+    expansion's edge_idx: torch.equal to its plain version, to a second
+    launch and to torch.index_select; times and bound."""
+    import torch
+
+    from graphblast_tpu_torch.ops.kernels.gather import (gather_1d,
+                                                         gather_1d_plain)
+
+    table = A.col_ind
+    m, nt = edge_idx.shape[0], table.shape[0]
+    y = gather_1d(table, edge_idx, sorted=True)
+    y_again = gather_1d(table, edge_idx, sorted=True)
+    y_plain = gather_1d_plain(table, edge_idx)
+    y_lib = torch.index_select(table, 0, edge_idx)
+    torch.cuda.synchronize()
+    err = float((y.double() - y_plain.double()).abs().max())
+    if not torch.equal(y, y_plain):
+        raise AssertionError(f"K6 at the push's gather != plain: {err}")
+    if not (torch.equal(y, y_again) and torch.equal(y, y_lib)):
+        raise AssertionError("K6 at the push's gather differs from a second "
+                             "launch or from torch.index_select")
+    bound_bytes = 4 * (2 * m + min(nt, m))
+    bound_ms = bound_bytes / HBM_BYTES_PER_S * 1e3
+    ms = _event_ms(lambda: gather_1d(table, edge_idx), 200)
+    plain_ms = _event_ms(lambda: gather_1d_plain(table, edge_idx), 50)
+    lib_ms = _event_ms(lambda: torch.index_select(table, 0, edge_idx), 200)
+    print(f"[K6 push] ind ({nt} x int32) at edge_idx (m={m}, ascending): "
+          f"equal to plain (max diff {err}), to a second launch and to "
+          f"torch.index_select; kernel {ms:.6f} ms, plain {plain_ms:.6f} "
+          f"ms, torch.index_select {lib_ms:.6f} ms, bound {bound_bytes} B "
+          f"-> {bound_ms:.6f} ms at 3.35 TB/s ({100 * bound_ms / ms:.1f}% "
+          "of it)")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, library_ms=lib_ms)
+
+
+def _check_levels(path, levels, goldens, sources):
+    import numpy as np
+
+    for s, v, want in zip(sources, levels, goldens):
+        if v.shape != want.shape or not np.isfinite(v).all():
+            raise AssertionError(f"{path} from {s}: bad levels array")
+        bad = int((v != want).sum())
+        if bad:
+            raise AssertionError(f"{path} from {s}: {bad} levels != golden")
+
+
+def phase_push_bfs(A, sources, goldens, reps: int = 10):
+    """PUSHONLY BFS at rmat18 through the entry point from the hub sources:
+    levels equal to the golden, K6 BFS_PUSH_K6 times an iteration (all at
+    ascending indices) and no other kernel; ms/run and GTEPS; the stepped
+    trace of the first source (degree total, tier, host reads); one push
+    iteration's split at the hub's level-2 frontier; K6 at the push's
+    largest gather."""
+    import numpy as np
+
+    import graphblast_tpu_torch as gt
+
+    desc = gt.BFS_TUNED.replace(mxv_mode=gt.Direction.PUSHONLY)
+    bfs = gt.algorithms.bfs
+    _reset_counts()
+    levels = [bfs(A, int(s), desc).to_numpy() for s in sources]
+    iters = [int(v.max()) for v in levels]
+    counts = _expect_launches("push BFS",
+                              {"gather_boundary": BFS_PUSH_K6 * sum(iters)})
+    _check_levels("push BFS", levels, goldens, sources)
+    print(f"[push bfs] {len(sources)} sources: levels == NumPy golden; "
+          f"iterations {iters}; launches {counts} ({BFS_PUSH_K6} K6 an "
+          "iteration)")
+    srcs = iter([int(s) for s in sources] * reps)
+    per_s, tail = _timed_runs(lambda: bfs(A, next(srcs), desc),
+                              len(sources) * reps)
+    deg = np.diff(A.host_csr()[0])
+    reached_edges = int(deg[levels[0] != 0].sum())
+    print(f"[push bfs] push-only rmat18: {per_s * 1e3:.6f} ms/run median, "
+          f"{tail}, {len(sources) * reps} runs; "
+          f"{reached_edges / per_s / 1e9:.6f} GTEPS at the median; "
+          f"{iters[0]} iterations")
+    rows, tiers = _push_trace(A, int(sources[0]), desc)
+    print(f"[push bfs] stepped trace from {int(sources[0])} (tiers {tiers}): "
+          + "; ".join(f"it {r['it']}: frontier {r['snvals']}, deg_total "
+                      f"{r['deg_total']}, tier {r['tier']}, host reads "
+                      f"{r['host_reads']} ({', '.join(r['read_at'])}), "
+                      f"{r['ms']:.6f} ms" for r in rows))
+    split, at, edge_idx = _push_split(A, goldens[0])
+    print(f"[push bfs] one push iteration at the hub's level-2 frontier "
+          f"({at['frontier']} vertices, deg_total {at['deg_total']}, tier "
+          f"{at['cap']}, {at['new']} new): "
+          + ", ".join(f"{k} {v:.6f} ms" for k, v in split.items())
+          + " (each step alone, CUDA events)")
+    return counts["gather_boundary"], per_s, _gather_push(A, edge_idx)
+
+
+def phase_push_sssp(A, sources, goldens, reps: int = 10):
+    """PUSHONLY SSSP at rmat18 through the entry point from the hub
+    sources: distances equal to the golden, K6 SSSP_PUSH_K6 times an
+    iteration and no K4 or other kernel; ms/run and GTEPS."""
+    import numpy as np
+
+    import graphblast_tpu_torch as gt
+    from graphblast_tpu_torch.algorithms.sssp import _sssp_fused
+    from graphblast_tpu_torch.ops.kernels.monoid_pull import FLT_MAX
+
+    desc = gt.DEFAULT.replace(mxv_mode=gt.Direction.PUSHONLY)
+    _reset_counts()
+    dists = [gt.algorithms.sssp(A, int(s), desc).to_numpy() for s in sources]
+    counts = _read_counts()
+    iters = [_sssp_fused(A, int(s), None, switchpoint=desc.switchpoint,
+                         mode=desc.mxv_mode, max_niter=desc.max_niter)[1]
+             for s in sources]
+    counts = _expect_launches(
+        "push SSSP", {"gather_boundary": SSSP_PUSH_K6 * sum(iters)}, counts)
+    for s, d, want in zip(sources, dists, goldens):
+        if d.shape != (A.nrows,) or not np.isfinite(d).all():
+            raise AssertionError(f"push SSSP from {s}: bad distance array")
+        bad = int((d != want).sum())
+        if bad:
+            raise AssertionError(f"push SSSP from {s}: {bad} distances != "
+                                 "golden")
+    print(f"[push sssp] {len(sources)} sources: distances == NumPy golden; "
+          f"iterations {iters}; launches {counts} ({SSSP_PUSH_K6} K6 an "
+          "iteration, no K4)")
+    srcs = iter([int(s) for s in sources] * reps)
+    per_s, tail = _timed_runs(
+        lambda: gt.algorithms.sssp(A, next(srcs), desc),
+        len(sources) * reps)
+    deg = np.diff(A.host_csr()[0])
+    reached_edges = int(deg[dists[0] < FLT_MAX].sum())
+    print(f"[push sssp] push-only rmat18: {per_s * 1e3:.6f} ms/run median, "
+          f"{tail}, {len(sources) * reps} runs; "
+          f"{reached_edges / per_s / 1e9:.6f} GTEPS at the median; "
+          f"{iters[0]} iterations")
+    return per_s
+
+
+def phase_push_grid(side: int = 512, reps: int = 3):
+    """BFS from vertex 0 on grid_matrix(side) (diameter 2·(side − 1)),
+    PUSHONLY and PULLONLY: levels equal to the golden in both, BFS_PUSH_K6
+    K6 launches an iteration for push and one K1 launch an iteration for
+    pull; ms/run and ms an iteration of each."""
+    import graphblast_tpu_torch as gt
+    from graphblast_tpu_torch.algorithms.reference import bfs_cpu
+    from graphblast_tpu_torch.io.rmat import grid_matrix
+
+    t0 = time.perf_counter()
+    G = grid_matrix(side, device="cuda")
+    golden = bfs_cpu(G, 0)
+    iters = int(golden.max())
+    print(f"[grid] grid_matrix({side}): n={G.nrows} nnz={G.nvals}, built "
+          f"with its golden in {time.perf_counter() - t0:.2f} s; "
+          f"{iters} iterations from vertex 0")
+    out = {}
+    for name, mode, expected in (
+            ("push", gt.Direction.PUSHONLY,
+             {"gather_boundary": BFS_PUSH_K6 * iters}),
+            ("pull", gt.Direction.PULLONLY, {"bitmap_pull": iters})):
+        desc = gt.BFS_TUNED.replace(mxv_mode=mode)
+        _reset_counts()
+        levels = gt.algorithms.bfs(G, 0, desc).to_numpy()
+        counts = _expect_launches(f"grid BFS {name}", expected)
+        _check_levels(f"grid BFS {name}", [levels], [golden], [0])
+        per_s, tail = _timed_runs(lambda: gt.algorithms.bfs(G, 0, desc),
+                                  reps)
+        out[name] = per_s
+        print(f"[grid] {name}-only: levels == golden; launches {counts}; "
+              f"{per_s * 1e3:.6f} ms/run median, {tail}, {reps} runs; "
+              f"{per_s * 1e3 / iters:.6f} ms an iteration")
+    return out
+
+
 def phase_cc_2_24(reps: int = 5):
     """cc() on the port's grid_matrix(4096): n = 2^24, so cc takes the
     plan-less route. Labels all 0 (the grid is connected) and verify_cc,
@@ -2122,7 +2449,8 @@ def main() -> int:
     k4 = phase_monoid_pull(A)
     print(f"[phase] K4 vs plain at rmat18 {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
-    sssp_launches = phase_sssp(A, sources, k4["min_plus"]["ms"])
+    sssp_launches, sssp_goldens, sssp_per_s = phase_sssp(
+        A, sources, k4["min_plus"]["ms"])
     print(f"[phase] SSSP {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
     cc_launches, cc_golden, cc_per_s = phase_cc(
@@ -2156,6 +2484,20 @@ def main() -> int:
     phase_tc_past_budget()
     print(f"[phase] TC past the shared-memory budget "
           f"{time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    push_launches, push_per_s, gather_push = phase_push_bfs(A, sources,
+                                                            goldens)
+    print(f"[push bfs] median ms/run push-only {push_per_s * 1e3:.6f}, "
+          f"pull-only (phase 3) {per_s * 1e3:.6f}")
+    print(f"[phase] push BFS {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    push_sssp_per_s = phase_push_sssp(A, sources, sssp_goldens)
+    print(f"[push sssp] median ms/run push-only {push_sssp_per_s * 1e3:.6f},"
+          f" pull-only (phase 7) {sssp_per_s * 1e3:.6f}")
+    print(f"[phase] push SSSP {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    phase_push_grid()
+    print(f"[phase] grid BFS push and pull {time.perf_counter() - t0:.2f} s")
     del A
     t0 = time.perf_counter()
     phase_cc_2_24()
@@ -2227,6 +2569,13 @@ def main() -> int:
             "source": "graphblast_tpu_torch/csrc/gather.cu",
             "replaces": "graphblast_tpu/ops/pallas/gather.py:45",
             "launches": launches, "bound_by": "bytes", **k6[name]})
+    # K6 at the push's largest gather (ind at the expansion's edge ids);
+    # launches: every K6 launch of the push BFS, all at ascending indices
+    kernels.append({
+        "name": "gather_push", "route": "cuda",
+        "source": "graphblast_tpu_torch/csrc/gather.cu",
+        "replaces": "graphblast_tpu/ops/pallas/gather.py:45",
+        "launches": push_launches, "bound_by": "bytes", **gather_push})
     # T1 and T2: one kernel file in place of plain jnp, no Pallas
     for name, replaces, launches, row in (
             ("masked_intersect_count", "graphblast_tpu/ops/spgemm.py:159",

@@ -7,12 +7,15 @@ Per iteration, as in the reference:
     succ = reduce(+, f2)                            # convergence scalar
 
 Both modes are a Python loop over device work with one host read of `succ`
-per iteration. The JAX package's fused mode runs the loop on the device with
+per iteration (a push iteration makes one more, which picks its
+workspace). The JAX package's fused mode runs the loop on the device with
 no host sync; `mode="fused"` here keeps its semantics (it starts at 1, the
-loop runs while succ > 0 and it <= max_niter). As in the JAX package, the
-fused mode pulls over the bitmap plan (K1) and the stepped mode with no
-plan, through `spmv_pull` (K5 and K6); the stepped mode also prints and
-times each iteration.
+loop runs while succ > 0 and it <= max_niter). desc.mxv_mode PULLONLY and
+PUSHONLY are ported; PUSHPULL, the default of BFS_TUNED, is ROADMAP queue 1
+item 5b and raises. As in the JAX package, the fused pull goes over the
+bitmap plan (K1) and the stepped pull with no plan, through `spmv_pull`
+(K5 and K6); the push (`ops/spmspv.py`) gathers through K6 in both modes.
+The stepped mode also prints and times each iteration.
 """
 from __future__ import annotations
 
@@ -23,32 +26,41 @@ from ..matrix import Matrix
 from ..ops.dispatch import DualFrontier, mxv_dual
 from ..ops.kernels.bitmap_pull import plan_for_bitmap
 from ..semiring import LogicalOrAndSemiring
-from ..types import INDEX_DTYPE
+from ..types import INDEX_DTYPE, Direction
 from ..vector import Vector
-from .common import (TightTimer, dense_result, print_dirinfo,
+from .common import (TightTimer, dense_result, edge_cap_for, print_dirinfo,
                      print_iter_row)
 
 
-def _initial_frontier(n: int, source: int, device,
-                      dtype=torch.float32) -> DualFrontier:
+def _initial_frontier(n: int, source: int, device, dtype=torch.float32,
+                      with_values: bool = False) -> DualFrontier:
+    """The source alone. The sparse image has capacity n, as JAX keeps it
+    for PUSHONLY; `with_values` gives it values (1 at the source), which a
+    push that is not structure-only multiplies."""
     dense = torch.zeros(n, dtype=dtype, device=device)
     dense[source] = 1
     sind = torch.full((n,), n, dtype=INDEX_DTYPE, device=device)
     sind[0] = source
-    return DualFrontier(n, dense, sind, None,
+    sval = None
+    if with_values:
+        sval = torch.zeros(n, dtype=dtype, device=device)
+        sval[0] = 1
+    return DualFrontier(n, dense, sind, sval,
                         torch.tensor(1, dtype=INDEX_DTYPE, device=device),
                         torch.tensor(1.0 / n, device=device),
                         torch.tensor(True, device=device))
 
 
 def _bfs_step(A: Matrix, v: torch.Tensor, f: DualFrontier, it: int, *,
-              struconly, switchpoint, mode, plan=None):
+              struconly, switchpoint, mode, edge_cap=None, sort_push=True,
+              tiers=(64, 8), plan=None):
     """One BFS iteration: label + masked expand."""
     v = v.masked_fill(f.dense != 0, float(it))
     f2, used_push = mxv_dual(
         A, f, LogicalOrAndSemiring, identity=0.0, transpose=True,
         mask_dense=v, mask_scmp=True, structure_only=struconly,
-        switchpoint=switchpoint, mode=mode, pull_plan=plan)
+        edge_cap=edge_cap, sort_push=sort_push, switchpoint=switchpoint,
+        mode=mode, tier_divisors=tiers, pull_plan=plan)
     succ = f2.snvals  # struconly reduce == nvals (reduce.hpp:71-75)
     return v, f2, succ, used_push
 
@@ -56,8 +68,9 @@ def _bfs_step(A: Matrix, v: torch.Tensor, f: DualFrontier, it: int, *,
 def bfs_pull_plan(A: Matrix, desc: Descriptor = BFS_TUNED):
     """Bitmap plan for BFS's vxm pull (CSC). Counting frontier neighbours
     is the or-pull only when traversal ignores edge weights, so None unless
-    the descriptor is structure-only. Built on the CPU and CUDA alike."""
-    if not desc.structure_only:
+    the descriptor is structure-only, and None when BFS pushes. Built on
+    the CPU and CUDA alike."""
+    if not desc.structure_only or desc.mxv_mode == Direction.PUSHONLY:
         return None
     return plan_for_bitmap(A, transpose=True)
 
@@ -66,26 +79,29 @@ def bfs(A: Matrix, source: int, desc: Descriptor = BFS_TUNED,
         mode: str = "fused") -> Vector:
     """BFS levels: source = 1, unreached = 0, float32 (reference:
     bfs.hpp:14-89; levels per SimpleReferenceBfs, test_bfs.hpp:19-22).
-    Runs on A's device. Only desc.mxv_mode == PULLONLY is ported. A
-    descriptor that is not structure-only pulls with no plan in both
-    modes."""
+    Runs on A's device. desc.mxv_mode PULLONLY and PUSHONLY are ported;
+    PUSHPULL raises NotImplementedError. A descriptor that is not
+    structure-only pulls with no plan in both modes, and pushes the
+    frontier's values."""
     if mode not in ("fused", "stepped"):
         raise ValueError(f"mode must be 'fused' or 'stepped', not {mode!r}")
     kw = dict(struconly=desc.structure_only, switchpoint=desc.switchpoint,
-              mode=desc.mxv_mode)
+              mode=desc.mxv_mode, edge_cap=edge_cap_for(A, desc),
+              sort_push=desc.sort_push, tiers=desc.push_tiers)
     n = A.nrows
     stepped = mode == "stepped"
     plan = None if stepped else bfs_pull_plan(A, desc)
     timer = TightTimer()
     v = torch.zeros(n, dtype=torch.float32, device=A.device)
-    f = _initial_frontier(n, source, A.device)
+    f = _initial_frontier(n, source, A.device,
+                          with_values=not desc.structure_only)
     unvisited = n
     prev_push = None
     it, succ = 1, 1
     while succ > 0 and it <= desc.max_niter:
         timer.start()
         v, f, succ_t, used_push = _bfs_step(A, v, f, it, plan=plan, **kw)
-        succ = int(succ_t)          # the one host sync of the iteration
+        succ = int(succ_t)          # the loop's host read
         if stepped:
             ms = timer.stop(v, f.dense)
             unvisited -= succ

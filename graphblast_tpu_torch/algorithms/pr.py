@@ -102,7 +102,8 @@ def pr(A: Matrix, alpha: float = 0.85, eps: float = 1e-6,
     if plan is None:
         raise NotImplementedError(
             "PageRank pulls over A's CSC and CSR; a one-sided matrix needs "
-            "push, which is not ported yet (ROADMAP queue 1 item 5)")
+            "pr's push route, which is not ported yet (ROADMAP queue 1 item "
+            "5b)")
     p, _, _ = _pr_fused(A, plan, alpha=alpha, eps=eps,
                         max_niter=desc.max_niter,
                         timing=desc.timing if mode == "stepped" else 0)

@@ -77,6 +77,7 @@ class Descriptor:
 DEFAULT = Descriptor()
 
 # Tuned BFS flags (reference: run_bfs.sh:8-24). mxv_mode stays PUSHPULL as in
-# the JAX package; this package runs BFS pull-only until push is ported, so
-# callers pass BFS_TUNED.replace(mxv_mode=Direction.PULLONLY).
+# the JAX package. This package runs PULLONLY and PUSHONLY; PUSHPULL waits for
+# ROADMAP queue 1 item 5b, so callers pass BFS_TUNED.replace(mxv_mode=...)
+# with one of the two.
 BFS_TUNED = Descriptor(structure_only=True, earlyexit=True, opreuse=True)

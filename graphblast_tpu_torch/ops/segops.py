@@ -16,9 +16,10 @@ LogicalOr (the cumsum differences) and with Multiplies, LogicalAnd,
 Greater, CustomLess and NotEqualTo (the Hillis–Steele scan), and with
 min/max on other dtypes.
 
-`segment_reduce_sorted` (push) and `reduce_all` (the operations surface)
-wait for the slices that need them, and so does `segment_reduce_csr`'s
-`edge_row_ids`, which only the sorted pull (`spmv_pull_sorted`) passes.
+`segment_reduce_sorted` reduces by sorted segment ids, as the push's
+reduce-by-key does. `reduce_all` (the operations surface) waits for the
+slice that needs it, and so does `segment_reduce_csr`'s `edge_row_ids`,
+which only the sorted pull (`spmv_pull_sorted`) passes.
 """
 from __future__ import annotations
 
@@ -100,3 +101,23 @@ def segment_reduce_csr(edge_vals: torch.Tensor, row_ptr: torch.Tensor,
                sorted=True)
     return torch.where(ends > starts, out,
                        monoid.identity(out.dtype).to(out.device))
+
+
+def segment_reduce_sorted(values: torch.Tensor, seg_ids: torch.Tensor,
+                          monoid: Monoid, num_segments: int) -> torch.Tensor:
+    """⊕ of `values` by *sorted* segment ids into (num_segments,), the
+    identity where no id falls (reference analog: mgpu ReduceByKey,
+    spmspv_inner.hpp:302). Ids at or past num_segments are padding and
+    dropped, as JAX's mode="drop" drops them: they write a spare slot."""
+    ident = monoid.identity(values.dtype).item()
+    new_seg = seg_ids[1:] != seg_ids[:-1]
+    one = torch.ones(1, dtype=torch.bool, device=seg_ids.device)
+    scanned = segmented_scan(values, torch.cat([one, new_seg]), monoid)
+    # each run's inclusive scan ends at its tail: one write per segment
+    tails = torch.cat([new_seg, one])
+    tgt = torch.where(tails & (seg_ids >= 0) & (seg_ids < num_segments),
+                      seg_ids, num_segments)
+    out = torch.full((num_segments + 1,), ident, dtype=values.dtype,
+                     device=values.device)
+    out[tgt.long()] = scanned
+    return out[:num_segments]

@@ -130,20 +130,24 @@ def test_bfs_max_niter_stops_the_loop(graphs):
 
 
 def test_push_modes_raise(graphs):
-    """Push is not ported: PUSHPULL (BFS_TUNED's default) and PUSHONLY raise
-    and name the queue item; nothing falls back to another path."""
+    """PUSHPULL (BFS_TUNED's default) is not ported: it raises and names
+    its queue item, and nothing falls back to another path. PUSHONLY runs
+    and gives the golden levels in both modes."""
     _, T = graphs["chesapeake"]
-    for mode in (tgb.Direction.PUSHPULL, tgb.Direction.PUSHONLY):
-        with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-            bfs(T, 0, tgb.BFS_TUNED.replace(mxv_mode=mode))
+    with pytest.raises(NotImplementedError, match="queue 1 item 5b"):
+        bfs(T, 0, tgb.BFS_TUNED)
+    push = tgb.BFS_TUNED.replace(mxv_mode=tgb.Direction.PUSHONLY)
+    for mode in ("fused", "stepped"):
+        np.testing.assert_array_equal(bfs(T, 0, push, mode=mode).to_numpy(),
+                                      bfs_cpu(T, 0))
     with pytest.raises(ValueError):
         bfs(T, 0, PULL, mode="async")
 
 
 def test_pull_without_a_plan_matches_the_plan_and_push_raises(graphs):
-    """The plan-less pull no longer raises: with no plan, mxv_dual runs
-    spmv_pull and gives the bitmap plan's frontier, and a BFS that is not
-    structure-only (no plan) runs; only push still raises."""
+    """With no plan, mxv_dual runs spmv_pull and gives the bitmap plan's
+    frontier, and a BFS that is not structure-only (no plan) runs. The
+    PUSHONLY push gives the same frontier; only PUSHPULL raises."""
     from graphblast_tpu_torch.algorithms.bfs import _initial_frontier
     from graphblast_tpu_torch.ops.dispatch import mxv_dual
     from graphblast_tpu_torch.ops.kernels.bitmap_pull import plan_for_bitmap
@@ -159,9 +163,13 @@ def test_pull_without_a_plan_matches_the_plan_and_push_raises(graphs):
     np.testing.assert_array_equal(
         bfs(T, 0, PULL.replace(structure_only=False)).to_numpy(),
         bfs_cpu(T, 0))
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
+    f3, used_push = mxv_dual(T, f, tgb.LogicalOrAndSemiring, 0.0,
+                             **dict(kw, mode=tgb.Direction.PUSHONLY))
+    assert used_push and torch.equal(f3.dense, f1.dense)
+    assert int(f3.snvals) == int(f1.snvals)
+    with pytest.raises(NotImplementedError, match="queue 1 item 5b"):
         mxv_dual(T, f, tgb.LogicalOrAndSemiring, 0.0,
-                 **dict(kw, mode=tgb.Direction.PUSHONLY))
+                 **dict(kw, mode=tgb.Direction.PUSHPULL))
 
 
 def test_rmat_edges_match_jax():

@@ -858,3 +858,115 @@ def test_masked_fold_refuses_on_the_card(cuda):
     i_ops = ops[:4] + (ops[4].int(),) + ops[5:]
     with pytest.raises(NotImplementedError):
         mx.masked_intersect_fold(*i_ops, tgb.semiring.PlusDividesSemiring)
+
+
+# ------------------------------------------------------------- the push
+def _hand_kernel_launches():
+    """Launch counts of every hand kernel but the gather K6."""
+    return (bp.spmv_bitmap_pull.launches, vp.spmv_value_pull.launches,
+            mp.spmv_monoid.launches, ko.orpull_bit_csum.launches,
+            mm.spmv_minmax_pull.launches, mx.masked_intersect_count.launches,
+            mx.masked_intersect_fold.launches)
+
+
+PUSH_CARD_CASES = [
+    # (semiring, structure_only, sort_push, masked, values)
+    ("LogicalOrAndSemiring", True, True, True, "ones"),
+    ("LogicalOrAndSemiring", True, False, True, "ones"),
+    ("MinimumPlusSemiring", False, True, False, "uniform"),
+    ("MinimumPlusSemiring", False, False, False, "uniform"),
+    ("MaximumMultipliesSemiring", False, True, True, "uniform"),
+    ("PlusMultipliesSemiring", False, True, False, "normal"),
+    ("PlusMultipliesSemiring", False, False, False, "normal"),
+    ("MultipliesMultipliesSemiring", False, True, False, "pow2"),
+]
+
+
+def _push_on(device, sr_name, struc, sort_push, masked, values, transpose):
+    """mxv_dual PUSHONLY at RMAT scale 12 on `device`, from a seeded 3%
+    frontier: (dense, sind, sval, snvals) on the host."""
+    from graphblast_tpu_torch.io.rmat import rmat_matrix
+    from graphblast_tpu_torch.ops.dispatch import DualFrontier, mxv_dual
+
+    A = rmat_matrix(12, 16, seed=42, device=device)
+    rng = np.random.default_rng(12)
+    sr = getattr(tgb.semiring, sr_name)
+    ident = float(sr.identity(torch.float32))
+    n = A.nrows
+    pick = rng.random(n) < 0.03
+    x = np.full(n, ident, np.float32)
+    x[pick] = {"ones": np.ones, "uniform": lambda k: rng.random(k) * 3 + 0.5,
+               "normal": rng.standard_normal,
+               "pow2": lambda k: rng.choice([0.5, 1.0, 2.0, -1.0], k)}[
+                   values](int(pick.sum()))
+    mask = torch.from_numpy((rng.random(n) < 0.5).astype(np.float32))
+    f = DualFrontier.from_dense(torch.from_numpy(x).to(device), ident)
+    f2, used_push = mxv_dual(
+        A, f, sr, ident, transpose=transpose, structure_only=struc,
+        sort_push=sort_push, mask_dense=mask.to(device) if masked else None,
+        mask_scmp=True, mode=tgb.Direction.PUSHONLY)
+    assert used_push
+    return tuple(None if t is None else t.cpu()
+                 for t in (f2.dense, f2.sind, f2.sval, f2.snvals))
+
+
+@pytest.mark.parametrize("transpose", [True, False], ids=["vxm", "mxv"])
+@pytest.mark.parametrize("sr_name,struc,sort_push,masked,values",
+                         PUSH_CARD_CASES)
+def test_push_on_the_card_matches_the_cpu(cuda, sr_name, struc, sort_push,
+                                          masked, values, transpose):
+    """The push on the card equals the CPU's plain run: exact, but for the
+    Plus sums (rtol 1e-5, atol 1e-5: another order within a segment, and
+    the SIMPLE push's atomics); the MERGE push is bitwise equal across two
+    runs on the card."""
+    args = (sr_name, struc, sort_push, masked, values, transpose)
+    k6 = kg.gather_1d.launches
+    others = _hand_kernel_launches()
+    card = _push_on(cuda, *args)
+    assert kg.gather_1d.launches > k6 and _hand_kernel_launches() == others
+    cpu = _push_on("cpu", *args)
+    k = int(cpu[3])
+    assert int(card[3]) == k
+    assert torch.equal(card[1][:k], cpu[1][:k])
+    plus = sr_name == "PlusMultipliesSemiring"
+    for got, want in ((card[0], cpu[0]), (card[2], cpu[2])):
+        if want is None:
+            assert got is None
+        elif plus:
+            np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5,
+                                       atol=1e-5)
+        else:
+            assert torch.equal(got, want)
+    if sort_push:
+        again = _push_on(cuda, *args)
+        for a, b in zip(card, again):
+            assert (a is None and b is None) or torch.equal(a, b)
+
+
+def test_push_bfs_and_sssp_on_the_card_launch_k6_per_iteration(cuda):
+    """PUSHONLY BFS and SSSP from the hub at RMAT scale 12 equal the
+    goldens; a BFS push iteration launches K6 8 times (2 degree gathers, 5
+    in the expansion, 1 of the mask), an SSSP one 11 (2, 7 with the value
+    gathers, 1 for the Min fill, 1 for the filter), all at ascending
+    indices, and no other hand kernel runs."""
+    from graphblast_tpu_torch.algorithms.sssp import _sssp_fused
+    from graphblast_tpu_torch.io.rmat import rmat_matrix
+
+    A = rmat_matrix(12, 16, seed=42, device=cuda)
+    s = int(np.argmax(np.diff(A.host_csr()[0])))
+    others = _hand_kernel_launches()
+    k6, k6_sorted = kg.gather_1d.launches, kg.gather_1d.sorted_launches
+    levels = tgb.algorithms.bfs(A, s, tgb.BFS_TUNED.replace(
+        mxv_mode=tgb.Direction.PUSHONLY)).to_numpy()
+    np.testing.assert_array_equal(levels, tgb.algorithms.bfs_cpu(A, s))
+    assert kg.gather_1d.launches - k6 == 8 * int(levels.max())
+    assert kg.gather_1d.sorted_launches - k6_sorted == 8 * int(levels.max())
+    push = tgb.DEFAULT.replace(mxv_mode=tgb.Direction.PUSHONLY)
+    k6 = kg.gather_1d.launches
+    dist = tgb.algorithms.sssp(A, s, push).to_numpy()
+    np.testing.assert_array_equal(dist, tgb.algorithms.sssp_cpu(A, s))
+    ran = kg.gather_1d.launches - k6
+    _, it = _sssp_fused(A, s, None, switchpoint=0.01,
+                        mode=tgb.Direction.PUSHONLY, max_niter=1000)
+    assert ran == 11 * it > 0
+    assert _hand_kernel_launches() == others

@@ -348,6 +348,8 @@ PORT_MODULES = [
     "graphblast_tpu_torch.vector",
     "graphblast_tpu_torch.operations",
     "graphblast_tpu_torch.ops.spmv",
+    "graphblast_tpu_torch.ops.segops",
+    "graphblast_tpu_torch.ops.spmspv",
     "graphblast_tpu_torch.ops.dispatch",
     "graphblast_tpu_torch.ops.kernels._build",
     "graphblast_tpu_torch.ops.kernels.bitmap_pull",
@@ -384,6 +386,11 @@ d = gt.algorithms.sssp(A, 0, gt.DEFAULT.replace(mxv_mode=gt.Direction.PULLONLY))
 assert np.array_equal(d.to_numpy(), gt.algorithms.sssp_cpu(A, 0)), d
 c = gt.algorithms.cc(A).to_numpy()
 assert np.array_equal(c, gt.algorithms.cc_cpu(A)) and gt.verify_cc(A, c), c
+push = gt.BFS_TUNED.replace(mxv_mode=gt.Direction.PUSHONLY)
+v = gt.algorithms.bfs(A, 0, push).to_numpy()
+assert np.array_equal(v, gt.algorithms.bfs_cpu(A, 0)), v
+d = gt.algorithms.sssp(A, 0, gt.DEFAULT.replace(mxv_mode=gt.Direction.PUSHONLY))
+assert np.array_equal(d.to_numpy(), gt.algorithms.sssp_cpu(A, 0)), d
 assert not any(m == "jax" or m.startswith(("jax.", "graphblast_tpu."))
                for m in sys.modules if sys.modules[m] is not None)
 print("ok")
@@ -392,7 +399,8 @@ print("ok")
 
 def test_port_never_imports_jax():
     """Every port module, chip_smoke.py, a BFS, a PageRank, an SSSP and a CC
-    run, with jax and graphblast_tpu blocked in a fresh interpreter."""
+    run, and a push-only BFS and SSSP, with jax and graphblast_tpu blocked
+    in a fresh interpreter."""
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c",
                           _BLOCKED.format(mods=PORT_MODULES)],

@@ -383,12 +383,21 @@ def test_mxv_dual_without_a_plan_matches_jax(graphs, name, structure_only,
 
 
 def test_mxv_dual_without_a_plan_refuses_push(graphs):
-    """Push still raises, naming its queue item, with or without a plan."""
+    """PUSHPULL still raises, naming its queue item; PUSHONLY pushes and
+    gives the plan-less pull's frontier."""
     from graphblast_tpu_torch.ops.dispatch import DualFrontier, mxv_dual
 
     _, T = graphs["directed"]
-    f = DualFrontier.from_dense(torch.zeros(T.nrows), 0.0)
-    for mode in (tgb.Direction.PUSHPULL, tgb.Direction.PUSHONLY):
-        with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-            mxv_dual(T, f, tgb.LogicalOrAndSemiring, 0.0, transpose=True,
-                     structure_only=True, mode=mode)
+    x = torch.zeros(T.nrows)
+    x[[3, 40, 41, 290]] = 1.0
+    f = DualFrontier.from_dense(x, 0.0)
+    kw = dict(transpose=True, structure_only=True)
+    with pytest.raises(NotImplementedError, match="queue 1 item 5b"):
+        mxv_dual(T, f, tgb.LogicalOrAndSemiring, 0.0,
+                 mode=tgb.Direction.PUSHPULL, **kw)
+    pull, _ = mxv_dual(T, f, tgb.LogicalOrAndSemiring, 0.0,
+                       mode=tgb.Direction.PULLONLY, **kw)
+    push, used_push = mxv_dual(T, f, tgb.LogicalOrAndSemiring, 0.0,
+                               mode=tgb.Direction.PUSHONLY, **kw)
+    assert used_push and torch.equal(push.dense, pull.dense)
+    assert int(push.snvals) == int(pull.snvals) > 0

@@ -176,13 +176,16 @@ def test_sssp_stepped_prints_the_reference_rows(graphs, capsys):
 
 
 def test_sssp_push_modes_raise(graphs):
-    """Push is not ported: the default descriptor's PUSHPULL and PUSHONLY
-    raise and name the queue item; nothing falls back to another path."""
+    """The default descriptor's PUSHPULL is not ported: it raises and names
+    its queue item, and nothing falls back to another path. PUSHONLY runs
+    and gives the golden distances in both modes."""
     _, T = graphs["chesapeake"]
-    for desc in (tgb.DEFAULT,
-                 tgb.DEFAULT.replace(mxv_mode=tgb.Direction.PUSHONLY)):
-        with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-            sssp(T, 0, desc)
+    with pytest.raises(NotImplementedError, match="queue 1 item 5b"):
+        sssp(T, 0, tgb.DEFAULT)
+    push = tgb.DEFAULT.replace(mxv_mode=tgb.Direction.PUSHONLY)
+    for mode in ("fused", "stepped"):
+        np.testing.assert_array_equal(sssp(T, 0, push, mode=mode).to_numpy(),
+                                      sssp_cpu(T, 0))
     with pytest.raises(ValueError):
         sssp(T, 0, PULL, mode="async")
 
