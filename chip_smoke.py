@@ -161,14 +161,40 @@ Phases, each of which fails the run on error (each prints its seconds):
   20. grid_matrix(512) (n = 262,144, diameter 1,022): BFS from vertex 0,
      PUSHONLY (8 K6 an iteration) and PULLONLY (one K1 an iteration),
      levels equal to the golden in both; ms/run and ms an iteration;
-  21. cc() at n = 2^24 on the port's grid_matrix(4096) (67 M edges), which
+  21. PUSHPULL BFS: the default bfs(A, s) (BFS_TUNED, eager) at rmat18
+     from the 8 hubs: levels equal to the golden; K1 once a pull iteration
+     and K6 8 times a push iteration (the directions from a stepped replay
+     of each source), no other kernel, and in the stepped mode K5 and K6
+     once a pull iteration; at most 2 host reads an iteration
+     (torch.cuda.set_sync_debug_mode); ms/run (median and tail) and GTEPS
+     beside phases 3 and 18; the top hub's stepped trace (direction,
+     frontier, degree total, tier, host reads, ms);
+  22. PUSHPULL SSSP: the default sssp(A, s) (DEFAULT) the same way: K4 once
+     a pull iteration and K6 11 times a push iteration; ms/run beside
+     phases 7 and 19;
+  23. PUSHPULL BFS from vertex 0 on phase 20's grid, eager and then with
+     GRB_LAZY_FRONTIER=1 (set and restored inside the phase): levels equal
+     to the golden; push and pull iterations, switches, image rebuilds and
+     host reads an iteration; the launches they give (lazy: 2 more K6
+     wherever the degree total reads the sparse image); ms/run and ms an
+     iteration beside phase 20's two directions;
+  24. lazy at rmat18: BFS and SSSP from the top hub with
+     GRB_LAZY_FRONTIER=1, equal to the goldens, with their launches,
+     directions and push→pull (dense) and pull→push (sparse) image
+     rebuilds, and ms/run;
+  25. diameter over sources [0, 8) at rmat18: equal to the largest golden
+     eccentricity and its first source; ms a source;
+  26. the gbfs driver as a subprocess with run_bfs.sh's flags on
+     rmat:18:16 (python -m graphblast_tpu_torch.examples.gbfs): exit 0 and
+     BFS: CORRECT; its output printed back;
+  27. cc() at n = 2^24 on the port's grid_matrix(4096) (67 M edges), which
      takes the plan-less route: labels all 0 and verify_cc, one S launch
      an iteration over the CSR's cached schedule and no K4; the graph's
      build time and ms/run;
-  22. value pull in K3's regime: a seeded uniform random CSR built on the
+  28. value pull in K3's regime: a seeded uniform random CSR built on the
      card, 2^24 rows and columns, 8 edges a row, so that x (64 MB) exceeds
      the 50 MB L2; the same checks and timings as phase 4;
-  23. prints {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
+  29. prints {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
 
 Every check of results, launch counts and schedules raises. A
 torch.profiler reading that cannot be trusted (no device time, or more
@@ -176,6 +202,7 @@ device time than wall time) prints "not measured" and its reason and
 does not fail the run. Exits non-zero, printing no result, when CUDA is
 unavailable or the package is missing.
 """
+import contextlib
 import json
 import subprocess
 import sys
@@ -2024,43 +2051,138 @@ def _count_syncs(fn):
                  for w in caught if "synchroniz" in str(w.message)]
 
 
-def _push_trace(A, source: int, desc):
-    """Stepped PUSHONLY BFS from `source`, one iteration at a time: each
-    iteration's frontier count, degree total, the tier it runs in, its
-    host reads (the push's and the loop's succ) and its host ms."""
+LAZY_DEG_K6 = 2      # the lazy degree total's two gathers of the pointers
+
+
+@contextlib.contextmanager
+def _lazy_protocol(on: bool):
+    """GRB_LAZY_FRONTIER set to 1 (or unset) for the body, then restored."""
+    import os
+
+    was = os.environ.pop("GRB_LAZY_FRONTIER", None)
+    if on:
+        os.environ["GRB_LAZY_FRONTIER"] = "1"
+    try:
+        yield
+    finally:
+        os.environ.pop("GRB_LAZY_FRONTIER", None)
+        if was is not None:
+            os.environ["GRB_LAZY_FRONTIER"] = was
+
+
+def _direction_trace(A, source: int, desc, algo: str):
+    """Stepped replay of `algo` ("bfs" or "sssp") from `source` under desc,
+    through the step the fused loop runs (BFS with its bitmap plan, SSSP
+    with its monoid plan), with the lazy protocol as GRB_LAZY_FRONTIER
+    says. Each iteration: its direction, the frontier's count and degree
+    total, the push tier, whether an image was rebuilt (the dense one at a
+    push→pull switch, the sparse one at pull→push), whether the degree
+    total came from the dense image, the host reads it made (the loop's
+    succ read included) and its host ms."""
     import torch
 
-    import graphblast_tpu_torch as gt
-    from graphblast_tpu_torch.algorithms.bfs import (_bfs_step,
-                                                     _initial_frontier)
+    from graphblast_tpu_torch.algorithms.bfs import (
+        _bfs_step, _initial_frontier, _lazy_frontier, bfs_pull_plan)
     from graphblast_tpu_torch.algorithms.common import edge_cap_for
-    from graphblast_tpu_torch.ops.dispatch import (_frontier_degree_total,
-                                                   pick_tier, push_tiers)
+    from graphblast_tpu_torch.ops.dispatch import (LAZY_SPARSE_CAP,
+                                                   _host_state, pick_tier,
+                                                   push_tiers)
+    from graphblast_tpu_torch.algorithms.sssp import (
+        _initial_frontier as _sssp_initial_frontier)
+    from graphblast_tpu_torch.algorithms.sssp import _sssp_step
+    from graphblast_tpu_torch.ops.kernels.monoid_pull import (
+        FLT_MAX, plan_for_monoid)
 
-    tiers = push_tiers(edge_cap_for(A, desc), desc.push_tiers)
-    v = torch.zeros(A.nrows, device="cuda")
-    f = _initial_frontier(A.nrows, source, "cuda")
-    kw = dict(struconly=desc.structure_only, switchpoint=desc.switchpoint,
-              mode=desc.mxv_mode, edge_cap=edge_cap_for(A, desc),
-              sort_push=desc.sort_push, tiers=desc.push_tiers)
+    n = A.nrows
+    lazy = _lazy_frontier(desc.mxv_mode)
+    edge_cap = edge_cap_for(A, desc)
+    tiers = push_tiers(edge_cap, desc.push_tiers)
+    kw = dict(switchpoint=desc.switchpoint, mode=desc.mxv_mode,
+              edge_cap=edge_cap, sort_push=desc.sort_push,
+              tiers=desc.push_tiers, lazy=lazy)
+    if algo == "bfs":
+        plan = bfs_pull_plan(A, desc)
+        f = _initial_frontier(n, source, A.device,
+                              with_values=not desc.structure_only, lazy=lazy)
+        v = torch.zeros(n + 1, device=A.device)
+        ident = 0.0
+
+        def step(v, f, it):
+            return _bfs_step(A, v, f, it, plan=plan,
+                             struconly=desc.structure_only, **kw)
+    else:
+        plan = plan_for_monoid(A, transpose=True)
+        f = _sssp_initial_frontier(n, source, A.device, lazy=lazy)
+        v = torch.cat([f.dense, f.dense.new_full((1,), FLT_MAX)])
+        ident = FLT_MAX
+
+        def step(v, f, it):
+            return _sssp_step(A, v, f, plan, **kw)
     rows, it, succ = [], 1, 1
-    while succ > 0:
+    while succ > 0 and it <= desc.max_niter:
         # read apart from the iteration, which reads them itself
-        deg_total = int(_frontier_degree_total(A.row_ptr, f, 0.0))
-        nv = int(f.snvals)
-        cap = pick_tier(tiers, deg_total, nv)
+        sp = min(LAZY_SPARSE_CAP, f.sind.shape[0])
+        deg_total, nv, _, dense_ok, sparse_ok = _host_state(
+            A.row_ptr, f, ident, sp)
+        from_dense = f.dense_ok is True
 
-        def step():
+        def run():
             t0 = time.perf_counter()
-            out = _bfs_step(A, v, f, it, **kw)
+            out = step(v, f, it)
             return out, int(out[2]), (time.perf_counter() - t0) * 1e3
 
-        ((v, f, _, _), succ, ms), reads = _count_syncs(step)
-        rows.append(dict(it=it, snvals=nv, deg_total=deg_total, tier=cap,
+        ((v, f, _, pushed), succ, ms), reads = _count_syncs(run)
+        rebuilt = ("sparse" if pushed and not sparse_ok
+                   else "dense" if not pushed and not dense_ok else None)
+        rows.append(dict(it=it, push=pushed, snvals=nv, deg_total=deg_total,
+                         tier=pick_tier(tiers, deg_total, nv) if pushed
+                         else None, rebuilt=rebuilt, from_dense=from_dense,
                          host_reads=len(reads), read_at=sorted(set(reads)),
                          ms=ms))
         it += 1
-    return rows, tiers
+    return rows
+
+
+def _trace_summary(rows) -> dict:
+    """Pushes, pulls, switches, image rebuilds, the most host reads an
+    iteration, the iterations whose degree total read the sparse image,
+    and the directions as a string (P push, l pull)."""
+    dirs = "".join("P" if r["push"] else "l" for r in rows)
+    return dict(pushes=dirs.count("P"), pulls=dirs.count("l"),
+                switches=sum(a != b for a, b in zip(dirs, dirs[1:])),
+                dense_rebuilds=sum(r["rebuilt"] == "dense" for r in rows),
+                sparse_rebuilds=sum(r["rebuilt"] == "sparse" for r in rows),
+                sparse_degs=sum(not r["from_dense"] for r in rows),
+                max_reads=max(r["host_reads"] for r in rows), dirs=dirs)
+
+
+def _check_reads(path: str, rows, limit: int = 2):
+    """Raises if an iteration made more than `limit` host reads."""
+    worst = max(rows, key=lambda r: r["host_reads"])
+    if worst["host_reads"] > limit:
+        raise AssertionError(
+            f"{path}: iteration {worst['it']} made {worst['host_reads']} "
+            f"host reads, at {worst['read_at']}; at most {limit} expected")
+
+
+def _trace_text(rows) -> str:
+    return "; ".join(
+        f"it {r['it']}: {'push' if r['push'] else 'pull'}, frontier "
+        f"{r['snvals']}, deg_total {r['deg_total']}"
+        + (f", tier {r['tier']}" if r["push"] else "")
+        + (f", {r['rebuilt']} image rebuilt" if r["rebuilt"] else "")
+        + f", host reads {r['host_reads']} ({', '.join(r['read_at'])}), "
+        f"{r['ms']:.6f} ms" for r in rows)
+
+
+def _expected_launches(sums, pull_kernel, push_k6) -> dict:
+    """The launches of the runs the trace summaries describe: the pull
+    kernel once a pull, push_k6 K6 a push and LAZY_DEG_K6 more wherever the
+    degree total read the sparse image (only under the lazy protocol)."""
+    return {pull_kernel: sum(x["pulls"] for x in sums),
+            "gather_boundary": sum(push_k6 * x["pushes"]
+                                   + LAZY_DEG_K6 * x["sparse_degs"]
+                                   for x in sums)}
 
 
 def _push_split(A, golden_hub, reps: int = 50):
@@ -2193,6 +2315,9 @@ def phase_push_bfs(A, sources, goldens, reps: int = 10):
 
     import graphblast_tpu_torch as gt
 
+    from graphblast_tpu_torch.algorithms.common import edge_cap_for
+    from graphblast_tpu_torch.ops.dispatch import push_tiers
+
     desc = gt.BFS_TUNED.replace(mxv_mode=gt.Direction.PUSHONLY)
     bfs = gt.algorithms.bfs
     _reset_counts()
@@ -2213,12 +2338,9 @@ def phase_push_bfs(A, sources, goldens, reps: int = 10):
           f"{tail}, {len(sources) * reps} runs; "
           f"{reached_edges / per_s / 1e9:.6f} GTEPS at the median; "
           f"{iters[0]} iterations")
-    rows, tiers = _push_trace(A, int(sources[0]), desc)
+    tiers = push_tiers(edge_cap_for(A, desc), desc.push_tiers)
     print(f"[push bfs] stepped trace from {int(sources[0])} (tiers {tiers}): "
-          + "; ".join(f"it {r['it']}: frontier {r['snvals']}, deg_total "
-                      f"{r['deg_total']}, tier {r['tier']}, host reads "
-                      f"{r['host_reads']} ({', '.join(r['read_at'])}), "
-                      f"{r['ms']:.6f} ms" for r in rows))
+          + _trace_text(_direction_trace(A, int(sources[0]), desc, "bfs")))
     split, at, edge_idx = _push_split(A, goldens[0])
     print(f"[push bfs] one push iteration at the hub's level-2 frontier "
           f"({at['frontier']} vertices, deg_total {at['deg_total']}, tier "
@@ -2274,7 +2396,8 @@ def phase_push_grid(side: int = 512, reps: int = 3):
     """BFS from vertex 0 on grid_matrix(side) (diameter 2·(side − 1)),
     PUSHONLY and PULLONLY: levels equal to the golden in both, BFS_PUSH_K6
     K6 launches an iteration for push and one K1 launch an iteration for
-    pull; ms/run and ms an iteration of each."""
+    pull; ms/run and ms an iteration of each. Returns the two ms/run, the
+    grid and its golden."""
     import graphblast_tpu_torch as gt
     from graphblast_tpu_torch.algorithms.reference import bfs_cpu
     from graphblast_tpu_torch.io.rmat import grid_matrix
@@ -2302,7 +2425,236 @@ def phase_push_grid(side: int = 512, reps: int = 3):
         print(f"[grid] {name}-only: levels == golden; launches {counts}; "
               f"{per_s * 1e3:.6f} ms/run median, {tail}, {reps} runs; "
               f"{per_s * 1e3 / iters:.6f} ms an iteration")
+    return out, G, golden
+
+
+# ------------------------------------------------- direction optimization
+def phase_pushpull_bfs(A, sources, goldens, pull_s, push_s, reps: int = 10):
+    """The default bfs(A, s) (BFS_TUNED: PUSHPULL, eager) at rmat18 from
+    the hub sources: levels equal to the golden; K1 launched once a pull
+    iteration and K6 BFS_PUSH_K6 times a push iteration (the directions
+    from a stepped replay of each source) and no other kernel; at most 2
+    host reads an iteration; ms/run and GTEPS beside the pull-only (phase
+    3) and push-only (phase 18) runs; the top hub's stepped trace."""
+    import numpy as np
+
+    import graphblast_tpu_torch as gt
+
+    desc = gt.BFS_TUNED
+    traces = [_direction_trace(A, int(s), desc, "bfs") for s in sources]
+    sums = [_trace_summary(t) for t in traces]
+    for t in traces:
+        _check_reads("PUSHPULL BFS", t)
+    _reset_counts()
+    levels = [gt.algorithms.bfs(A, int(s)).to_numpy() for s in sources]
+    if any(x["sparse_degs"] for x in sums):
+        raise AssertionError("the eager PUSHPULL BFS read a degree total "
+                             "from the sparse image")
+    counts = _expect_launches("PUSHPULL BFS", _expected_launches(
+        sums, "bitmap_pull", BFS_PUSH_K6))
+    _check_levels("PUSHPULL BFS", levels, goldens, sources)
+    print(f"[pushpull bfs] {len(sources)} sources: levels == NumPy golden; "
+          f"directions {[x['dirs'] for x in sums]} (P push, l pull); "
+          f"launches {counts} (one K1 a pull, {BFS_PUSH_K6} K6 a push); "
+          f"at most {max(x['max_reads'] for x in sums)} host reads an "
+          "iteration")
+    # the stepped mode pulls with no plan (K5, then K6 at the boundaries);
+    # its directions are the fused mode's
+    _reset_counts()
+    stepped = [gt.algorithms.bfs(A, int(s), mode="stepped").to_numpy()
+               for s in sources]
+    pulls = sum(x["pulls"] for x in sums)
+    stepped_counts = _expect_launches("stepped PUSHPULL BFS", {
+        "orpull_csum": pulls,
+        "gather_boundary": pulls + BFS_PUSH_K6 * sum(x["pushes"]
+                                                     for x in sums)})
+    _check_levels("stepped PUSHPULL BFS", stepped, goldens, sources)
+    print(f"[pushpull bfs] stepped, {len(sources)} sources: levels == "
+          f"golden; launches {stepped_counts} (K5 and K6 a pull, "
+          f"{BFS_PUSH_K6} K6 a push)")
+    srcs = iter([int(s) for s in sources] * reps)
+    per_s, tail = _timed_runs(lambda: gt.algorithms.bfs(A, next(srcs)),
+                              len(sources) * reps)
+    deg = np.diff(A.host_csr()[0])
+    reached_edges = int(deg[levels[0] != 0].sum())
+    print(f"[pushpull bfs] default bfs rmat18: {per_s * 1e3:.6f} ms/run "
+          f"median, {tail}, {len(sources) * reps} runs; "
+          f"{reached_edges / per_s / 1e9:.6f} GTEPS at the median; beside "
+          f"pull-only (phase 3) {pull_s * 1e3:.6f} and push-only (phase 18) "
+          f"{push_s * 1e3:.6f} ms/run")
+    print(f"[pushpull bfs] stepped trace from {int(sources[0])}: "
+          + _trace_text(traces[0]))
+    return counts, per_s
+
+
+def phase_pushpull_sssp(A, sources, goldens, pull_s, push_s,
+                        reps: int = 10):
+    """The default sssp(A, s) (DEFAULT: PUSHPULL, eager) at rmat18 from the
+    hub sources: distances equal to the golden; K4 once a pull iteration
+    and K6 SSSP_PUSH_K6 times a push iteration, no other kernel; at most 2
+    host reads an iteration; ms/run beside phases 7 and 19."""
+    import numpy as np
+
+    import graphblast_tpu_torch as gt
+    from graphblast_tpu_torch.ops.kernels.monoid_pull import FLT_MAX
+
+    traces = [_direction_trace(A, int(s), gt.DEFAULT, "sssp")
+              for s in sources]
+    sums = [_trace_summary(t) for t in traces]
+    for t in traces:
+        _check_reads("PUSHPULL SSSP", t)
+    _reset_counts()
+    dists = [gt.algorithms.sssp(A, int(s)).to_numpy() for s in sources]
+    counts = _expect_launches("PUSHPULL SSSP", _expected_launches(
+        sums, "monoid_pull", SSSP_PUSH_K6))
+    for s, d, want in zip(sources, dists, goldens):
+        if d.shape != (A.nrows,) or not np.isfinite(d).all():
+            raise AssertionError(f"PUSHPULL SSSP from {s}: bad distances")
+        bad = int((d != want).sum())
+        if bad:
+            raise AssertionError(f"PUSHPULL SSSP from {s}: {bad} distances "
+                                 "!= golden")
+    print(f"[pushpull sssp] {len(sources)} sources: distances == NumPy "
+          f"golden; directions {[x['dirs'] for x in sums]}; launches "
+          f"{counts} (one K4 a pull, {SSSP_PUSH_K6} K6 a push); at most "
+          f"{max(x['max_reads'] for x in sums)} host reads an iteration")
+    srcs = iter([int(s) for s in sources] * reps)
+    per_s, tail = _timed_runs(lambda: gt.algorithms.sssp(A, next(srcs)),
+                              len(sources) * reps)
+    deg = np.diff(A.host_csr()[0])
+    reached_edges = int(deg[dists[0] < FLT_MAX].sum())
+    print(f"[pushpull sssp] default sssp rmat18: {per_s * 1e3:.6f} ms/run "
+          f"median, {tail}, {len(sources) * reps} runs; "
+          f"{reached_edges / per_s / 1e9:.6f} GTEPS at the median; beside "
+          f"pull-only (phase 7) {pull_s * 1e3:.6f} and push-only (phase 19) "
+          f"{push_s * 1e3:.6f} ms/run")
+    print(f"[pushpull sssp] stepped trace from {int(sources[0])}: "
+          + _trace_text(traces[0]))
+    return per_s
+
+
+def phase_pushpull_grid(G, golden, one_way_s, reps: int = 3):
+    """BFS from vertex 0 on grid_matrix(512) under BFS_TUNED, eager and
+    then with GRB_LAZY_FRONTIER=1: levels equal to the golden in both; the
+    launches the stepped replay's directions give; the push and pull
+    iterations, switches, image rebuilds and host reads an iteration;
+    ms/run and ms an iteration beside phase 20's push-only and
+    pull-only."""
+    import graphblast_tpu_torch as gt
+
+    iters = int(golden.max())
+    out = {}
+    for name, lazy in (("eager", False), ("lazy", True)):
+        with _lazy_protocol(lazy):
+            rows = _direction_trace(G, 0, gt.BFS_TUNED, "bfs")
+            x = _trace_summary(rows)
+            _check_reads(f"grid PUSHPULL {name}", rows)
+            _reset_counts()
+            levels = gt.algorithms.bfs(G, 0).to_numpy()
+            counts = _expect_launches(
+                f"grid PUSHPULL {name}",
+                _expected_launches([x], "bitmap_pull", BFS_PUSH_K6))
+            _check_levels(f"grid PUSHPULL {name}", [levels], [golden], [0])
+            per_s, tail = _timed_runs(lambda: gt.algorithms.bfs(G, 0), reps)
+        reads = [r["host_reads"] for r in rows]
+        out[name] = per_s
+        print(f"[grid pushpull] {name}: levels == golden; {x['pushes']} push "
+              f"and {x['pulls']} pull iterations, {x['switches']} switches "
+              f"({x['dense_rebuilds']} dense, {x['sparse_rebuilds']} sparse "
+              f"image rebuilds); launches {counts}; host reads an iteration "
+              f"{min(reads)}-{max(reads)} (mean {sum(reads) / len(reads):.3f}"
+              f"); {per_s * 1e3:.6f} ms/run median, {tail}, {reps} runs; "
+              f"{per_s * 1e3 / iters:.6f} ms an iteration; beside push-only "
+              f"{one_way_s['push'] * 1e3 / iters:.6f} and pull-only "
+              f"{one_way_s['pull'] * 1e3 / iters:.6f} ms an iteration "
+              "(phase 20)")
     return out
+
+
+def phase_lazy_rmat18(A, source: int, bfs_golden, sssp_golden,
+                      reps: int = 10):
+    """BFS and SSSP from the top hub at rmat18 with GRB_LAZY_FRONTIER=1:
+    levels and distances equal to the goldens; the launches the stepped
+    replay gives; directions, switches and the push→pull (dense) and
+    pull→push (sparse) image rebuilds; ms/run."""
+    import numpy as np
+
+    import graphblast_tpu_torch as gt
+
+    with _lazy_protocol(True):
+        for algo, fn, golden, pull_kernel, push_k6 in (
+                ("bfs", gt.algorithms.bfs, bfs_golden, "bitmap_pull",
+                 BFS_PUSH_K6),
+                ("sssp", gt.algorithms.sssp, sssp_golden, "monoid_pull",
+                 SSSP_PUSH_K6)):
+            rows = _direction_trace(A, source, gt.BFS_TUNED if algo == "bfs"
+                                    else gt.DEFAULT, algo)
+            x = _trace_summary(rows)
+            _check_reads(f"lazy {algo}", rows)
+            _reset_counts()
+            got = fn(A, source).to_numpy()
+            counts = _expect_launches(
+                f"lazy {algo}", _expected_launches([x], pull_kernel, push_k6))
+            if got.shape != golden.shape or not np.array_equal(got, golden):
+                raise AssertionError(f"lazy {algo} from {source}: "
+                                     f"{int((got != golden).sum())} values "
+                                     "!= golden")
+            per_s, tail = _timed_runs(lambda: fn(A, source), reps)
+            print(f"[lazy {algo}] rmat18 from {source}: == golden; "
+                  f"directions {x['dirs']}, {x['switches']} switches, "
+                  f"{x['dense_rebuilds']} push→pull (dense) and "
+                  f"{x['sparse_rebuilds']} pull→push (sparse) image "
+                  f"rebuilds; launches {counts}; at most {x['max_reads']} "
+                  f"host reads an iteration; {per_s * 1e3:.6f} ms/run "
+                  f"median, {tail}, {reps} runs")
+            print(f"[lazy {algo}] stepped trace: " + _trace_text(rows))
+
+
+def phase_diameter(A, lo: int = 0, hi: int = 8):
+    """diameter(A, lo, hi) under BFS_TUNED (PUSHPULL) at rmat18: equal to
+    the largest golden eccentricity and its first source; ms a source."""
+    import torch
+
+    import graphblast_tpu_torch as gt
+    from graphblast_tpu_torch.algorithms.reference import bfs_cpu
+
+    eccs = [int(bfs_cpu(A, s).max()) - 1 for s in range(lo, hi)]
+    best = max(eccs)
+    want = (best, lo + eccs.index(best)) if best > 0 else (0, -1)
+    got = gt.diameter(A, lo, hi)     # builds the bitmap plan, if new
+    t0 = time.perf_counter()
+    again = gt.diameter(A, lo, hi)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    if got != want or again != want:
+        raise AssertionError(f"diameter over [{lo}, {hi}): {got}, {again}; "
+                             f"golden {want} (eccentricities {eccs})")
+    print(f"[diameter] rmat18 sources [{lo}, {hi}): {got} == golden "
+          f"(eccentricities {eccs}); {ms:.6f} ms a call, "
+          f"{ms / (hi - lo):.6f} ms a source")
+
+
+def phase_gbfs_driver():
+    """The gbfs driver as a subprocess, with run_bfs.sh's flags on
+    rmat:18:16, as run_bfs.sh TEST=1's first line runs it (the golden
+    check kept): exit 0, BFS: CORRECT; its output is printed back."""
+    import os
+
+    flags = ["--timing", "0", "--earlyexit", "1", "--mxvmode", "0",
+             "--struconly", "1", "--niter", "5", "--opreuse", "1"]
+    cmd = [sys.executable, "-m", "graphblast_tpu_torch.examples.gbfs",
+           "rmat:18:16"] + flags
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    run = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
+                         timeout=300)
+    secs = time.perf_counter() - t0
+    for line in run.stdout.strip().splitlines():
+        print(f"[gbfs] {line}")
+    if run.returncode != 0 or "BFS: CORRECT" not in run.stdout:
+        raise AssertionError(f"gbfs exited {run.returncode}: "
+                             f"{run.stderr[-2000:]}")
+    print(f"[gbfs] {' '.join(cmd[1:])}: exit 0 in {secs:.2f} s")
 
 
 def phase_cc_2_24(reps: int = 5):
@@ -2496,8 +2848,29 @@ def main() -> int:
           f" pull-only (phase 7) {sssp_per_s * 1e3:.6f}")
     print(f"[phase] push SSSP {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
-    phase_push_grid()
+    one_way_s, G, grid_golden = phase_push_grid()
     print(f"[phase] grid BFS push and pull {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    phase_pushpull_bfs(A, sources, goldens, per_s, push_per_s)
+    print(f"[phase] PUSHPULL BFS {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    phase_pushpull_sssp(A, sources, sssp_goldens, sssp_per_s,
+                        push_sssp_per_s)
+    print(f"[phase] PUSHPULL SSSP {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    phase_pushpull_grid(G, grid_golden, one_way_s)
+    del G
+    print(f"[phase] grid BFS PUSHPULL, eager and lazy "
+          f"{time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    phase_lazy_rmat18(A, int(sources[0]), goldens[0], sssp_goldens[0])
+    print(f"[phase] lazy BFS and SSSP {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    phase_diameter(A)
+    print(f"[phase] diameter {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    phase_gbfs_driver()
+    print(f"[phase] gbfs driver {time.perf_counter() - t0:.2f} s")
     del A
     t0 = time.perf_counter()
     phase_cc_2_24()

@@ -20,7 +20,10 @@ mxv_dual (slice 3); the plan-less pull (spmv_pull, segops, take) over the
 or-pull prefix count K5 and the gather K6, with MIS, graph colouring,
 stepped BFS and CC at n >= 2^24 on it (slice 4); triangle counting, the
 masked mxm and trace_mxm_transpose over the masked-intersection kernels T1
-and T2.
+and T2; the push (SpMSpV) with PUSHONLY BFS and SSSP (slice 11); the
+direction switch PUSHPULL, eager and lazy, so the default bfs and sssp run,
+with diameter, `transpose` and the gbfs, gsssp and gdiameter drivers
+(`graphblast_tpu_torch.utils`, `graphblast_tpu_torch.examples`; slice 12).
 """
 
 from .types import Direction, INDEX_DTYPE, LoadBalanceMode, SparseFormat, Storage
@@ -52,11 +55,13 @@ from .operations import (
     reduce_matrix_to_vector,
     scale_matrix_rows,
     trace_mxm_transpose,
+    transpose,
     tril,
 )
 from . import algorithms
-from .algorithms import (cc, cc_cpu, gc, gc_cpu, mis, mis_cpu, pr, pr_cpu,
-                         prepare_pr_matrix, sssp, sssp_cpu, tc, tc_cpu,
-                         triangle_count, verify_cc, verify_gc, verify_mis)
+from .algorithms import (cc, cc_cpu, diameter, gc, gc_cpu, mis, mis_cpu, pr,
+                         pr_cpu, prepare_pr_matrix, sssp, sssp_cpu, tc,
+                         tc_cpu, triangle_count, verify_cc, verify_gc,
+                         verify_mis)
 
 __version__ = "0.1.0"

@@ -1,9 +1,10 @@
-"""Algorithm library. Ported so far: BFS (pull-only), PageRank, SSSP
-(pull-only), CC (FastSV), MIS, graph colouring and triangle counting, with
-their NumPy goldens."""
+"""Algorithm library. Ported so far: BFS and SSSP (push, pull and
+direction-optimized), PageRank, CC (FastSV), MIS, graph colouring, triangle
+counting and the BFS pseudo-diameter, with their NumPy goldens."""
 
 from .bfs import bfs, bfs_cpu
 from .cc import cc, cc_cpu, verify_cc
+from .diameter import diameter
 from .gc import gc, gc_cpu, verify_gc
 from .mis import mis, mis_cpu, verify_mis
 from .pr import pr, pr_cpu, prepare_pr_matrix

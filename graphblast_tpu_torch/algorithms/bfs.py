@@ -7,23 +7,27 @@ Per iteration, as in the reference:
     succ = reduce(+, f2)                            # convergence scalar
 
 Both modes are a Python loop over device work with one host read of `succ`
-per iteration (a push iteration makes one more, which picks its
-workspace). The JAX package's fused mode runs the loop on the device with
-no host sync; `mode="fused"` here keeps its semantics (it starts at 1, the
-loop runs while succ > 0 and it <= max_niter). desc.mxv_mode PULLONLY and
-PUSHONLY are ported; PUSHPULL, the default of BFS_TUNED, is ROADMAP queue 1
-item 5b and raises. As in the JAX package, the fused pull goes over the
-bitmap plan (K1) and the stepped pull with no plan, through `spmv_pull`
-(K5 and K6); the push (`ops/spmspv.py`) gathers through K6 in both modes.
-The stepped mode also prints and times each iteration.
+per iteration, and one more where `mxv_dual` chooses a direction or a push
+workspace (PUSHPULL and PUSHONLY). The JAX package's fused mode runs the
+loop on the device with no host sync; `mode="fused"` here keeps its
+semantics (it starts at 1, the loop runs while succ > 0 and it <=
+max_niter). desc.mxv_mode picks the direction: PUSHPULL (BFS_TUNED's)
+switches between push and pull by the frontier's density. As in the JAX
+package, the fused pull goes over the bitmap plan (K1) and the stepped pull
+with no plan, through `spmv_pull` (K5 and K6); the push (`ops/spmspv.py`)
+gathers through K6 in both modes. GRB_LAZY_FRONTIER=1 opts into the lazy
+dual-frontier protocol, as in the JAX package. The stepped mode also
+prints and times each iteration.
 """
 from __future__ import annotations
+
+import os
 
 import torch
 
 from ..descriptor import BFS_TUNED, Descriptor
 from ..matrix import Matrix
-from ..ops.dispatch import DualFrontier, mxv_dual
+from ..ops.dispatch import LAZY_SPARSE_CAP, DualFrontier, mxv_dual
 from ..ops.kernels.bitmap_pull import plan_for_bitmap
 from ..semiring import LogicalOrAndSemiring
 from ..types import INDEX_DTYPE, Direction
@@ -32,18 +36,30 @@ from .common import (TightTimer, dense_result, edge_cap_for, print_dirinfo,
                      print_iter_row)
 
 
+def _lazy_frontier(mode) -> bool:
+    """Opt-in: the lazy dual-frontier protocol (GRB_LAZY_FRONTIER=1), off
+    under PUSHONLY, whose frontiers may pass the lazy carry. Read at each
+    call; the JAX package reads it when it traces, so the port behaves as
+    JAX does in a fresh process."""
+    return (os.environ.get("GRB_LAZY_FRONTIER", "0") == "1"
+            and mode != Direction.PUSHONLY)
+
+
 def _initial_frontier(n: int, source: int, device, dtype=torch.float32,
-                      with_values: bool = False) -> DualFrontier:
-    """The source alone. The sparse image has capacity n, as JAX keeps it
-    for PUSHONLY; `with_values` gives it values (1 at the source), which a
-    push that is not structure-only multiplies."""
+                      with_values: bool = False,
+                      lazy: bool = False) -> DualFrontier:
+    """The source alone. The sparse image has capacity n, or
+    LAZY_SPARSE_CAP for the lazy protocol, as in JAX; `with_values` gives
+    it values (1 at the source), which a push that is not structure-only
+    multiplies."""
+    cap = min(LAZY_SPARSE_CAP, n) if lazy else n
     dense = torch.zeros(n, dtype=dtype, device=device)
     dense[source] = 1
-    sind = torch.full((n,), n, dtype=INDEX_DTYPE, device=device)
+    sind = torch.full((cap,), n, dtype=INDEX_DTYPE, device=device)
     sind[0] = source
     sval = None
     if with_values:
-        sval = torch.zeros(n, dtype=dtype, device=device)
+        sval = torch.zeros(cap, dtype=dtype, device=device)
         sval[0] = 1
     return DualFrontier(n, dense, sind, sval,
                         torch.tensor(1, dtype=INDEX_DTYPE, device=device),
@@ -51,16 +67,43 @@ def _initial_frontier(n: int, source: int, device, dtype=torch.float32,
                         torch.tensor(True, device=device))
 
 
+def _sparse_targets(f: DualFrontier, n: int) -> torch.Tensor:
+    """The stored ids of f's sparse image, each pad slot at n: the spare
+    slot of an (n + 1,) buffer."""
+    slot = torch.arange(f.sind.shape[0], dtype=INDEX_DTYPE,
+                        device=f.sind.device)
+    return torch.where(slot < f.snvals, f.sind, n).long()
+
+
+def _assign_levels(v: torch.Tensor, f: DualFrontier, it: int):
+    """assign(v, mask=f, it) in place on v, an (n + 1,) buffer whose last
+    slot is spare: from the dense image where it is valid, else by a
+    scatter of the sparse image (the lazy protocol after a push). With a
+    tensor flag both run: the sparse image then holds frontier vertices
+    only, and the dense one is masked by the flag."""
+    n = v.shape[0] - 1
+    if f.dense_ok is not True:
+        v.index_fill_(0, _sparse_targets(f, n), float(it))
+    if f.dense_ok is not False:
+        hit = f.dense != 0
+        if f.dense_ok is not True:
+            hit &= f.dense_ok
+        v[:n].masked_fill_(hit, float(it))
+
+
 def _bfs_step(A: Matrix, v: torch.Tensor, f: DualFrontier, it: int, *,
               struconly, switchpoint, mode, edge_cap=None, sort_push=True,
-              tiers=(64, 8), plan=None):
-    """One BFS iteration: label + masked expand."""
-    v = v.masked_fill(f.dense != 0, float(it))
+              tiers=(64, 8), plan=None, lazy=False):
+    """One BFS iteration: label + masked expand. `v` is the (n + 1,) level
+    buffer, updated in place."""
+    # assign(v, mask=f1, iter, GrB_ALL), bfs.hpp:64-65
+    _assign_levels(v, f, it)
+    # the scmp-masked vxm, bfs.hpp:67-70 (mask = visited v, complemented)
     f2, used_push = mxv_dual(
         A, f, LogicalOrAndSemiring, identity=0.0, transpose=True,
-        mask_dense=v, mask_scmp=True, structure_only=struconly,
+        mask_dense=v[:A.nrows], mask_scmp=True, structure_only=struconly,
         edge_cap=edge_cap, sort_push=sort_push, switchpoint=switchpoint,
-        mode=mode, tier_divisors=tiers, pull_plan=plan)
+        mode=mode, tier_divisors=tiers, pull_plan=plan, lazy=lazy)
     succ = f2.snvals  # struconly reduce == nvals (reduce.hpp:71-75)
     return v, f2, succ, used_push
 
@@ -75,26 +118,19 @@ def bfs_pull_plan(A: Matrix, desc: Descriptor = BFS_TUNED):
     return plan_for_bitmap(A, transpose=True)
 
 
-def bfs(A: Matrix, source: int, desc: Descriptor = BFS_TUNED,
-        mode: str = "fused") -> Vector:
-    """BFS levels: source = 1, unreached = 0, float32 (reference:
-    bfs.hpp:14-89; levels per SimpleReferenceBfs, test_bfs.hpp:19-22).
-    Runs on A's device. desc.mxv_mode PULLONLY and PUSHONLY are ported;
-    PUSHPULL raises NotImplementedError. A descriptor that is not
-    structure-only pulls with no plan in both modes, and pushes the
-    frontier's values."""
-    if mode not in ("fused", "stepped"):
-        raise ValueError(f"mode must be 'fused' or 'stepped', not {mode!r}")
+def _bfs_levels(A: Matrix, source: int, desc: Descriptor, plan,
+                stepped: bool) -> torch.Tensor:
+    """The BFS loop from `source`: the (n,) float32 levels. The stepped
+    mode prints each iteration's row and direction switches as desc asks."""
+    lazy = _lazy_frontier(desc.mxv_mode)
     kw = dict(struconly=desc.structure_only, switchpoint=desc.switchpoint,
               mode=desc.mxv_mode, edge_cap=edge_cap_for(A, desc),
-              sort_push=desc.sort_push, tiers=desc.push_tiers)
+              sort_push=desc.sort_push, tiers=desc.push_tiers, lazy=lazy)
     n = A.nrows
-    stepped = mode == "stepped"
-    plan = None if stepped else bfs_pull_plan(A, desc)
     timer = TightTimer()
-    v = torch.zeros(n, dtype=torch.float32, device=A.device)
+    v = torch.zeros(n + 1, dtype=torch.float32, device=A.device)
     f = _initial_frontier(n, source, A.device,
-                          with_values=not desc.structure_only)
+                          with_values=not desc.structure_only, lazy=lazy)
     unvisited = n
     prev_push = None
     it, succ = 1, 1
@@ -105,12 +141,26 @@ def bfs(A: Matrix, source: int, desc: Descriptor = BFS_TUNED,
         if stepped:
             ms = timer.stop(v, f.dense)
             unvisited -= succ
-            print_dirinfo(succ, n, bool(used_push), prev_push, desc.dirinfo)
-            prev_push = bool(used_push)
-            print_iter_row(it, succ, n, unvisited, bool(used_push), ms,
+            print_dirinfo(succ, n, used_push, prev_push, desc.dirinfo)
+            prev_push = used_push
+            print_iter_row(it, succ, n, unvisited, used_push, ms,
                            desc.timing)
         it += 1
-    return dense_result(n, v)
+    return v[:n]
+
+
+def bfs(A: Matrix, source: int, desc: Descriptor = BFS_TUNED,
+        mode: str = "fused") -> Vector:
+    """BFS levels: source = 1, unreached = 0, float32 (reference:
+    bfs.hpp:14-89; levels per SimpleReferenceBfs, test_bfs.hpp:19-22).
+    Runs on A's device, in the direction desc.mxv_mode asks for. A
+    descriptor that is not structure-only pulls with no plan in both modes,
+    and pushes the frontier's values."""
+    if mode not in ("fused", "stepped"):
+        raise ValueError(f"mode must be 'fused' or 'stepped', not {mode!r}")
+    stepped = mode == "stepped"
+    plan = None if stepped else bfs_pull_plan(A, desc)
+    return dense_result(A.nrows, _bfs_levels(A, source, desc, plan, stepped))
 
 
 def bfs_cpu(A: Matrix, source: int):

@@ -109,8 +109,8 @@ def cc(A: Matrix, seed: int = 0, desc: Descriptor = DEFAULT,
         raise ValueError(f"mode must be 'fused' or 'stepped', not {mode!r}")
     if A.row_ptr is None:
         raise NotImplementedError(
-            "cc pulls over A's CSR; a CSC-only matrix needs cc's push "
-            "route, which is not ported yet (ROADMAP queue 1 item 5b)")
+            "cc needs A's CSR, which it pulls over; the JAX package has no "
+            "route for a CSC-only matrix either")
     plan = (plan_for_monoid(A, transpose=False, ones=True)
             if A.nrows < EXACT_IDS else None)
     parent, _ = _cc_fused(A, plan, max_niter=desc.max_niter,

@@ -101,9 +101,9 @@ def pr(A: Matrix, alpha: float = 0.85, eps: float = 1e-6,
             else prepare_pr_plan(A, alpha))
     if plan is None:
         raise NotImplementedError(
-            "PageRank pulls over A's CSC and CSR; a one-sided matrix needs "
-            "pr's push route, which is not ported yet (ROADMAP queue 1 item "
-            "5b)")
+            "PageRank needs both orientations of A (it pulls over the CSC "
+            "and scales by the CSR's out-degrees); the JAX package has no "
+            "route for a one-sided matrix either")
     p, _, _ = _pr_fused(A, plan, alpha=alpha, eps=eps,
                         max_niter=desc.max_niter,
                         timing=desc.timing if mode == "stepped" else 0)

@@ -11,13 +11,14 @@ Per iteration, as in the reference:
 The filter is `mxv_dual`'s postprocess, as in the JAX package, so the
 productive count is the filtered frontier's nvals; the push takes its
 sparse twin, which filters each destination's candidate. desc.mxv_mode
-PULLONLY and PUSHONLY are ported; PUSHPULL, the default, is ROADMAP queue 1
-item 5b and raises. The vxm pull runs the monoid pull (K4) over A's CSC
-plan (`plan_for_monoid`), on the CPU and CUDA alike; the push
-(`ops/spmspv.py`) runs over A's CSR and gathers through K6. Both modes are
-a Python loop over device work with one host read of `succ` per iteration
-(and one more in a push iteration, which picks its workspace; the JAX
-fused mode is one device loop); "stepped" also prints the reference's
+picks the direction: PUSHPULL, the default, switches by the frontier's
+density. The vxm pull runs the monoid pull (K4) over A's CSC plan
+(`plan_for_monoid`), on the CPU and CUDA alike; the push (`ops/spmspv.py`)
+runs over A's CSR and gathers through K6. GRB_LAZY_FRONTIER=1 opts into
+the lazy dual-frontier protocol, as in BFS. Both modes are a Python loop
+over device work with one host read of `succ` per iteration (and one more
+where `mxv_dual` chooses a direction or a push workspace; the JAX fused
+mode is one device loop); "stepped" also prints the reference's
 per-iteration row when desc.timing is set.
 """
 from __future__ import annotations
@@ -26,25 +27,29 @@ import torch
 
 from ..descriptor import DEFAULT, Descriptor
 from ..matrix import Matrix
-from ..ops.dispatch import DualFrontier, mxv_dual
+from ..ops.dispatch import LAZY_SPARSE_CAP, DualFrontier, mxv_dual
 from ..ops.gather_dispatch import take
 from ..ops.kernels.monoid_pull import FLT_MAX as MAXF
 from ..ops.kernels.monoid_pull import MonoidPlan, plan_for_monoid
 from ..semiring import MinimumPlusSemiring
 from ..types import INDEX_DTYPE, Direction
 from ..vector import Vector
+from .bfs import _lazy_frontier, _sparse_targets
 from .common import (TightTimer, dense_result, edge_cap_for, print_dirinfo,
                      print_iter_row)
 
 
-def _initial_frontier(n: int, source: int, device) -> DualFrontier:
+def _initial_frontier(n: int, source: int, device,
+                      lazy: bool = False) -> DualFrontier:
     """The source alone, at distance 0: the dense image FLT_MAX elsewhere,
-    the sparse image (capacity n) with values, FLT_MAX in the pads."""
+    the sparse image (capacity n, or LAZY_SPARSE_CAP for the lazy
+    protocol) with values, FLT_MAX in the pads."""
+    cap = min(LAZY_SPARSE_CAP, n) if lazy else n
     dense = torch.full((n,), MAXF, dtype=torch.float32, device=device)
     dense[source] = 0.0
-    sind = torch.full((n,), n, dtype=INDEX_DTYPE, device=device)
+    sind = torch.full((cap,), n, dtype=INDEX_DTYPE, device=device)
     sind[0] = source
-    sval = torch.full((n,), MAXF, dtype=torch.float32, device=device)
+    sval = torch.full((cap,), MAXF, dtype=torch.float32, device=device)
     sval[0] = 0.0
     return DualFrontier(n, dense, sind, sval,
                         torch.tensor(1, dtype=INDEX_DTYPE, device=device),
@@ -52,27 +57,46 @@ def _initial_frontier(n: int, source: int, device) -> DualFrontier:
                         torch.tensor(True, device=device))
 
 
+def _relax(v: torch.Tensor, f2: DualFrontier):
+    """v = min(v, f2) in place on v, an (n + 1,) buffer whose last slot is
+    spare (eWiseAdd MinimumPlus, sssp.hpp:80-82): from the dense image
+    where it is valid, else by a scatter-min of the sparse image (the lazy
+    protocol after a push; exact, min is order-insensitive). With a tensor
+    flag both run, the dense image masked by the flag."""
+    n = v.shape[0] - 1
+    if f2.dense_ok is not True:
+        v.scatter_reduce_(0, _sparse_targets(f2, n), f2.sval, "amin")
+    if f2.dense_ok is not False:
+        dense = (f2.dense if f2.dense_ok is True
+                 else torch.where(f2.dense_ok, f2.dense, MAXF))
+        torch.minimum(v[:n], dense, out=v[:n])
+
+
 def _sssp_step(A: Matrix, v: torch.Tensor, f: DualFrontier,
                plan: MonoidPlan, *, switchpoint, mode, edge_cap=None,
-               sort_push=True, tiers=(64, 8)):
+               sort_push=True, tiers=(64, 8), lazy=False):
+    """One relaxation; `v` is the (n + 1,) distance buffer, updated in
+    place."""
+    vn = v[:A.nrows]
+
     def filter_unproductive(y):
         # eWiseAdd(m, CustomLessPlus, f2, v) + the scmp-masked assign of
         # FLT_MAX (sssp.hpp:76-88) in one where
-        return torch.where(y < v, y, MAXF)
+        return torch.where(y < vn, y, MAXF)
 
     def filter_sparse(keys, vals):
         # the push's twin: v at the sorted candidate keys (one ascending
         # gather), non-improving candidates to the FLT_MAX identity
-        return torch.where(vals < take(v, keys, sorted=True), vals, MAXF)
+        return torch.where(vals < take(vn, keys, sorted=True), vals, MAXF)
 
     f2, used_push = mxv_dual(
         A, f, MinimumPlusSemiring, identity=MAXF, transpose=True,
         edge_cap=edge_cap, sort_push=sort_push, switchpoint=switchpoint,
         mode=mode, tier_divisors=tiers, pull_plan=plan,
-        postprocess=filter_unproductive, postprocess_sparse=filter_sparse)
-    # relax: v = min(v, f2) (eWiseAdd MinimumPlus, sssp.hpp:80-82);
+        postprocess=filter_unproductive, postprocess_sparse=filter_sparse,
+        lazy=lazy)
     # filtered entries are FLT_MAX and cannot lower v
-    v = torch.minimum(v, f2.dense)
+    _relax(v, f2)
     return v, f2, f2.snvals, used_push
 
 
@@ -83,8 +107,10 @@ def _sssp_fused(A: Matrix, source: int, plan: MonoidPlan, *, switchpoint,
     """The relaxation loop from `source`: `it` starts at 1 and the loop runs
     while succ > 0 and it <= max_niter. Returns (v, iterations run)."""
     n = A.nrows
-    f = _initial_frontier(n, source, A.device)
-    v = f.dense                 # v0: FLT_MAX, 0 at the source
+    lazy = _lazy_frontier(mode)
+    f = _initial_frontier(n, source, A.device, lazy=lazy)
+    # v0: FLT_MAX, 0 at the source, and the spare slot
+    v = torch.cat([f.dense, f.dense.new_full((1,), MAXF)])
     timer = TightTimer()
     prev_push = None
     it, succ = 1, 1
@@ -92,7 +118,7 @@ def _sssp_fused(A: Matrix, source: int, plan: MonoidPlan, *, switchpoint,
         timer.start()
         v, f, succ_t, used_push = _sssp_step(
             A, v, f, plan, switchpoint=switchpoint, mode=mode,
-            edge_cap=edge_cap, sort_push=sort_push, tiers=tiers)
+            edge_cap=edge_cap, sort_push=sort_push, tiers=tiers, lazy=lazy)
         succ = int(succ_t)          # the loop's host read
         if timing or dirinfo:
             ms = timer.stop(v, f.dense)
@@ -100,18 +126,17 @@ def _sssp_fused(A: Matrix, source: int, plan: MonoidPlan, *, switchpoint,
             prev_push = used_push
             # unvisited: still at the FLT_MAX sentinel (the reference's CSV
             # column, bfs.hpp:54-60)
-            unvisited = int((v >= MAXF).sum()) if timing else n
+            unvisited = int((v[:n] >= MAXF).sum()) if timing else n
             print_iter_row(it, succ, n, unvisited, used_push, ms, timing)
         it += 1
-    return v, it - 1
+    return v[:n], it - 1
 
 
 def sssp(A: Matrix, source: int, desc: Descriptor = DEFAULT,
          mode: str = "fused") -> Vector:
     """Distances from `source`, float32; unreachable = FLT_MAX (reference:
-    sssp.hpp:26, the SimpleReferenceSssp conventions). Runs on A's device.
-    desc.mxv_mode PULLONLY and PUSHONLY are ported: the default
-    descriptor's PUSHPULL raises NotImplementedError, as BFS does."""
+    sssp.hpp:26, the SimpleReferenceSssp conventions). Runs on A's device,
+    in the direction desc.mxv_mode asks for."""
     if mode not in ("fused", "stepped"):
         raise ValueError(f"mode must be 'fused' or 'stepped', not {mode!r}")
     stepped = mode == "stepped"

@@ -76,8 +76,5 @@ class Descriptor:
 
 DEFAULT = Descriptor()
 
-# Tuned BFS flags (reference: run_bfs.sh:8-24). mxv_mode stays PUSHPULL as in
-# the JAX package. This package runs PULLONLY and PUSHONLY; PUSHPULL waits for
-# ROADMAP queue 1 item 5b, so callers pass BFS_TUNED.replace(mxv_mode=...)
-# with one of the two.
+# Tuned BFS flags (reference: run_bfs.sh:8-24); mxv_mode stays PUSHPULL.
 BFS_TUNED = Descriptor(structure_only=True, earlyexit=True, opreuse=True)

@@ -5,8 +5,8 @@ Ported so far: the three operations PageRank's matrix prep composes
 (`prepare_pr_matrix`, reference example/gpr.cu:82-90): the row reduce
 `reduce_matrix_to_vector`, `eWiseMult_matrix_scalar` and
 `scale_matrix_rows`; and triangle counting's: `tril`, the masked `mxm` and
-`trace_mxm_transpose` (ops/spgemm.py). The rest of the surface is ROADMAP
-queue 1 item 7.
+`trace_mxm_transpose` (ops/spgemm.py); and `transpose`, which the CLI's
+--transpose takes. The rest of the surface is ROADMAP queue 1 item 7.
 """
 from __future__ import annotations
 
@@ -19,7 +19,7 @@ from .descriptor import DEFAULT, Descriptor
 from .matrix import Matrix
 from .ops import spgemm
 from .semiring import BinaryOp, Monoid, Semiring, extract_add, extract_mul
-from .types import Storage
+from .types import SparseFormat, Storage
 from .vector import Vector
 
 # monoid name -> scatter_reduce reduction; the logical monoids reduce the
@@ -111,6 +111,22 @@ def mxm(A: Matrix, B: Matrix, semiring: Semiring,
     dim.check_row_row(A, mask, "mxm")
     return spgemm.spgemm_masked(A, B, mask, semiring,
                                 transpose_b=desc.transpose_inp1)
+
+
+def transpose(A: Matrix) -> Matrix:
+    """Aᵀ (reference: transpose.hpp:39-114 cusparseScsr2csc). With dual
+    CSR+CSC storage this swaps the two orientations and copies nothing: the
+    CSC becomes the CSR, and a one-sided format becomes the other. The
+    result has its own plan cache."""
+    fmt = {SparseFormat.CSRONLY: SparseFormat.CSCONLY,
+           SparseFormat.CSCONLY: SparseFormat.CSRONLY}.get(A.format, A.format)
+    return Matrix(A.ncols, A.nrows, A.nvals,
+                  row_ptr=A.col_ptr, col_ind=A.csc_row_ind,
+                  row_ind=A.csc_col_ind, val=A.csc_val,
+                  col_ptr=A.row_ptr, csc_row_ind=A.col_ind,
+                  csc_col_ind=A.row_ind, csc_val=A.val,
+                  format=fmt, symmetric=A.symmetric,
+                  _host_csr=A._host_csc, _host_csc=A._host_csr)
 
 
 def tril(A: Matrix) -> Matrix:

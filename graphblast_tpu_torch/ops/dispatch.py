@@ -2,8 +2,7 @@
 graphblast_tpu/ops/dispatch.py; reference: backend/cuda/operations.hpp:82-327
 and the direction heuristic, backend/cuda/vector.hpp:292-323).
 
-Ported so far: the DualFrontier carry, the direction heuristic, and two
-branches of `mxv_dual`:
+`mxv_dual` runs one of three modes:
   - PULLONLY (dispatch.py:255-296 of the JAX package): over a plan, the
     structure-only LogicalOrAnd pull over a bitmap plan (K1, fused BFS) or
     a unit-valued value plan, the PlusMultiplies pull over a value plan
@@ -12,23 +11,31 @@ branches of `mxv_dual`:
     (K5 and K6 for stepped BFS, the row fold S for a min/max semiring, with
     the orientation's cached row schedule); and the `postprocess` epilogue;
   - PUSHONLY (dispatch.py:432-436): the push of `ops/spmspv.py` over the
-    push orientation, in the eager protocol, with every gather on K6.
+    push orientation, with every gather on K6;
+  - PUSHPULL (dispatch.py:437-450), the default: the density heuristic's
+    preference, gated on the push workspace, picks one of the two each
+    call.
 A Matrix that lacks one orientation runs the direction it has, as the
-reference's one-sided formats do. PUSHPULL, the switch between the two, is
-ROADMAP queue 1 item 5b, with the lazy dual-frontier protocol: it raises
-NotImplementedError here rather than run another path.
+reference's one-sided formats do.
+
+Both images of the frontier stay valid every call (the eager protocol)
+unless the caller passes `lazy=True`, the JAX package's opt-in lazy
+dual-frontier protocol: each direction keeps only its own image, the
+sparse one bounded by LAZY_SPARSE_CAP, and the other is rebuilt at a
+switch.
 
 The push's workspace is one of a few fixed sizes (tiers: edge_cap/64,
 edge_cap/8, edge_cap, each rounded up to 1,024), as in the JAX package. JAX
-picks the tier on the device with a cond ladder; here the degree total and
-the frontier's count come to the host in one read per push, and the
-smallest tier that holds both runs. Where JAX truncates a frontier whose
-degree total exceeds edge_cap, the port raises ValueError.
+picks the direction and the tier on the device with conds; here the
+frontier's degree total, its count, the direction preference and the lazy
+flags come to the host in one read a call, and the host picks. Where JAX's
+PUSHONLY truncates a frontier whose degree total exceeds edge_cap, the port
+raises ValueError.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional
+from typing import Callable, Optional, Union
 
 import torch
 
@@ -41,12 +48,15 @@ from .kernels.minmax_pull import minmax_supported
 from .kernels.monoid_pull import MonoidPlan, monoid_supported, spmv_monoid
 from .kernels.row_schedule import schedule_for
 from .kernels.value_pull import ValuePlan, spmv_value_pull
-from .spmspv import spmspv_push, spmspv_push_sparse
+from .spmspv import frontier_degrees, spmspv_push, spmspv_push_sparse
 from .spmv import mask_pass, spmv_pull
 
-PUSHPULL_TODO = ("PUSHPULL, the switch between push and pull, is not ported "
-                 "yet: ROADMAP queue 1 item 5b; run one direction with "
-                 "mode=Direction.PUSHONLY or Direction.PULLONLY")
+# the bound on the sparse image a lazy push leaves behind: lazy consumers
+# (the BFS label assign, the SSSP relax, the degree total) touch only
+# sind[:LAZY_SPARSE_CAP]; a larger push output keeps its dense image
+LAZY_SPARSE_CAP = 8192
+
+Flag = Union[bool, torch.Tensor]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,6 +66,12 @@ class DualFrontier:
     dense (n,), sind (cap,), sval (cap,) or None, snvals, ratio and
     use_sparse as tensors on the frontier's device. A pull-only loop keeps
     the sparse image stale: only push reads it.
+
+    dense_ok / sparse_ok say which image is valid under the lazy protocol
+    (always True in the eager one): Python bools where the host knows them,
+    0-d bool tensors after a lazy push whose output may pass
+    LAZY_SPARSE_CAP. At least one is True; sparse_ok implies snvals <=
+    LAZY_SPARSE_CAP.
     """
 
     n: int
@@ -65,6 +81,8 @@ class DualFrontier:
     snvals: torch.Tensor
     ratio: torch.Tensor       # previous nnz/n (hysteresis state)
     use_sparse: torch.Tensor  # bool: push preferred
+    dense_ok: Flag = True
+    sparse_ok: Flag = True
 
     @staticmethod
     def from_dense(dense: torch.Tensor, identity,
@@ -104,7 +122,8 @@ def update_direction(nv: torch.Tensor, n: int, prev_ratio, prev_sparse,
                      switchpoint: float, mode) -> tuple:
     """The convert() heuristic with hysteresis (reference:
     vector.hpp:292-323): sparse→dense when density > switchpoint and rising,
-    dense→sparse when density ≤ switchpoint and falling. Returns
+    dense→sparse when density ≤ switchpoint and falling. `prev_sparse` is
+    whether the call pushed, a bool or a 0-d bool tensor. Returns
     (use_sparse, ratio)."""
     ratio = nv.float() / n
     # filled on the device: torch.tensor(..., device=) would copy from
@@ -114,6 +133,8 @@ def update_direction(nv: torch.Tensor, n: int, prev_ratio, prev_sparse,
         return true, ratio
     if mode == Direction.PULLONLY:
         return ~true, ratio
+    if isinstance(prev_sparse, bool):
+        prev_sparse = true if prev_sparse else ~true
     rising = ratio >= prev_ratio
     use_sparse = torch.where(ratio > switchpoint,
                              torch.where(rising, ~true, prev_sparse),
@@ -130,6 +151,32 @@ def _frontier_degree_total(push_ptr: torch.Tensor, f: DualFrontier,
     nn = f.dense.shape[0]
     deg = push_ptr[1: nn + 1] - push_ptr[:nn]
     return torch.where(f.dense != identity, deg, 0).sum()
+
+
+def _host_state(push_ptr: torch.Tensor, f: DualFrontier, identity,
+                sp: int) -> tuple:
+    """(deg_total, snvals, use_sparse, dense_ok, sparse_ok) as Python
+    values, in one host read: the direction, the push's gate and its tier
+    all follow from them.
+
+    The degree total comes from the dense image where the host knows it is
+    valid, else from sind[:sp] (`frontier_degrees`, two gathers), as JAX's
+    lazy `_deg_total` takes it. With tensor flags (a lazy push's output)
+    that is exact where sparse_ok holds; where it does not, snvals > sp and
+    the lazy gate pulls, so the total is not used."""
+    if f.dense_ok is True:
+        deg_total = _frontier_degree_total(push_ptr, f, identity)
+    else:
+        deg_total = frontier_degrees(push_ptr, f.sind[:sp], f.snvals).sum()
+    parts = [deg_total, f.snvals, f.use_sparse]
+    flags = [flag for flag in (f.dense_ok, f.sparse_ok)
+             if isinstance(flag, torch.Tensor)]
+    vals = torch.stack([t.to(torch.int64) for t in parts + flags]).tolist()
+    deg_total, snvals, use_sparse = vals[0], vals[1], bool(vals[2])
+    read = iter(bool(x) for x in vals[3:])
+    dense_ok, sparse_ok = (flag if isinstance(flag, bool) else next(read)
+                           for flag in (f.dense_ok, f.sparse_ok))
+    return deg_total, snvals, use_sparse, dense_ok, sparse_ok
 
 
 def push_tiers(edge_cap: int, tier_divisors: tuple = (64, 8)) -> list:
@@ -159,98 +206,106 @@ def pick_tier(tiers: list, deg_total: int, snvals: int) -> int:
     return tiers[-1]
 
 
-def _push(A: Matrix, f: DualFrontier, semiring: Semiring, identity, n_out,
-          push_csr, *, mask_dense, mask_scmp, structure_only, edge_cap,
-          sort_push, tier_divisors, postprocess, postprocess_sparse):
-    """The PUSHONLY branch: (y, sind, sval, nv) of one push over push_csr,
-    the (ptr, ind, val) of A's CSR for vxm and of its CSC for mxv. One host
-    read: the degree total and the frontier's count, which pick the
-    tier."""
+def _materialize_dense(f: DualFrontier, identity, sp: int) -> torch.Tensor:
+    """The dense image rebuilt from sind[:sp] at a push→pull switch: an
+    identity-filled (n,) with the stored entries scattered in (ones where
+    there are no values), pad slots into a spare slot past the end."""
+    n = f.dense.shape[0]
+    dev = f.dense.device
+    tgt = torch.where(torch.arange(sp, dtype=INDEX_DTYPE, device=dev)
+                      < f.snvals, f.sind[:sp], n).long()
+    vals = (f.sval[:sp].to(f.dense.dtype) if f.sval is not None
+            else torch.ones(sp, dtype=f.dense.dtype, device=dev))
+    out = torch.full((n + 1,), identity, dtype=f.dense.dtype, device=dev)
+    out[tgt] = vals
+    return out[:n]
+
+
+def _dense_image(f: DualFrontier, identity, sp: int,
+                 dense_ok: Flag) -> torch.Tensor:
+    """f's dense image, rebuilt from the sparse one where `dense_ok` says it
+    is stale (selected on the device for a tensor flag)."""
+    if dense_ok is True:
+        return f.dense
+    built = _materialize_dense(f, identity, sp)
+    return built if dense_ok is False else torch.where(dense_ok, f.dense,
+                                                       built)
+
+
+def _sparsify(f: DualFrontier, identity) -> tuple:
+    """The sparse image rebuilt from the dense one at a pull→push switch:
+    the full-n `sparse_from_dense`, cut to the carry's capacity (the lazy
+    gate pushes only a frontier that fits it)."""
+    sind, sval, nv = sparse_from_dense(f.dense, identity,
+                                       with_values=f.sval is not None)
+    k = f.sind.shape[0]
+    return sind[:k], (sval[:k] if sval is not None else None), nv
+
+
+def _push(push_csr, fin, deg_total: int, snvals: int, tiers: list,
+          semiring: Semiring, identity, n_out: int, *, mask_dense, mask_scmp,
+          structure_only, sort_push, postprocess, postprocess_sparse, lazy,
+          sp, stale_dense):
+    """One push over push_csr, the (ptr, ind, val) of A's CSR for vxm and
+    of its CSC for mxv, from the sparse image `fin` = (sind, sval, snvals),
+    in the smallest tier that holds the frontier. Returns (y, sind, sval,
+    nv, dense_ok, sparse_ok).
+
+    Lazy: the sparse image compacts into sp slots and the dense image is
+    the stale one carried in. A push whose degree total is at most sp
+    cannot find more than sp entries, so its flags are known here:
+    (False, True). A larger one may overflow: `spmspv_push_sparse` then
+    builds the dense image from the workspace where nv > sp, chosen on the
+    device, and the flags are the tensors (nv > sp, nv <= sp)."""
     push_ptr, push_ind, push_val = push_csr
-    deg_total, snvals = torch.stack([
-        _frontier_degree_total(push_ptr, f, identity).to(torch.int64),
-        f.snvals.to(torch.int64)]).tolist()
-    tiers = push_tiers(A.nnz_pad if edge_cap is None else edge_cap,
-                       tier_divisors)
+    f_sind, f_sval, f_snvals = fin
     cap = pick_tier(tiers, deg_total, snvals)
     # a lower tier holds the whole frontier (snvals <= cap): every stage of
     # the expansion then scales with the tier, not with n
-    fs = f.sind[:cap] if cap < tiers[-1] else f.sind
-    fcap = fs.shape[0]
-    fv = f.sval[:fcap] if f.sval is not None else None
+    fs = f_sind[:cap] if cap < tiers[-1] else f_sind
+    fv = f_sval[:fs.shape[0]] if f_sval is not None else None
     with_vals = not structure_only
     if sort_push and (postprocess is None or postprocess_sparse is not None):
         # the MERGE push compacts the new frontier inside the workspace
-        return spmspv_push_sparse(
-            push_ptr, push_ind, push_val, fs, fv, f.snvals, semiring, n_out,
+        small = deg_total <= sp
+        y, sind, sval, nv = spmspv_push_sparse(
+            push_ptr, push_ind, push_val, fs, fv, f_snvals, semiring, n_out,
             cap, mask_dense, mask_scmp, structure_only,
-            with_values=with_vals, postprocess_sparse=postprocess_sparse)
-    y = spmspv_push(push_ptr, push_ind, push_val, fs, fv, f.snvals,
+            with_values=with_vals, postprocess_sparse=postprocess_sparse,
+            build_dense=not lazy, out_cap=sp if lazy else None,
+            stale_dense=None if small else stale_dense)
+        if not lazy:
+            return y, sind, sval, nv, True, True
+        if small:
+            return stale_dense, sind, sval, nv, False, True
+        fits = nv <= sp
+        return y, sind, sval, nv, ~fits, fits
+    y = spmspv_push(push_ptr, push_ind, push_val, fs, fv, f_snvals,
                     semiring, n_out, cap, mask_dense, mask_scmp,
                     structure_only, sort_push)
-    # a dense-only producer re-sparsifies with the full-n sort (the
-    # reference's streamCompact epilogue, vector.hpp:367-425)
+    return _finish_dense(y, identity, postprocess, with_vals, not lazy, fin)
+
+
+def _finish_dense(y: torch.Tensor, identity, postprocess, with_vals: bool,
+                  resparsify: bool, carry) -> tuple:
+    """The epilogue of a dense-only producer (a pull, the SIMPLE push):
+    `postprocess`, then, with `resparsify`, the full-n re-sparsification
+    (the reference's streamCompact, vector.hpp:367-425), so that the next
+    push reads a valid sparse image. Without it (lazy callers, pull-only
+    loops) the count is a reduction, the sparse image `carry` = (sind,
+    sval, snvals) stays stale and the flags say so."""
     if postprocess is not None:
         y = postprocess(y)
+    if not resparsify:
+        nv = (y != identity).sum().to(INDEX_DTYPE)
+        return y, carry[0], carry[1], nv, True, False
     sind, sval, nv = sparse_from_dense(y, identity, with_values=with_vals)
-    return y, sind, sval, nv
+    return y, sind, sval, nv, True, True
 
 
-def mxv_dual(A: Matrix, f: DualFrontier, semiring: Semiring, identity, *,
-             transpose: bool = False,
-             mask_dense: Optional[torch.Tensor] = None,
-             mask_scmp: bool = False, structure_only: bool = False,
-             edge_cap: Optional[int] = None, sort_push: bool = True,
-             switchpoint: float = 0.01, mode=None,
-             postprocess: Optional[Callable] = None,
-             postprocess_sparse: Optional[Callable] = None,
-             tier_divisors: tuple = (64, 8), pull_plan=None):
-    """One y = A ⊗ f (or fᵀ ⊗ A when transpose), returning a new
-    DualFrontier and whether push ran (reference: operations.hpp:108-199
-    vxm + convert()).
-
-    `mode` PULLONLY pulls; PUSHONLY pushes; PUSHPULL (the default) raises
-    NotImplementedError. A Matrix without the push orientation pulls and
-    one without the pull orientation pushes, whatever `mode` says.
-
-    Pull: `pull_plan` is None, for `spmv_pull` over the pull orientation's
-    arrays (CSC for vxm, CSR for mxv) with any semiring, or a plan of that
-    orientation: a BitmapPlan for the structure-only LogicalOrAnd pull, a
-    ValuePlan for that pull (unit values only) or the PlusMultiplies pull,
-    or a MonoidPlan for a min/max semiring of SEMIRING_MAP over a float32
-    frontier. `postprocess(y)` runs after the mask and before the count of
-    non-identity entries, as in the JAX PULLONLY branch. The pull keeps the
-    sparse image stale: only push reads it.
-
-    Push reads the frontier's sparse image (which must hold no
-    identity-valued entry, see DualFrontier.from_sparse) and ignores
-    `pull_plan`. Its workspace is the smallest of `push_tiers(edge_cap,
-    tier_divisors)` that holds the frontier (edge_cap defaults to A's
-    nnz_pad). `sort_push` picks the MERGE sort push, which builds the
-    sparse image from its own sort, over the SIMPLE scatter push; a
-    `postprocess` without its sparse twin `postprocess_sparse(keys, vals)`
-    sends the push to the dense route and the full-n re-sparsification.
-    The JAX signature's `lazy` comes with PUSHPULL."""
-    mode = mode if mode is not None else Direction.PUSHPULL
-    n_out, _, pull_ptr, pull_ind, pull_val = A.pull_csr(transpose)
-    # push expands the input's adjacency: the other orientation
-    push_csr = A.pull_csr(not transpose)[2:]
-    if push_csr[0] is None:   # one-sided storage forces one direction
-        mode = Direction.PULLONLY
-    if pull_ptr is None:
-        mode = Direction.PUSHONLY
-    if mode == Direction.PUSHPULL:
-        raise NotImplementedError(PUSHPULL_TODO)
-    if mode == Direction.PUSHONLY:
-        y, sind, sval, nv = _push(
-            A, f, semiring, identity, n_out, push_csr,
-            mask_dense=mask_dense, mask_scmp=mask_scmp,
-            structure_only=structure_only, edge_cap=edge_cap,
-            sort_push=sort_push, tier_divisors=tier_divisors,
-            postprocess=postprocess, postprocess_sparse=postprocess_sparse)
-        use_sparse, ratio = update_direction(nv, n_out, f.ratio, True,
-                                             switchpoint, mode)
-        return DualFrontier(n_out, y, sind, sval, nv, ratio, use_sparse), True
+def _check_pull_plan(pull_plan, semiring: Semiring, structure_only: bool,
+                     dtype: torch.dtype, n_out: int, transpose: bool):
+    """Raises unless `pull_plan` (None or a plan) can run this pull."""
     or_pull = structure_only and semiring.name == "LogicalOrAnd"
     if isinstance(pull_plan, MonoidPlan):
         missing = [why for why, bad in (
@@ -258,8 +313,8 @@ def mxv_dual(A: Matrix, f: DualFrontier, semiring: Semiring, identity, *,
              structure_only),
             (f"a semiring of SEMIRING_MAP ({semiring.name} is not)",
              not monoid_supported(semiring)),
-            (f"a float32 frontier ({f.dense.dtype} given)",
-             f.dense.dtype != torch.float32)) if bad]
+            (f"a float32 frontier ({dtype} given)",
+             dtype != torch.float32)) if bad]
         if missing:
             raise NotImplementedError("the monoid pull needs "
                                       + " and ".join(missing))
@@ -284,30 +339,149 @@ def mxv_dual(A: Matrix, f: DualFrontier, semiring: Semiring, identity, *,
         raise ValueError(f"plan has {pull_plan.n_out} output rows, the "
                          f"{'vxm' if transpose else 'mxv'} pull needs {n_out}")
 
+
+def _pull(A: Matrix, fd: torch.Tensor, semiring: Semiring, n_out: int,
+          pull_csr, transpose: bool, *, mask_dense, mask_scmp,
+          structure_only, pull_plan) -> torch.Tensor:
+    """y = the pull of the dense frontier `fd` over pull_csr, the (ptr, ind,
+    val) of A's CSR for mxv and of its CSC for vxm, under the mask: through
+    `pull_plan`'s kernel, or `spmv_pull` without a plan."""
+    pull_ptr, pull_ind, pull_val = pull_csr
     if pull_plan is None:   # the mask is applied below, for every route
         # only the min/max row fold reads a schedule
         sched = (schedule_for(A, transpose)
-                 if minmax_supported(semiring, f.dense.dtype) else None)
-        y = spmv_pull(pull_ptr, pull_ind, pull_val, f.dense, semiring, n_out,
+                 if minmax_supported(semiring, fd.dtype) else None)
+        y = spmv_pull(pull_ptr, pull_ind, pull_val, fd, semiring, n_out,
                       structure_only=structure_only, sched=sched)
     elif isinstance(pull_plan, MonoidPlan):
-        y = spmv_monoid(pull_plan, f.dense, semiring)
+        y = spmv_monoid(pull_plan, fd, semiring)
     else:
         if isinstance(pull_plan, BitmapPlan):
             # the bitmap plan ignores edge values
-            cnt = spmv_bitmap_pull(pull_plan, pack_bitmap(f.dense))
+            cnt = spmv_bitmap_pull(pull_plan, pack_bitmap(fd))
         else:   # the kernel computes in float32, as the JAX kernel does
-            cnt = spmv_value_pull(pull_plan, f.dense.to(torch.float32))
+            cnt = spmv_value_pull(pull_plan, fd.to(torch.float32))
         # count>0 is the fused-or result
-        y = (cnt > 0 if or_pull else cnt).to(f.dense.dtype)
+        or_pull = structure_only and semiring.name == "LogicalOrAnd"
+        y = (cnt > 0 if or_pull else cnt).to(fd.dtype)
     if mask_dense is not None:
         y = y.masked_fill(~mask_pass(mask_dense, mask_scmp),
                           semiring.identity(y.dtype).item())
-    if postprocess is not None:
-        y = postprocess(y)
-    # pull-only loops skip re-sparsifying: only push reads sind/sval
-    nv = (y != identity).sum().to(INDEX_DTYPE)
-    use_sparse, ratio = update_direction(nv, n_out, f.ratio, f.use_sparse,
+    return y
+
+
+def mxv_dual(A: Matrix, f: DualFrontier, semiring: Semiring, identity, *,
+             transpose: bool = False,
+             mask_dense: Optional[torch.Tensor] = None,
+             mask_scmp: bool = False, structure_only: bool = False,
+             edge_cap: Optional[int] = None, sort_push: bool = True,
+             switchpoint: float = 0.01, mode=None,
+             postprocess: Optional[Callable] = None,
+             postprocess_sparse: Optional[Callable] = None,
+             tier_divisors: tuple = (64, 8), pull_plan=None,
+             lazy: bool = False):
+    """One y = A ⊗ f (or fᵀ ⊗ A when transpose), returning a new
+    DualFrontier and whether push ran, a Python bool (reference:
+    operations.hpp:108-199 vxm + convert()).
+
+    `mode` PULLONLY pulls; PUSHONLY pushes; PUSHPULL (the default) pushes
+    when the frontier prefers it (`use_sparse`, the heuristic's last
+    verdict) and its degree total fits edge_cap, else pulls. A Matrix
+    without the push orientation pulls and one without the pull
+    orientation pushes, whatever `mode` says.
+
+    Pull: `pull_plan` is None, for `spmv_pull` over the pull orientation's
+    arrays (CSC for vxm, CSR for mxv) with any semiring, or a plan of that
+    orientation: a BitmapPlan for the structure-only LogicalOrAnd pull, a
+    ValuePlan for that pull (unit values only) or the PlusMultiplies pull,
+    or a MonoidPlan for a min/max semiring of SEMIRING_MAP over a float32
+    frontier. `postprocess(y)` runs after the mask and before the count of
+    non-identity entries. PULLONLY keeps the sparse image stale (only push
+    reads it); a PUSHPULL pull rebuilds it, since the next call may push.
+
+    Push reads the frontier's sparse image (which must hold no
+    identity-valued entry, see DualFrontier.from_sparse) and ignores
+    `pull_plan`. Its workspace is the smallest of `push_tiers(edge_cap,
+    tier_divisors)` that holds the frontier (edge_cap defaults to A's
+    nnz_pad). `sort_push` picks the MERGE sort push, which builds the
+    sparse image from its own sort, over the SIMPLE scatter push; a
+    `postprocess` without its sparse twin `postprocess_sparse(keys, vals)`
+    sends the push to the dense route and the full-n re-sparsification.
+
+    `lazy=True` is the lazy dual-frontier protocol (see DualFrontier): a
+    push keeps the sparse image only (LAZY_SPARSE_CAP slots) and a pull
+    the dense one only; the missing image is rebuilt at a switch, and a
+    pull-produced frontier switches to push only when it fits the sparse
+    carry. It needs a square operand. A push-only run keeps the eager
+    protocol, as the JAX loops ask for it.
+
+    PUSHPULL and PUSHONLY read the frontier's state on the host once a
+    call (`_host_state`); PULLONLY reads nothing."""
+    mode = mode if mode is not None else Direction.PUSHPULL
+    n_out, _, pull_ptr, pull_ind, pull_val = A.pull_csr(transpose)
+    # push expands the input's adjacency: the other orientation
+    push_csr = A.pull_csr(not transpose)[2:]
+    if push_csr[0] is None:   # one-sided storage forces one direction
+        mode = Direction.PULLONLY
+    if pull_ptr is None:
+        mode = Direction.PUSHONLY
+    if lazy and f.dense.shape[0] != n_out:
+        raise ValueError("lazy mxv_dual requires a square operand (the "
+                         "stale-image carry shares one vertex space)")
+    # a frontier past the lazy carry can only be pulled: a push-only run
+    # would truncate it, so it keeps both images valid
+    lazy = lazy and mode != Direction.PUSHONLY
+    sp = min(LAZY_SPARSE_CAP, f.sind.shape[0])
+    with_vals = not structure_only
+
+    def pull(fd):
+        return _pull(A, fd, semiring, n_out, (pull_ptr, pull_ind, pull_val),
+                     transpose, mask_dense=mask_dense, mask_scmp=mask_scmp,
+                     structure_only=structure_only, pull_plan=pull_plan)
+
+    if mode != Direction.PUSHONLY:
+        _check_pull_plan(pull_plan, semiring, structure_only, f.dense.dtype,
+                         n_out, transpose)
+    carry = (f.sind, f.sval, f.snvals)
+    if mode == Direction.PULLONLY:
+        # pull-only loops skip re-sparsifying: only push reads sind/sval
+        y, sind, sval, nv, _, _ = _finish_dense(
+            pull(_dense_image(f, identity, sp, f.dense_ok)), identity,
+            postprocess, with_vals, False, carry)
+        use_sparse, ratio = update_direction(nv, n_out, f.ratio, False,
+                                             switchpoint, mode)
+        return (DualFrontier(n_out, y, sind, sval, nv, ratio, use_sparse,
+                             True, not lazy), False)
+
+    deg_total, snvals, use_sparse, dense_ok, sparse_ok = _host_state(
+        push_csr[0], f, identity, sp)
+    tiers = push_tiers(A.nnz_pad if edge_cap is None else edge_cap,
+                       tier_divisors)
+    if mode == Direction.PUSHONLY:
+        use_push = True
+    else:
+        # JAX's semantics (dispatch.py:440), not a fallback: a frontier
+        # whose expansion would not fit the workspace pulls
+        use_push = use_sparse and deg_total <= tiers[-1]
+        if lazy:
+            # a pull-produced frontier switches to push only if it fits
+            # the lazy carry (bigger frontiers are pull's regime)
+            use_push = use_push and (sparse_ok or snvals <= sp)
+    if use_push:
+        fin = carry if sparse_ok else _sparsify(f, identity)
+        y, sind, sval, nv, dense_ok, sparse_ok = _push(
+            push_csr, fin, deg_total, snvals, tiers, semiring, identity,
+            n_out, mask_dense=mask_dense, mask_scmp=mask_scmp,
+            structure_only=structure_only, sort_push=sort_push,
+            postprocess=postprocess, postprocess_sparse=postprocess_sparse,
+            lazy=lazy, sp=sp, stale_dense=f.dense)
+    else:
+        y, sind, sval, nv, dense_ok, sparse_ok = _finish_dense(
+            pull(_dense_image(f, identity, sp, dense_ok)), identity,
+            postprocess, with_vals, not lazy, carry)
+    # hysteresis compares with the direction this call ran
+    # (dispatch.py:448), not with the preference it was given
+    use_sparse, ratio = update_direction(nv, n_out, f.ratio, use_push,
                                          switchpoint, mode)
-    return (DualFrontier(n_out, y, f.sind, f.sval, nv, ratio, use_sparse),
-            False)
+    return (DualFrontier(n_out, y, sind, sval, nv, ratio, use_sparse,
+                         dense_ok, sparse_ok), use_push)

@@ -71,9 +71,9 @@ def sparse_from_dense(dense: torch.Tensor, identity,
     sind = torch.sort(torch.where(flags, arange, n)).values
     sval = None
     if with_values:
-        ident = torch.as_tensor(identity, dtype=dense.dtype,
-                                device=dense.device)
+        # the identity goes in as a scalar argument: a tensor made from it
+        # on the card would be copied from the host, waiting for the stream
         sval = torch.where(sind < n, dense[sind.clamp(max=n - 1).long()],
-                           ident)
+                           identity).to(dense.dtype)
     nv = flags.sum().to(INDEX_DTYPE)
     return sind, sval, nv

@@ -129,30 +129,37 @@ def test_bfs_max_niter_stops_the_loop(graphs):
     np.testing.assert_array_equal(got, reference.bfs_cpu(T, 0, max_depth=3))
 
 
-def test_push_modes_raise(graphs):
-    """PUSHPULL (BFS_TUNED's default) is not ported: it raises and names
-    its queue item, and nothing falls back to another path. PUSHONLY runs
-    and gives the golden levels in both modes."""
-    _, T = graphs["chesapeake"]
-    with pytest.raises(NotImplementedError, match="queue 1 item 5b"):
-        bfs(T, 0, tgb.BFS_TUNED)
+def test_push_modes_run(graphs):
+    """PUSHPULL (BFS_TUNED's default) runs and gives the JAX PUSHPULL bfs's
+    levels and the golden in both modes, as PUSHONLY does; an unknown mode
+    raises."""
+    J, T = graphs["chesapeake"]
+    want = np.asarray(jax_bfs(J, 0, jgb.BFS_TUNED).to_numpy())
+    np.testing.assert_array_equal(want, bfs_cpu(T, 0))
     push = tgb.BFS_TUNED.replace(mxv_mode=tgb.Direction.PUSHONLY)
     for mode in ("fused", "stepped"):
+        np.testing.assert_array_equal(
+            bfs(T, 0, tgb.BFS_TUNED, mode=mode).to_numpy(), want)
         np.testing.assert_array_equal(bfs(T, 0, push, mode=mode).to_numpy(),
                                       bfs_cpu(T, 0))
     with pytest.raises(ValueError):
         bfs(T, 0, PULL, mode="async")
 
 
-def test_pull_without_a_plan_matches_the_plan_and_push_raises(graphs):
+def test_pull_without_a_plan_matches_the_plan_and_pushpull_runs(graphs):
     """With no plan, mxv_dual runs spmv_pull and gives the bitmap plan's
     frontier, and a BFS that is not structure-only (no plan) runs. The
-    PUSHONLY push gives the same frontier; only PUSHPULL raises."""
+    PUSHONLY push gives the same frontier, and PUSHPULL, from the source
+    alone (push preferred), pushes it and equals the JAX PUSHPULL
+    mxv_dual: dense image, count, used_push, use_sparse and ratio."""
+    from graphblast_tpu.algorithms.bfs import (
+        _initial_frontier as jax_initial_frontier)
+    from graphblast_tpu.ops.dispatch import mxv_dual as jax_mxv_dual
     from graphblast_tpu_torch.algorithms.bfs import _initial_frontier
     from graphblast_tpu_torch.ops.dispatch import mxv_dual
     from graphblast_tpu_torch.ops.kernels.bitmap_pull import plan_for_bitmap
 
-    _, T = graphs["chesapeake"]
+    J, T = graphs["chesapeake"]
     f = _initial_frontier(T.nrows, 0, T.device)
     kw = dict(transpose=True, structure_only=True,
               mode=tgb.Direction.PULLONLY)
@@ -167,9 +174,17 @@ def test_pull_without_a_plan_matches_the_plan_and_push_raises(graphs):
                              **dict(kw, mode=tgb.Direction.PUSHONLY))
     assert used_push and torch.equal(f3.dense, f1.dense)
     assert int(f3.snvals) == int(f1.snvals)
-    with pytest.raises(NotImplementedError, match="queue 1 item 5b"):
-        mxv_dual(T, f, tgb.LogicalOrAndSemiring, 0.0,
-                 **dict(kw, mode=tgb.Direction.PUSHPULL))
+    f4, used_push = mxv_dual(T, f, tgb.LogicalOrAndSemiring, 0.0,
+                             **dict(kw, mode=tgb.Direction.PUSHPULL))
+    jf, j_push = jax_mxv_dual(J, jax_initial_frontier(T.nrows, 0),
+                              jgb.LogicalOrAndSemiring, 0.0,
+                              **dict(kw, mode=jgb.Direction.PUSHPULL))
+    assert used_push is True and bool(j_push)
+    assert torch.equal(f4.dense, f1.dense)
+    np.testing.assert_array_equal(f4.dense.numpy(), np.asarray(jf.dense))
+    assert int(f4.snvals) == int(jf.snvals) == int(f1.snvals)
+    assert bool(f4.use_sparse) == bool(jf.use_sparse)
+    assert float(f4.ratio) == float(jf.ratio)
 
 
 def test_rmat_edges_match_jax():

@@ -1,0 +1,179 @@
+"""The port's CLI machinery (`graphblast_tpu_torch.utils`) and its gbfs,
+gsssp and gdiameter drivers (`graphblast_tpu_torch.examples`) against the
+JAX package's, on the CPU (`--device cpu`).
+
+Every check is exact: descriptor fields, graph arrays, the drivers' exit
+codes and their CORRECT / INCORRECT lines (the drivers verify exactly for
+BFS and the diameter, and within the reference's 1e-3 for SSSP).
+"""
+import argparse
+import os
+
+import numpy as np
+import pytest
+import torch
+
+import graphblast_tpu_torch as tgb
+from graphblast_tpu.utils import cli as jcli
+from graphblast_tpu_torch.examples import gbfs, gdiameter, gsssp
+from graphblast_tpu_torch.utils import cli as tcli
+from graphblast_tpu_torch.utils import profiling, verify_list
+
+DATA = os.path.join(os.path.dirname(__file__), "..", "data", "small")
+CHESAPEAKE = os.path.join(DATA, "chesapeake.mtx")
+DRIVERS = {"gbfs": (gbfs, "BFS: CORRECT"), "gsssp": (gsssp, "SSSP: CORRECT"),
+           "gdiameter": (gdiameter, "CORRECT")}
+
+
+def _parse(module, argv):
+    return module.build_parser("g", "").parse_args(argv)
+
+
+@pytest.mark.parametrize("mxvmode", [0, 1, 2])
+def test_descriptor_from_args_matches_jax(mxvmode):
+    """Each --mxvmode (0 PUSHPULL, 1 PUSHONLY, 2 PULLONLY) and the tuned
+    BFS flags give the JAX descriptor, field by field (the Direction and
+    LoadBalanceMode enums by name): every field but JAX's `backend`, which
+    picks between its traced and host-functor paths."""
+    argv = ["g.mtx", "--mxvmode", str(mxvmode), "--struconly", "1",
+            "--earlyexit", "1", "--opreuse", "1", "--switchpoint", "0.05",
+            "--memusage", "0.5", "--sort", "0", "--max_niter", "7",
+            "--timing", "1", "--dirinfo", "--seed", "3"]
+    jd = jcli.descriptor_from_args(_parse(jcli, argv))
+    td = tcli.descriptor_from_args(_parse(tcli, argv))
+    assert set(jd.__dataclass_fields__) - set(td.__dataclass_fields__) == {
+        "backend"}
+    for field in td.__dataclass_fields__:
+        a, b = getattr(jd, field), getattr(td, field)
+        if hasattr(a, "name"):
+            a, b = a.name, b.name
+        assert a == b, field
+    assert td.mxv_mode.name == ("PUSHPULL", "PUSHONLY", "PULLONLY")[mxvmode]
+
+
+def test_parser_matches_jax_but_for_device():
+    """The same flags and defaults as the JAX parser, and one more:
+    --device, default cuda."""
+    jargs = vars(_parse(jcli, ["g.mtx"]))
+    targs = vars(_parse(tcli, ["g.mtx"]))
+    assert targs.pop("device") == "cuda"
+    assert targs == jargs
+
+
+def test_load_graph_matches_jax_and_transposes():
+    """load_graph on an .mtx and an rmat: pseudo-path builds the JAX
+    package's graph on --device; --transpose swaps the orientations
+    without a copy (operations.transpose), equal to the JAX transpose."""
+    from graphblast_tpu.operations import transpose as jtranspose
+
+    for argv in (["rmat:8:4:5"], [CHESAPEAKE], ["rmat:7:8", "--directed",
+                                                "1", "--seed", "2"]):
+        for extra in ([], ["--transpose"]):
+            J = jcli.load_graph(_parse(jcli, argv + extra))
+            T = tcli.load_graph(_parse(tcli, argv + extra + ["--device",
+                                                             "cpu"]))
+            assert (T.nrows, T.ncols, T.nvals) == (J.nrows, J.ncols, J.nvals)
+            assert T.device.type == "cpu"
+            for leaf in tgb.matrix.LEAVES:
+                a, b = getattr(J, leaf), getattr(T, leaf)
+                assert (a is None) == (b is None), leaf
+                if a is not None:
+                    np.testing.assert_array_equal(b.numpy(), np.asarray(a))
+    J = jcli.load_graph(_parse(jcli, ["rmat:7:8", "--directed", "1"]))
+    T = tcli.load_graph(_parse(tcli, ["rmat:7:8", "--directed", "1",
+                                      "--device", "cpu"]))
+    Tt = tgb.transpose(T)
+    assert Tt.row_ptr is T.col_ptr and Tt.col_ptr is T.row_ptr
+    np.testing.assert_array_equal(Tt.host_csr()[0],
+                                  np.asarray(jtranspose(J).row_ptr))
+    C = tgb.Matrix.from_coo(*T.extract_tuples(), T.nrows, T.ncols,
+                            fmt=tgb.SparseFormat.CSRONLY, device="cpu")
+    Ct = tgb.transpose(C)
+    assert Ct.row_ptr is None and Ct.format == tgb.SparseFormat.CSCONLY
+    assert tgb.transpose(Ct).format == tgb.SparseFormat.CSRONLY
+
+
+@pytest.mark.parametrize("mxvmode", [0, 1, 2])
+@pytest.mark.parametrize("graph", [CHESAPEAKE, "rmat:10:16"],
+                         ids=["chesapeake", "rmat10"])
+@pytest.mark.parametrize("driver", sorted(DRIVERS))
+def test_driver_verifies_on_the_cpu(driver, graph, mxvmode, capsys):
+    """Each driver's main() with --device cpu under each --mxvmode prints
+    its CORRECT line and the summary row and returns 0 (gbfs with
+    run_bfs.sh's flags)."""
+    module, correct = DRIVERS[driver]
+    argv = [graph, "--device", "cpu", "--mxvmode", str(mxvmode),
+            "--niter", "2"]
+    if driver == "gbfs":
+        argv += ["--timing", "0", "--earlyexit", "1", "--struconly", "1",
+                 "--opreuse", "1"]
+    if driver == "gdiameter":
+        argv += ["--source_start", "0", "--source_end", "3"]
+    assert module.main(argv) == 0
+    out = capsys.readouterr().out.splitlines()
+    assert any(line.endswith(correct) for line in out)
+    assert out[-2] == "cpu, warmup, tight, GTEPS"
+    assert len(out[-1].split(", ")) == 4
+
+
+def test_diameter_driver_prints_the_jax_answer(capsys):
+    """gdiameter over sources [0, 10) of chesapeake prints the JAX
+    diameter and its source."""
+    from graphblast_tpu.algorithms import diameter as jax_diameter
+
+    J = jcli.load_graph(_parse(jcli, [CHESAPEAKE]))
+    d, s = jax_diameter(J, 0, 10)
+    assert gdiameter.main([CHESAPEAKE, "--device", "cpu", "--source_start",
+                           "0", "--source_end", "10", "--niter", "1"]) == 0
+    assert f"DIAMETER: {int(d)} (source {int(s)}) CORRECT" in (
+        capsys.readouterr().out)
+
+
+@pytest.mark.parametrize("driver", sorted(DRIVERS))
+def test_driver_returns_1_on_a_wrong_golden(driver, monkeypatch, capsys):
+    """A golden that disagrees makes the driver print INCORRECT and return
+    1."""
+    from graphblast_tpu_torch.algorithms import reference
+
+    module, _ = DRIVERS[driver]
+    if driver == "gsssp":
+        good = reference.sssp_cpu
+        monkeypatch.setattr(reference, "sssp_cpu",
+                            lambda A, s: good(A, s) + 1.0)
+    else:
+        good = reference.bfs_cpu
+        monkeypatch.setattr(reference, "bfs_cpu",
+                            lambda A, s: good(A, s) + 1)
+    assert module.main([CHESAPEAKE, "--device", "cpu", "--niter", "1"]) == 1
+    assert "INCORRECT" in capsys.readouterr().out
+
+
+def test_driver_raises_without_a_card():
+    """The drivers run on cuda unless --device says otherwise, and raise
+    where there is no card instead of running on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this test is for a machine without CUDA")
+    with pytest.raises(RuntimeError, match="cuda"):
+        gbfs.main([CHESAPEAKE, "--niter", "1"])
+
+
+def test_profile_writes_a_chrome_trace(tmp_path, capsys):
+    """--profile <dir> writes the benchmark loop's torch.profiler trace as
+    <dir>/trace.json, holding the annotated span."""
+    out = tmp_path / "prof"
+    with profiling.trace(str(out)):
+        with profiling.annotate("graphblast-span"):
+            torch.ones(4).sum()
+    assert "graphblast-span" in (out / "trace.json").read_text()
+    assert gbfs.main([CHESAPEAKE, "--device", "cpu", "--niter", "1",
+                      "--profile", str(tmp_path / "run")]) == 0
+    assert (tmp_path / "run" / "trace.json").stat().st_size > 0
+    with profiling.trace(""):
+        pass
+
+
+def test_verify_helpers_report_mismatches(capsys):
+    assert verify_list(np.arange(4), np.arange(4), "X")
+    assert not verify_list(np.arange(4), np.array([0, 1, 5, 3]), "X")
+    assert "first mismatch at [2]" in capsys.readouterr().out
+    assert isinstance(tcli.build_parser("g"), argparse.ArgumentParser)

@@ -970,3 +970,45 @@ def test_push_bfs_and_sssp_on_the_card_launch_k6_per_iteration(cuda):
                         mode=tgb.Direction.PUSHONLY, max_niter=1000)
     assert ran == 11 * it > 0
     assert _hand_kernel_launches() == others
+
+
+# (graph, switchpoint): RMAT 12 from its hub under the default switchpoint,
+# RMAT 14 at 0.5 (the hub's second push passes LAZY_SPARSE_CAP: the lazy
+# flags become tensors on the card), and a 64 x 64 grid
+PUSHPULL_CARD_CASES = [("rmat12", 0.01), ("rmat14", 0.5), ("grid64", 0.01)]
+
+
+def _pushpull_graph(name, device):
+    from graphblast_tpu_torch.io.rmat import grid_matrix, rmat_matrix
+
+    if name == "grid64":
+        return grid_matrix(64, device=device)
+    return rmat_matrix(int(name[4:]), 16, seed=42, device=device)
+
+
+@pytest.mark.parametrize("lazy", [False, True], ids=["eager", "lazy"])
+@pytest.mark.parametrize("name,switchpoint", PUSHPULL_CARD_CASES,
+                         ids=[c[0] for c in PUSHPULL_CARD_CASES])
+def test_pushpull_on_the_card_matches_the_cpu(cuda, monkeypatch, name,
+                                              switchpoint, lazy):
+    """The default BFS and SSSP (PUSHPULL), fused and stepped, eager and
+    with GRB_LAZY_FRONTIER=1, and diameter over sources [0, 8), on the
+    card equal the same calls on the CPU (the kernels' plain versions) and
+    the goldens; exact."""
+    if lazy:
+        monkeypatch.setenv("GRB_LAZY_FRONTIER", "1")
+    A = _pushpull_graph(name, cuda)
+    C = _pushpull_graph(name, "cpu")
+    s = int(np.argmax(np.diff(C.host_csr()[0])))
+    bdesc = tgb.BFS_TUNED.replace(switchpoint=switchpoint)
+    sdesc = tgb.DEFAULT.replace(switchpoint=switchpoint)
+    for mode in ("fused", "stepped"):
+        want = tgb.algorithms.bfs(C, s, bdesc, mode=mode).to_numpy()
+        np.testing.assert_array_equal(want, tgb.algorithms.bfs_cpu(C, s))
+        np.testing.assert_array_equal(
+            tgb.algorithms.bfs(A, s, bdesc, mode=mode).to_numpy(), want)
+        want = tgb.algorithms.sssp(C, s, sdesc, mode=mode).to_numpy()
+        np.testing.assert_array_equal(want, tgb.algorithms.sssp_cpu(C, s))
+        np.testing.assert_array_equal(
+            tgb.algorithms.sssp(A, s, sdesc, mode=mode).to_numpy(), want)
+    assert tgb.diameter(A, 0, 8, bdesc) == tgb.diameter(C, 0, 8, bdesc)

@@ -364,6 +364,15 @@ PORT_MODULES = [
     "graphblast_tpu_torch.algorithms.cc",
     "graphblast_tpu_torch.algorithms.common",
     "graphblast_tpu_torch.algorithms.reference",
+    "graphblast_tpu_torch.algorithms.diameter",
+    "graphblast_tpu_torch.utils",
+    "graphblast_tpu_torch.utils.cli",
+    "graphblast_tpu_torch.utils.verify",
+    "graphblast_tpu_torch.utils.profiling",
+    "graphblast_tpu_torch.examples._driver",
+    "graphblast_tpu_torch.examples.gbfs",
+    "graphblast_tpu_torch.examples.gsssp",
+    "graphblast_tpu_torch.examples.gdiameter",
     "chip_smoke",
 ]
 
@@ -391,6 +400,16 @@ v = gt.algorithms.bfs(A, 0, push).to_numpy()
 assert np.array_equal(v, gt.algorithms.bfs_cpu(A, 0)), v
 d = gt.algorithms.sssp(A, 0, gt.DEFAULT.replace(mxv_mode=gt.Direction.PUSHONLY))
 assert np.array_equal(d.to_numpy(), gt.algorithms.sssp_cpu(A, 0)), d
+import os
+for lazy in ("0", "1"):
+    os.environ["GRB_LAZY_FRONTIER"] = lazy
+    v = gt.algorithms.bfs(A, 0).to_numpy()
+    assert np.array_equal(v, gt.algorithms.bfs_cpu(A, 0)), v
+    d = gt.algorithms.sssp(A, 0).to_numpy()
+    assert np.array_equal(d, gt.algorithms.sssp_cpu(A, 0)), d
+assert gt.diameter(A, 0, 3) == (10, 0)
+from graphblast_tpu_torch.examples import gbfs
+assert gbfs.main(["rmat:6:4", "--device", "cpu", "--niter", "1"]) == 0
 assert not any(m == "jax" or m.startswith(("jax.", "graphblast_tpu."))
                for m in sys.modules if sys.modules[m] is not None)
 print("ok")
@@ -399,7 +418,8 @@ print("ok")
 
 def test_port_never_imports_jax():
     """Every port module, chip_smoke.py, a BFS, a PageRank, an SSSP and a CC
-    run, and a push-only BFS and SSSP, with jax and graphblast_tpu blocked
+    run, a push-only and a default (PUSHPULL, eager and lazy) BFS and
+    SSSP, diameter and the gbfs driver, with jax and graphblast_tpu blocked
     in a fresh interpreter."""
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c",
@@ -407,7 +427,8 @@ def test_port_never_imports_jax():
                          cwd=REPO, env=env, capture_output=True, text=True,
                          timeout=300)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.strip() == "ok"
+    assert out.stdout.strip().splitlines()[-1] == "ok"
+    assert "BFS: CORRECT" in out.stdout
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):

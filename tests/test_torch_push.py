@@ -691,11 +691,12 @@ def test_mxv_dual_push_is_the_same_in_every_tier(graphs):
                        mode=tgb.Direction.PUSHONLY)
 
 
-def test_one_sided_matrix_pushes_and_pushpull_raises(graphs):
+def test_one_sided_matrix_pushes_and_pushpull_takes_its_direction(graphs):
     """A CSR-only directed Matrix has no CSC, so its vxm (a pull over the
     missing CSC) pushes over the CSR and its mxv (a push over the missing
-    CSC) pulls over the CSR, whatever the mode; PUSHPULL raises, naming
-    item 5b."""
+    CSC) pulls over the CSR, whatever the mode, PUSHPULL too (as
+    graphblast_tpu/ops/dispatch.py:201-204 forces it). On the two-sided
+    Matrix PUSHPULL equals the JAX PUSHPULL mxv_dual."""
     J, T = graphs["directed"]
     C = tgb.Matrix.from_coo(*T.extract_tuples(), T.nrows, T.ncols,
                             fmt=tgb.SparseFormat.CSRONLY, device="cpu")
@@ -704,18 +705,31 @@ def test_one_sided_matrix_pushes_and_pushpull_raises(graphs):
     kw = dict(transpose=True, structure_only=True)
     want, _ = tdisp.mxv_dual(T, _dual(x, 0.0), tgb.LogicalOrAndSemiring, 0.0,
                              mode=tgb.Direction.PULLONLY, **kw)
-    got, pushed = tdisp.mxv_dual(C, _dual(x, 0.0), tgb.LogicalOrAndSemiring,
-                                 0.0, mode=tgb.Direction.PULLONLY, **kw)
-    assert pushed is True and torch.equal(got.dense, want.dense)
-    want, _ = tdisp.mxv_dual(T, _dual(x, 0.0), tgb.LogicalOrAndSemiring, 0.0,
-                             mode=tgb.Direction.PULLONLY, structure_only=True)
-    got, pushed = tdisp.mxv_dual(C, _dual(x, 0.0), tgb.LogicalOrAndSemiring,
-                                 0.0, mode=tgb.Direction.PUSHONLY,
+    for mode in (tgb.Direction.PULLONLY, tgb.Direction.PUSHPULL):
+        got, pushed = tdisp.mxv_dual(C, _dual(x, 0.0),
+                                     tgb.LogicalOrAndSemiring, 0.0,
+                                     mode=mode, **kw)
+        assert pushed is True and torch.equal(got.dense, want.dense)
+    want_mxv, _ = tdisp.mxv_dual(T, _dual(x, 0.0), tgb.LogicalOrAndSemiring,
+                                 0.0, mode=tgb.Direction.PULLONLY,
                                  structure_only=True)
-    assert pushed is False and torch.equal(got.dense, want.dense)
-    with pytest.raises(NotImplementedError, match="queue 1 item 5b"):
-        tdisp.mxv_dual(T, _dual(x, 0.0), tgb.LogicalOrAndSemiring, 0.0,
-                       mode=tgb.Direction.PUSHPULL, **kw)
+    for mode in (tgb.Direction.PUSHONLY, tgb.Direction.PUSHPULL):
+        got, pushed = tdisp.mxv_dual(
+            C, tdisp.DualFrontier.from_dense(_t(x), 0.0, prefer_sparse=True),
+            tgb.LogicalOrAndSemiring, 0.0, mode=mode, structure_only=True)
+        assert pushed is False and torch.equal(got.dense, want_mxv.dense)
+    tf, pushed = tdisp.mxv_dual(
+        T, tdisp.DualFrontier.from_dense(_t(x), 0.0, prefer_sparse=True),
+        tgb.LogicalOrAndSemiring, 0.0, mode=tgb.Direction.PUSHPULL, **kw)
+    jf, j_pushed = jdisp.mxv_dual(
+        J, jdisp.DualFrontier.from_dense(jnp.asarray(x), 0.0,
+                                         prefer_sparse=True),
+        jgb.LogicalOrAndSemiring, 0.0, mode=jgb.Direction.PUSHPULL, **kw)
+    assert pushed is True and bool(j_pushed)
+    assert torch.equal(tf.dense, want.dense)
+    _compare_sparse((tf.dense, tf.sind, tf.sval, tf.snvals),
+                    (jf.dense, jf.sind, jf.sval, jf.snvals), T.nrows,
+                    exact=True)
 
 
 def test_from_sparse_drops_identity_entries():

@@ -382,22 +382,37 @@ def test_mxv_dual_without_a_plan_matches_jax(graphs, name, structure_only,
     assert int(tf.snvals) == int(jf.snvals) > 0
 
 
-def test_mxv_dual_without_a_plan_refuses_push(graphs):
-    """PUSHPULL still raises, naming its queue item; PUSHONLY pushes and
-    gives the plan-less pull's frontier."""
+def test_mxv_dual_without_a_plan_runs_every_mode(graphs):
+    """PUSHONLY pushes and gives the plan-less pull's frontier; PUSHPULL
+    with the push preferred pushes it too, and with the pull preferred
+    pulls it, each equal to the JAX PUSHPULL mxv_dual (dense image, count,
+    used_push, use_sparse, ratio)."""
+    from graphblast_tpu.ops.dispatch import DualFrontier as JFrontier
+    from graphblast_tpu.ops.dispatch import mxv_dual as jmxv
     from graphblast_tpu_torch.ops.dispatch import DualFrontier, mxv_dual
 
-    _, T = graphs["directed"]
+    J, T = graphs["directed"]
     x = torch.zeros(T.nrows)
     x[[3, 40, 41, 290]] = 1.0
     f = DualFrontier.from_dense(x, 0.0)
     kw = dict(transpose=True, structure_only=True)
-    with pytest.raises(NotImplementedError, match="queue 1 item 5b"):
-        mxv_dual(T, f, tgb.LogicalOrAndSemiring, 0.0,
-                 mode=tgb.Direction.PUSHPULL, **kw)
     pull, _ = mxv_dual(T, f, tgb.LogicalOrAndSemiring, 0.0,
                        mode=tgb.Direction.PULLONLY, **kw)
     push, used_push = mxv_dual(T, f, tgb.LogicalOrAndSemiring, 0.0,
                                mode=tgb.Direction.PUSHONLY, **kw)
     assert used_push and torch.equal(push.dense, pull.dense)
     assert int(push.snvals) == int(pull.snvals) > 0
+    for prefer in (True, False):
+        got, used_push = mxv_dual(
+            T, DualFrontier.from_dense(x, 0.0, prefer_sparse=prefer),
+            tgb.LogicalOrAndSemiring, 0.0, mode=tgb.Direction.PUSHPULL, **kw)
+        jf, j_push = jmxv(
+            J, JFrontier.from_dense(jnp.asarray(x.numpy()), 0.0,
+                                    prefer_sparse=prefer),
+            jgb.LogicalOrAndSemiring, 0.0, mode=jgb.Direction.PUSHPULL, **kw)
+        assert used_push is prefer and bool(j_push) is prefer
+        assert torch.equal(got.dense, pull.dense)
+        np.testing.assert_array_equal(got.dense.numpy(), np.asarray(jf.dense))
+        assert int(got.snvals) == int(jf.snvals) == int(pull.snvals)
+        assert bool(got.use_sparse) == bool(jf.use_sparse)
+        assert float(got.ratio) == float(jf.ratio)

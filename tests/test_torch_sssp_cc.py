@@ -175,15 +175,17 @@ def test_sssp_stepped_prints_the_reference_rows(graphs, capsys):
     assert int(rows[-1].split(", ")[2]) == int((got == MAXF).sum())
 
 
-def test_sssp_push_modes_raise(graphs):
-    """The default descriptor's PUSHPULL is not ported: it raises and names
-    its queue item, and nothing falls back to another path. PUSHONLY runs
-    and gives the golden distances in both modes."""
-    _, T = graphs["chesapeake"]
-    with pytest.raises(NotImplementedError, match="queue 1 item 5b"):
-        sssp(T, 0, tgb.DEFAULT)
+def test_sssp_push_modes_run(graphs):
+    """The default descriptor's PUSHPULL runs and gives the JAX PUSHPULL
+    sssp's distances and the golden in both modes, as PUSHONLY does; an
+    unknown mode raises."""
+    J, T = graphs["chesapeake"]
+    want = np.asarray(jax_sssp(J, 0).to_numpy())
+    np.testing.assert_array_equal(want, sssp_cpu(T, 0))
     push = tgb.DEFAULT.replace(mxv_mode=tgb.Direction.PUSHONLY)
     for mode in ("fused", "stepped"):
+        np.testing.assert_array_equal(
+            sssp(T, 0, tgb.DEFAULT, mode=mode).to_numpy(), want)
         np.testing.assert_array_equal(sssp(T, 0, push, mode=mode).to_numpy(),
                                       sssp_cpu(T, 0))
     with pytest.raises(ValueError):
@@ -258,11 +260,12 @@ def test_cc_stepped_prints_the_reference_rows(graphs, capsys):
 
 
 def test_cc_refuses_csc_only_and_unknown_mode(graphs):
-    """A CSC-only matrix needs push, which is not ported; an unknown mode
-    raises. (At n >= 2^24 cc takes the plan-less spmv_pull, held in
-    tests/test_torch_mis_gc.py.)"""
+    """A CSC-only matrix raises: cc pulls over the CSR, and the JAX package
+    has no route for it either; an unknown mode raises. (At n >= 2^24 cc
+    takes the plan-less spmv_pull, held in tests/test_torch_mis_gc.py.)"""
     _, T = graphs["test_cc"]
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
+    with pytest.raises(NotImplementedError,
+                       match="no route for a CSC-only matrix"):
         cc(dataclasses.replace(T, row_ptr=None, col_ind=None, row_ind=None,
                                val=None))
     with pytest.raises(ValueError):
