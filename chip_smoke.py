@@ -194,7 +194,35 @@ Phases, each of which fails the run on error (each prints its seconds):
   28. value pull in K3's regime: a seeded uniform random CSR built on the
      card, 2^24 rows and columns, 8 edges a row, so that x (64 MB) exceeds
      the 50 MB L2; the same checks and timings as phase 4;
-  29. prints {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
+  29. the operations surface at rmat18: mxv and vxm on a seeded dense u
+     under LogicalOrAnd (structure only: one K5 and one K6 a call),
+     MinimumPlus (one S) and PlusMultiplies (K6 at the column ids and at
+     the row boundaries), each with a complemented mask, a Plus
+     accumulator and w, and under MinimumPlus on a sparse u of 1,000
+     seeded ids, which pushes (10 K6); each equal to a scipy or NumPy
+     golden (exact for min and or, 1e-5·max|y| for plus) and to the same
+     call on a CPU copy (the plain kernels), its launches and ms a call;
+     then K5 and S timed at their mxv call sites, and the row reduce
+     (reduce_matrix_to_vector) under Plus, Min and Max on seeded values,
+     one K6 a call, beside scatter_reduce;
+  30. LGC at rmat18 from the top hub and from the first vertex of least
+     nonzero degree (α 0.15, ε 1e-6): within rtol 1e-3 / atol 1e-7 of
+     lgc_cpu, mass past the source, K6 once an iteration at
+     the column ids and at the row boundaries (once more for the
+     degrees), iterations and ms/run; K6 timed at LGC's gather; then the
+     glgc driver as a subprocess on rmat:18:16: exit 0 and LGC: CORRECT;
+  31. the unmasked SpGEMM C = A·A (the ESC) under PlusMultiplies and
+     MinimumPlus on grid_matrix(512) and RMAT scale 14 (19 chunks, the
+     cross-chunk merge), with seeded symmetric integer weights in 1..8:
+     C's structure equal to scipy's A·A, its sums within 1e-5 relative of
+     scipy's, its mins equal to a golden from one scipy product, 10 K6 a
+     chunk,
+     chunks, host reads, ms a call and torch.sparse.mm beside it; K6
+     timed at the ESC's gather of B's ids;
+  32. mxm_dense of rmat18's A by a seeded 262,144 × 32 float32 B, under
+     PlusMultiplies (within 1e-5·max|C| of scipy's product) and
+     MinimumPlus (equal to a NumPy golden); ms beside torch.sparse.mm;
+  33. prints {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
 
 Every check of results, launch counts and schedules raises. A
 torch.profiler reading that cannot be trusted (no device time, or more
@@ -210,6 +238,7 @@ import time
 import types
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM published memory rate
+MAXF32 = 3.4028234663852886e38   # FLT_MAX, the Minimum monoid's identity
 RMAT18_N, RMAT18_NNZ = 262_144, 7_610_284
 PR_ALPHA, PR_EPS = 0.85, 1e-8
 # torch.sparse.mm of L by Lᵀ (cuSPARSE's SpGEMM) is timed where it can run:
@@ -2729,6 +2758,606 @@ def phase_cc_2_24(reps: int = 5):
     return counts
 
 
+# ------------------------------------------ the operations surface and LGC
+def _cpu_copy(A):
+    """A's tensors on the CPU, as a fresh Matrix: the same call on it runs
+    every kernel's plain version."""
+    import dataclasses
+
+    import graphblast_tpu_torch as gt
+
+    moved = {k: None if getattr(A, k) is None else getattr(A, k).cpu()
+             for k in gt.matrix.LEAVES}
+    return dataclasses.replace(A, **moved, _plans={})
+
+
+def _site_row(tag: str, fn, plain, bound_bytes: int, library=None,
+              reps: int = 200) -> dict:
+    """One kernel at one call site: its output torch.equal (NaN where NaN)
+    to its plain version's and to a second launch's; kernel, plain and
+    library times by CUDA events; the bound. The row of the kernels
+    line."""
+    import torch
+
+    y, y_again, y_plain = fn(), fn(), plain()
+    torch.cuda.synchronize()
+    if not (_same(y, y_plain) and _same(y, y_again)):
+        raise AssertionError(f"{tag}: differs from its plain version or a "
+                             "second launch")
+    err = float((y.double() - y_plain.double()).abs().nan_to_num().max())
+    ms = _event_ms(fn, reps)
+    plain_ms = _event_ms(plain, 10)
+    lib_ms = None if library is None else _event_ms(library, 50)
+    bound_ms = bound_bytes / HBM_BYTES_PER_S * 1e3
+    lib = "none" if lib_ms is None else f"{lib_ms:.6f} ms"
+    print(f"[{tag}] equal to plain (max diff {err}) and to a second "
+          f"launch; kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, library "
+          f"{lib}, bound {bound_bytes} B -> {bound_ms:.6f} ms at 3.35 TB/s "
+          f"({100 * bound_ms / ms:.1f}% of it)")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, library_ms=lib_ms)
+
+
+# launches of one mxv (pull, dense u) by semiring, and of the push of a
+# sparse u under MinimumPlus: the expansion's 6 gathers, the adjacency and
+# two value gathers, and the Min fill, all at ascending indices
+MXV_LAUNCHES = {
+    "LogicalOrAnd": {"orpull_csum": 1, "gather_boundary": 1},
+    "MinimumPlus": {"minmax_pull": 1},
+    "PlusMultiplies": {"gather_x": 1, "gather_boundary": 1},
+    "push": {"gather_boundary": 10},
+}
+
+
+def _api_golden(A, name, u, mask, w):
+    """w + (A ⊕.⊗ u where mask == 0, else ⊕'s identity), float64 from
+    scipy (Plus), float32 from NumPy (min and or), on the host."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    ptr, ind, val = A.host_csr()
+    n = A.nrows
+    if name == "PlusMultiplies":
+        S = sp.csr_matrix((val.astype(np.float64), ind, ptr), shape=A.shape)
+        t = S @ u.astype(np.float64)
+        t = np.where(mask == 0, t, 0.0)
+        return w.astype(np.float64) + t
+    if name == "LogicalOrAnd":
+        S = sp.csr_matrix((np.ones(len(ind)), ind, ptr), shape=A.shape)
+        t = ((S @ (u != 0).astype(np.float64)) > 0).astype(np.float32)
+        return w + np.where(mask == 0, t, np.float32(0))
+    t = _row_min(ptr, val.astype(np.float32) + u[ind], n)
+    return w + np.where(mask == 0, t, MAXF32)
+
+
+def _row_min(ptr, edge_vals, n):
+    """The min of each CSR row's edge values (rows of a 2-D array), FLT_MAX
+    on empty rows, in the values' float32: one reduceat over the
+    nonempty rows."""
+    import numpy as np
+
+    out = np.full((n,) + edge_vals.shape[1:], MAXF32, np.float32)
+    nonempty = np.diff(ptr) > 0
+    if nonempty.any():
+        out[nonempty] = np.minimum.reduceat(edge_vals, ptr[:-1][nonempty],
+                                            axis=0)
+    return out
+
+
+def phase_api(A, reps: int = 20):
+    """The operations surface at rmat18 (phase 29): mxv and vxm on a seeded
+    dense u under LogicalOrAnd (structure only: K5 and K6), MinimumPlus
+    (S) and PlusMultiplies (K6, then the segment reduce), each with a
+    complemented mask, a Plus accumulator and w; then a sparse u of 1,000
+    seeded ids under MinimumPlus, which pushes (K6). Each equal to the
+    golden (exact for min and or, 1e-5·max|y| for plus) and to the same
+    call on a CPU copy (the plain kernels), with its launches; ms a call.
+    Then K5 and S at their mxv call sites. Returns (launches by call site,
+    K5's row, S's row)."""
+    import numpy as np
+    import torch
+
+    import graphblast_tpu_torch as gt
+    from graphblast_tpu_torch.ops.kernels.bitmap_pull import pack_bitmap
+    from graphblast_tpu_torch.ops.kernels.minmax_pull import (
+        spmv_minmax_pull, spmv_minmax_pull_plain)
+    from graphblast_tpu_torch.ops.kernels.orpull import (
+        orpull_bit_csum, orpull_bit_csum_plain)
+    from graphblast_tpu_torch.ops.kernels.row_schedule import schedule_for
+
+    n = A.nrows
+    rng = np.random.default_rng(29)
+    mask = (rng.random(n) < 0.5).astype(np.float32)
+    w = rng.integers(0, 4, n).astype(np.float32)
+    inputs = {
+        "LogicalOrAnd": (rng.random(n) < 0.2).astype(np.float32),
+        "MinimumPlus": np.where(rng.random(n) < 0.4, MAXF32, rng.uniform(
+            0, 5, n)).astype(np.float32),
+        "PlusMultiplies": rng.standard_normal(n).astype(np.float32),
+    }
+    ids = np.sort(rng.choice(n, 1000, replace=False))
+    A_cpu = _cpu_copy(A)
+    counts = {}
+    cases = [(name, fn) for name in inputs for fn in ("mxv", "vxm")]
+    cases += [("push", "mxv"), ("push", "vxm")]
+    for name, fn in cases:
+        sr_name = "MinimumPlus" if name == "push" else name
+        sr = getattr(gt, sr_name + "Semiring")
+        desc = gt.Descriptor(mask_scmp=True,
+                             structure_only=name == "LogicalOrAnd")
+        u_np = inputs[sr_name]
+        if name == "push":
+            u_np = np.full(n, MAXF32, np.float32)
+            u_np[ids] = inputs["MinimumPlus"][ids]
+
+        def call(M, dev):
+            u = gt.Vector.dense_from(u_np, device=dev)
+            if name == "push":
+                u = gt.Vector.sparse_from(n, ids, u_np[ids], device=dev)
+            args = (M, u) if fn == "mxv" else (u, M)
+            return getattr(gt, fn)(*args, sr, mask=gt.Vector.dense_from(
+                mask, device=dev), accum=gt.PlusMonoid, desc=desc,
+                w=gt.Vector.dense_from(w, device=dev))
+
+        call(A, "cuda")          # builds the schedule S reads, if new
+        torch.cuda.synchronize()
+        _reset_counts()
+        out = call(A, "cuda")
+        torch.cuda.synchronize()
+        got_counts = _expect_launches(f"{fn} {name}", MXV_LAUNCHES[name])
+        for k, v in got_counts.items():
+            counts[k] = counts.get(k, 0) + v
+        ident = MAXF32 if sr_name == "MinimumPlus" else 0.0
+        if out.storage != (gt.Storage.SPARSE if name == "push"
+                           else gt.Storage.DENSE):
+            raise AssertionError(f"{fn} {name}: storage {out.storage}")
+        y = out.to_numpy(ident)
+        y_plain = call(A_cpu, "cpu").to_numpy(ident)
+        want = _api_golden(A, sr_name, u_np, mask, w)
+        if y.shape != (n,) or y.dtype != np.float32:
+            raise AssertionError(f"{fn} {name}: bad output")
+        if sr_name == "PlusMultiplies":
+            tol = 1e-5 * float(np.abs(want).max())
+            err = float(np.abs(y - want).max())
+            err_plain = float(np.abs(y - y_plain).max())
+            if err > tol or err_plain > tol:
+                raise AssertionError(f"{fn} {name}: {err} from the golden, "
+                                     f"{err_plain} from the plain kernels; "
+                                     f"tolerance {tol}")
+            check = (f"within {err} of the scipy golden and {err_plain} of "
+                     f"the plain kernels (tolerance 1e-5·max|y| = {tol})")
+        else:
+            if not (np.array_equal(y, want) and np.array_equal(y, y_plain)):
+                raise AssertionError(f"{fn} {name}: differs from the golden "
+                                     "or from the plain kernels")
+            check = "equal to the golden and to the plain kernels"
+        per_s, tail = _timed_runs(lambda: call(A, "cuda"), reps)
+        push = " (sparse u, push)" if name == "push" else ""
+        print(f"[api] {fn} {sr_name}{push}, complemented mask, Plus "
+              f"accumulator: {check}; launches "
+              f"{got_counts}; {per_s * 1e3:.6f} ms a call median, {tail}, "
+              f"{reps} calls")
+    # K5 and S at their mxv call sites (the CSR's pull)
+    words = pack_bitmap(torch.from_numpy(inputs["LogicalOrAnd"]).cuda())
+    col = A.col_ind
+    m = col.shape[0]
+    k5 = _site_row("K5 at mxv", lambda: orpull_bit_csum(words, col),
+                   lambda: orpull_bit_csum_plain(words, col),
+                   4 * (2 * m + words.shape[0]))
+    x = torch.from_numpy(inputs["MinimumPlus"]).cuda()
+    sched = schedule_for(A, False)
+    sr = gt.MinimumPlusSemiring
+    nnz = A.nvals
+    offsets = A.row_ptr.long()
+    prod = (A.val[:nnz] + x[A.col_ind[:nnz].long()]).contiguous()
+    s_row = _site_row(
+        "S at mxv MinimumPlus",
+        lambda: spmv_minmax_pull(A.row_ptr, A.col_ind, A.val, x, sr, n,
+                                 sched=sched),
+        lambda: spmv_minmax_pull_plain(A.row_ptr, A.col_ind, A.val, x, sr,
+                                       n),
+        8 * nnz + 4 * (n + 1) + 4 * n + 4 * n,
+        library=lambda: torch.segment_reduce(prod, "min", offsets=offsets,
+                                             initial=MAXF32))
+    _row_reduce_times(A)
+    return counts, k5, s_row
+
+
+def _row_reduce_times(A, reps: int = 50):
+    """reduce_matrix_to_vector at rmat18 under Plus, Min and Max, on A's CSR
+    with seeded uniform(-1, 1) float32 values: one K6 launch a call (the
+    row boundaries of Plus's float64 prefix sum, the segment tails of
+    Min's and Max's scan); Min and Max equal to a scatter_reduce into the
+    rows, Plus within 1e-5·max|y| of it in float64; ms beside that
+    scatter_reduce in float32 (a yardstick the package never calls)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    import graphblast_tpu_torch as gt
+
+    n, m = A.nrows, A.nvals
+    vals = torch.from_numpy(np.random.default_rng(292).uniform(
+        -1, 1, A.nnz_pad).astype(np.float32)).cuda()
+    R = dataclasses.replace(A, val=vals, col_ptr=None, csc_row_ind=None,
+                            csc_col_ind=None, csc_val=None,
+                            format=gt.SparseFormat.CSRONLY, symmetric=False,
+                            _host_csr=None, _host_csc=None, _plans={})
+    rows = A.row_ind[:m].long()
+
+    def scatter(how, dtype=torch.float32):
+        ident = {"sum": 0.0, "amin": MAXF32, "amax": 0.0}[how]
+        out = torch.full((n,), ident, dtype=dtype, device="cuda")
+        return out.scatter_reduce(0, rows, vals[:m].to(dtype), how,
+                                  include_self=False)
+
+    for name, how in (("Plus", "sum"), ("Minimum", "amin"),
+                      ("Maximum", "amax")):
+        monoid = getattr(gt, name + "Monoid")
+        _reset_counts()
+        y = gt.reduce_matrix_to_vector(R, monoid).dense
+        torch.cuda.synchronize()
+        counts = _expect_launches(f"row reduce {name}",
+                                  {"gather_boundary": 1})
+        if name == "Plus":
+            want = scatter(how, torch.float64)
+            err = float((y.double() - want).abs().max())
+            tol = 1e-5 * float(want.abs().max())
+            if err > tol:
+                raise AssertionError(f"row reduce Plus: {err} from the "
+                                     f"float64 sum, tolerance {tol}")
+            check = f"within {err} of the float64 sum (tolerance {tol})"
+        else:
+            if not torch.equal(y, scatter(how)):
+                raise AssertionError(f"row reduce {name}: differs from "
+                                     "scatter_reduce")
+            check = "equal to scatter_reduce"
+        ms = _event_ms(lambda: gt.reduce_matrix_to_vector(R, monoid), reps)
+        lib_ms = _event_ms(lambda: scatter(how), reps)
+        print(f"[api] reduce_matrix_to_vector {name} at rmat18 ({m} "
+              f"values): {check}; launches {counts}; {ms:.6f} ms a call "
+              f"(CUDA events, {reps} calls); scatter_reduce {how} "
+              f"{lib_ms:.6f} ms")
+
+
+def phase_lgc(A, hub: int, reps: int = 5):
+    """LGC at rmat18 (phase 30) from the top hub and from the first vertex
+    of least nonzero degree, α 0.15, ε 1e-6: p within rtol 1e-3 / atol
+    1e-7 of the port's lgc_cpu and with mass on more than the source, K6
+    once
+    an iteration at the column ids and once at the row boundaries, and
+    once more for the degrees, and no other kernel; iterations and
+    ms/run. Then K6 at LGC's gather of x at the column ids. Returns
+    (launches of the two runs, K6's row)."""
+    import numpy as np
+    import torch
+
+    import graphblast_tpu_torch as gt
+    from graphblast_tpu_torch.algorithms.lgc import _lgc_loop
+    from graphblast_tpu_torch.algorithms.reference import lgc_cpu
+    from graphblast_tpu_torch.ops.kernels.gather import (gather_1d,
+                                                         gather_1d_plain)
+
+    alpha, eps = 0.15, 1e-6
+    total = {}
+    deg = np.diff(A.host_csr()[0])
+    leaf = int(np.flatnonzero(deg == deg[deg > 0].min())[0])
+    for name, s in (("hub", hub), (f"a degree-{deg[leaf]} vertex", leaf)):
+        t0 = time.perf_counter()
+        want = lgc_cpu(A, s, alpha, eps, gt.DEFAULT.max_niter)
+        cpu_s = time.perf_counter() - t0
+        _reset_counts()
+        p = gt.lgc(A, s, alpha=alpha, eps=eps).to_numpy()
+        counts = _read_counts()
+        _, _, iters = _lgc_loop(A, s, alpha=alpha, eps=eps,
+                                max_niter=gt.DEFAULT.max_niter)
+        counts = _expect_launches(f"lgc from {name}", {
+            "gather_x": iters, "gather_boundary": iters + 1}, counts)
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        if (p.shape != want.shape or not np.isfinite(p).all()
+                or (p > 0).sum() < 2):
+            raise AssertionError(f"lgc from {name}: bad output")
+        if not np.allclose(p, want, rtol=1e-3, atol=1e-7):
+            bad = int((~np.isclose(p, want, rtol=1e-3, atol=1e-7)).sum())
+            raise AssertionError(f"lgc from {name}: {bad} values past rtol "
+                                 "1e-3 / atol 1e-7 of lgc_cpu")
+        per_s, tail = _timed_runs(lambda: gt.lgc(A, s, alpha=alpha,
+                                                 eps=eps), reps)
+        print(f"[lgc] rmat18 from {name} ({s}): within rtol 1e-3 / atol "
+              f"1e-7 of lgc_cpu (max diff {float(np.abs(p - want).max())}, "
+              f"sum p {float(p.sum()):.6f}, {int((p > 0).sum())} vertices "
+              f"with mass); {iters} iterations, launches {counts} (K6 once "
+              f"an iteration at the column ids); {per_s * 1e3:.6f} ms/run "
+              f"median, {tail}, {reps} runs; lgc_cpu {cpu_s:.2f} s")
+    r2 = torch.from_numpy(np.random.default_rng(30).random(A.nrows).astype(
+        np.float32)).cuda()
+    col = A.col_ind
+    m = col.shape[0]
+    row = _site_row("K6 at LGC's pull (x at the column ids)",
+                    lambda: gather_1d(r2, col), lambda: gather_1d_plain(
+                        r2, col), 4 * (2 * m + min(A.nrows, m)),
+                    library=lambda: torch.index_select(r2, 0, col))
+    return total, row
+
+
+def phase_glgc_driver():
+    """The glgc driver as a subprocess on rmat:18:16 (phase 30): exit 0
+    and LGC: CORRECT; its output printed back."""
+    import os
+
+    cmd = [sys.executable, "-m", "graphblast_tpu_torch.examples.glgc",
+           "rmat:18:16"]
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    run = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
+                         timeout=300)
+    secs = time.perf_counter() - t0
+    for line in run.stdout.strip().splitlines():
+        print(f"[glgc] {line}")
+    if run.returncode != 0 or "LGC: CORRECT" not in run.stdout:
+        raise AssertionError(f"glgc exited {run.returncode}: "
+                             f"{run.stderr[-2000:]}")
+    print(f"[glgc] {' '.join(cmd[1:])}: exit 0 in {secs:.2f} s")
+
+
+def phase_spgemm(reps: int = 3):
+    """The unmasked SpGEMM (phase 31): C = A·A by ESC under PlusMultiplies
+    and MinimumPlus on grid_matrix(512) (one chunk) and RMAT scale 14
+    (chunks of 2^23 products, merged), each with seeded symmetric integer
+    weights in 1..8 (`_weighted`). C's pointers and ids equal to scipy's
+    A·A; its PlusMultiplies values within 1e-5 relative of scipy's float64
+    sums (they are exact: every sum is an integer below 2^24), its
+    MinimumPlus values equal to `_min_plus_golden`; 10 K6 launches a chunk
+    and no other kernel; chunks, products,
+    host reads (torch.cuda.set_sync_debug_mode), ms a call, and
+    torch.sparse.mm of A by A (a yardstick only). Then K6 at the ESC's
+    largest gather. Returns (launches, K6's row)."""
+    import numpy as np
+    import scipy.sparse as sp
+    import torch
+
+    import graphblast_tpu_torch as gt
+    from graphblast_tpu_torch.io.rmat import grid_matrix, rmat_matrix
+    from graphblast_tpu_torch.ops.kernels.gather import (gather_1d,
+                                                         gather_1d_plain)
+    from graphblast_tpu_torch.ops.spgemm import esc_plan, spgemm_esc
+    from graphblast_tpu_torch.ops.spmspv import expand_lanes
+
+    total = {}
+    row = None
+    for gname, make in (("grid_matrix(512)", lambda: grid_matrix(
+            512, device="cuda")), ("rmat14", lambda: rmat_matrix(
+                14, 16, seed=42, device="cuda"))):
+        t0 = time.perf_counter()
+        A = _weighted(make(), seed=31)
+        S = A.to_scipy().astype(np.float64)
+        want = S @ S
+        want.sort_indices()
+        want_min = _min_plus_golden(S)
+        golden_s = time.perf_counter() - t0
+        csum, bounds = esc_plan(A, A)
+        chunks, products = len(bounds) - 1, int(csum[-1])
+        print(f"[spgemm] {gname}: n={A.nrows} nnz={A.nvals}, top degree "
+              f"{int(np.diff(A.host_csr()[0]).max())}, {products} products "
+              f"in {chunks} chunks; scipy A·A has {want.nnz} entries "
+              f"(graph and golden {golden_s:.2f} s)")
+        for sr_name in ("PlusMultiplies", "MinimumPlus"):
+            sr = getattr(gt, sr_name + "Semiring")
+            spgemm_esc(A, A, sr)          # warm
+            torch.cuda.synchronize()
+            _reset_counts()
+            C, syncs = _count_syncs(lambda: gt.mxm(A, A, sr))
+            counts = _expect_launches(f"ESC {sr_name} {gname}",
+                                      {"gather_boundary": 10 * chunks})
+            for k, v in counts.items():
+                total[k] = total.get(k, 0) + v
+            ptr, ind, val = C.host_csr()
+            if not (C.shape == A.shape and np.array_equal(ptr, want.indptr)
+                    and np.array_equal(ind, want.indices)):
+                raise AssertionError(f"ESC {sr_name} on {gname}: C's "
+                                     "structure differs from scipy's A·A")
+            if sr_name == "PlusMultiplies":
+                rel = float((np.abs(val - want.data) / want.data).max())
+                if rel > 1e-5:
+                    raise AssertionError(f"ESC Plus on {gname}: {rel} "
+                                         "relative from scipy's A·A")
+                check = f"values within {rel} relative of scipy's"
+            else:
+                if not (np.array_equal(want_min[0], want.indptr)
+                        and np.array_equal(want_min[1], want.indices)
+                        and np.array_equal(val, want_min[2])):
+                    raise AssertionError(f"ESC Min on {gname}: differs "
+                                         "from the min-plus golden")
+                check = "values equal to the min-plus golden"
+            per_s, tail = _timed_runs(lambda: gt.mxm(A, A, sr), reps)
+            expected_reads = 2 + chunks + int(chunks > 1) + 1
+            sites = sorted(set(syncs), key=syncs.index)
+            print(f"[spgemm] {gname} {sr_name}: C ({C.nvals} entries, "
+                  f"symmetric {C.symmetric}) structure equal to scipy's, "
+                  f"{check}; launches "
+                  f"{counts}; {len(syncs)} host reads (expected "
+                  f"{expected_reads}: 2 sizing, {chunks} chunk counts, "
+                  f"{int(chunks > 1)} merge count, 1 symmetry test) at "
+                  f"{sites}; {per_s * 1e3:.6f} ms a call median, {tail}, "
+                  f"{reps} calls")
+        m = A.nvals
+        lc = torch.sparse_csr_tensor(A.row_ptr, A.col_ind[:m], A.val[:m],
+                                     size=A.shape, check_invariants=False)
+        prod = torch.sparse.mm(lc, lc)
+        if prod._nnz() != want.nnz:
+            raise AssertionError(f"torch.sparse.mm on {gname}: "
+                                 f"{prod._nnz()} entries")
+        del prod
+        lib_ms = _event_ms(lambda: torch.sparse.mm(lc, lc), reps)
+        print(f"[spgemm] {gname}: torch.sparse.mm(A, A) (cuSPARSE, a "
+              f"yardstick the package never calls) {lib_ms:.6f} ms")
+        if gname == "rmat14":
+            _esc_split(A, csum, bounds)
+            # K6 at the ESC's largest gather: B's ids at the first chunk's
+            # edge ids
+            s, t = bounds[0], bounds[1]
+            lanes = int(csum[t] - csum[s])
+            _, b_idx, _ = expand_lanes(A.row_ptr, A.col_ind.shape[0],
+                                       A.csc_col_ind[s:t], t - s, lanes)
+            table = A.col_ind
+            row = _site_row(
+                "K6 at the ESC's gather of B's ids",
+                lambda: gather_1d(table, b_idx, sorted=True),
+                lambda: gather_1d_plain(table, b_idx),
+                4 * (2 * lanes + min(table.shape[0], lanes)),
+                library=lambda: torch.index_select(table, 0, b_idx))
+        del A, S, want
+        torch.cuda.empty_cache()
+    return total, row
+
+
+def _weighted(A, seed: int):
+    """A symmetric A on the card again, with seeded integer weights in 1..8,
+    one draw for each pair {i, j}, so that the result is symmetric too."""
+    import numpy as np
+
+    import graphblast_tpu_torch as gt
+
+    ptr, ind, _ = A.host_csr()
+    n = A.nrows
+    r = np.repeat(np.arange(n, dtype=np.int64), np.diff(ptr))
+    c = ind.astype(np.int64)
+    _, pair = np.unique(np.minimum(r, c) * n + np.maximum(r, c),
+                        return_inverse=True)
+    w = np.random.default_rng(seed).integers(1, 9, pair.max() + 1)[pair]
+    W = gt.Matrix.from_coo(r, c, w.astype(np.float32), n, n, device="cuda")
+    if not W.symmetric:
+        raise AssertionError("weighted copy is not symmetric")
+    return W
+
+
+def _min_plus_golden(S):
+    """S ⊕.⊗ S under MinimumPlus as sorted CSR (pointers, ids, float32
+    values), for integer weights w ≥ 1, from one float64 scipy product: with B = 2^30 each entry of E·E, E = B^-S, is
+    Σ_k B^-(s_ik + s_kj), which lies in [B^-m, (deg + 1)·B^-m) for the
+    least exponent m; deg + 1 ≤ 2^12 = B^0.4 makes
+    m = floor(-log_B(sum) + 0.5) exact."""
+    import numpy as np
+
+    deg = int(np.diff(S.indptr).max())
+    if deg + 1 > 1 << 12:
+        raise AssertionError(f"min-plus golden needs degree < 4095, not "
+                             f"{deg}")
+    E = S.copy()
+    E.data = np.exp2(-30.0 * S.data)
+    P = E @ E
+    P.sort_indices()
+    return P.indptr, P.indices, np.floor(-np.log2(P.data) / 30 + 0.5).astype(
+        np.float32)
+
+
+def _esc_split(A, csum, bounds, reps: int = 5):
+    """One ESC chunk of A·A under PlusMultiplies (the first of rmat14's),
+    split by CUDA events into the expansion (the lane expansion and the
+    gathers, `_esc_chunk`'s first half), the stable sort by (i, j), the
+    segmented ⊕ scan, and the whole dedup (`_sort_dedup_coo`: sort, scan,
+    compaction), beside the whole chunk; and the cross-chunk merge."""
+    import torch
+
+    import graphblast_tpu_torch as gt
+    from graphblast_tpu_torch.ops import spgemm as esc
+    from graphblast_tpu_torch.ops.segops import segmented_scan
+    from graphblast_tpu_torch.ops.gather_dispatch import take
+    from graphblast_tpu_torch.ops.spmspv import expand_lanes
+    from graphblast_tpu_torch.types import round_up
+
+    sr = gt.PlusMultipliesSemiring
+    s, t = bounds[0], bounds[1]
+    lanes = max(round_up(int(csum[t] - csum[s]), 1024), 1024)
+    ai, ak, av = A.csc_row_ind[s:t], A.csc_col_ind[s:t], A.csc_val[s:t]
+
+    def expand():
+        src, b_idx, total = expand_lanes(A.row_ptr, A.col_ind.shape[0], ak,
+                                         t - s, lanes)
+        j = take(A.col_ind, b_idx, sorted=True)
+        prod = sr.mul(take(av, src, sorted=True),
+                      take(A.val, b_idx, sorted=True))
+        live = torch.arange(lanes, dtype=torch.int32, device=A.device) < total
+        i = torch.where(live, take(ai, src, sorted=True), esc.ROW_SENTINEL)
+        return i, j, prod
+
+    i, j, prod = expand()
+    keys = i.long() * A.ncols + j.long()
+    perm = torch.sort(keys, stable=True).indices
+    k_s = keys[perm]
+    heads = torch.cat([torch.ones(1, dtype=torch.bool, device=A.device),
+                       k_s[1:] != k_s[:-1]])
+    v_s = prod[perm]
+    ms = {
+        "chunk": _event_ms(lambda: esc._esc_chunk(
+            ai, ak, av, A.row_ptr, A.col_ind, A.val, lanes, sr, True,
+            A.ncols), reps),
+        "expansion": _event_ms(expand, reps),
+        "dedup": _event_ms(lambda: esc._sort_dedup_coo(
+            i, j, prod, sr.add, A.ncols), reps),
+        "sort": _event_ms(lambda: torch.sort(keys, stable=True), reps),
+        "scan": _event_ms(lambda: segmented_scan(v_s, heads, sr.add), reps),
+    }
+    print(f"[spgemm split] rmat14 chunk 0 of {len(bounds) - 1} "
+          f"({lanes} lanes), PlusMultiplies, ms alone (CUDA events): "
+          + ", ".join(f"{k} {v:.6f}" for k, v in ms.items())
+          + f"; dedup {100 * ms['dedup'] / ms['chunk']:.1f}% of the chunk "
+          f"(sort {100 * ms['sort'] / ms['chunk']:.1f}%, scan "
+          f"{100 * ms['scan'] / ms['chunk']:.1f}%)")
+
+
+def phase_mxm_dense(A, k: int = 32, reps: int = 10):
+    """mxm_dense of rmat18's A by a seeded n × 32 float32 B (phase 32),
+    under PlusMultiplies, against scipy's A·B in float64 within
+    1e-5·max|C|, and under MinimumPlus, exactly equal to a NumPy golden;
+    ms beside torch.sparse.mm (cuSPARSE's SpMM)."""
+    import numpy as np
+    import scipy.sparse as sp
+    import torch
+
+    import graphblast_tpu_torch as gt
+
+    n = A.nrows
+    B_np = np.random.default_rng(32).standard_normal((n, k)).astype(
+        np.float32)
+    B = torch.from_numpy(B_np).cuda()
+    ptr, ind, val = A.host_csr()
+    S = sp.csr_matrix((val.astype(np.float64), ind, ptr), shape=A.shape)
+    m = A.nvals
+    lc = torch.sparse_csr_tensor(A.row_ptr, A.col_ind[:m], A.val[:m],
+                                 size=A.shape, check_invariants=False)
+    lib_ms = _event_ms(lambda: torch.sparse.mm(lc, B), reps)
+    for sr_name in ("PlusMultiplies", "MinimumPlus"):
+        sr = getattr(gt, sr_name + "Semiring")
+        C = gt.mxm_dense(A, B, sr)
+        torch.cuda.synchronize()
+        got = C.cpu().numpy()
+        if got.shape != (n, k) or not np.isfinite(got).all():
+            raise AssertionError(f"mxm_dense {sr_name}: bad output")
+        if sr_name == "PlusMultiplies":
+            want = S @ B_np.astype(np.float64)
+            tol = 1e-5 * float(np.abs(want).max())
+            err = float(np.abs(got - want).max())
+            if err > tol:
+                raise AssertionError(f"mxm_dense Plus: {err} from scipy, "
+                                     f"tolerance {tol}")
+            check = (f"within {err} of scipy's A·B (tolerance 1e-5·max|C| "
+                     f"= {tol:.6f})")
+        else:
+            want = _row_min(ptr, val[:, None].astype(np.float32)
+                            + B_np[ind], n)
+            if not np.array_equal(got, want):
+                raise AssertionError("mxm_dense Min: differs from the "
+                                     "golden")
+            check = "equal to the NumPy golden"
+        per_s, tail = _timed_runs(lambda: gt.mxm_dense(A, B, sr), reps)
+        print(f"[mxm_dense] rmat18 × B ({n} × {k} float32) {sr_name}: "
+              f"{check}; {per_s * 1e3:.6f} ms a call median, {tail}, "
+              f"{reps} calls; torch.sparse.mm(A, B) {lib_ms:.6f} ms")
+
+
 def _random_csr(n: int, deg: int, seed: int, device: str = "cuda"):
     """A seeded uniform random CSR made on `device`: n rows and columns,
     `deg` edges a row, standard-normal values; and a standard-normal x."""
@@ -2871,7 +3500,6 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_gbfs_driver()
     print(f"[phase] gbfs driver {time.perf_counter() - t0:.2f} s")
-    del A
     t0 = time.perf_counter()
     phase_cc_2_24()
     print(f"[phase] CC at 2^24 {time.perf_counter() - t0:.2f} s")
@@ -2880,6 +3508,21 @@ def main() -> int:
     k3 = phase_value_pull("K3 regime 2^24", plan, x, plain_reps=5)
     del plan, x
     print(f"[phase] value pull at 2^24 rows {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    api_counts, k5_mxv, s_mxv = phase_api(A)
+    print(f"[phase] operations surface at rmat18 "
+          f"{time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    lgc_counts, k6_lgc = phase_lgc(A, int(sources[0]))
+    phase_glgc_driver()
+    print(f"[phase] LGC and the glgc driver {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    esc_counts, k6_esc = phase_spgemm()
+    print(f"[phase] unmasked SpGEMM {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    phase_mxm_dense(A)
+    del A
+    print(f"[phase] mxm_dense at rmat18 {time.perf_counter() - t0:.2f} s")
 
     kernels = [{
         "name": "bitmap_pull",
@@ -2958,6 +3601,27 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda",
             "source": "graphblast_tpu_torch/csrc/masked_intersect.cu",
+            "replaces": replaces, "launches": launches, "bound_by": "bytes",
+            **row})
+    # the call sites of the operations surface, LGC and the ESC (phases
+    # 29-31), each with its launches in its own phase's counted run
+    for name, route_src, replaces, launches, row in (
+            ("orpull_csum_mxv", "orpull_csum.cu",
+             "graphblast_tpu/ops/pallas/orpull.py:49",
+             api_counts["orpull_csum"], k5_mxv),
+            ("minmax_pull_mxv", "minmax_pull.cu",
+             "graphblast_tpu/ops/segops.py:35",
+             api_counts["minmax_pull"], s_mxv),
+            ("gather_lgc", "gather.cu",
+             "graphblast_tpu/ops/pallas/gather.py:45",
+             lgc_counts["gather_x"] + lgc_counts["gather_boundary"],
+             k6_lgc),
+            ("gather_esc", "gather.cu",
+             "graphblast_tpu/ops/pallas/gather.py:45",
+             esc_counts["gather_boundary"], k6_esc)):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"graphblast_tpu_torch/csrc/{route_src}",
             "replaces": replaces, "launches": launches, "bound_by": "bytes",
             **row})
     print(json.dumps({"kernels": kernels}))

@@ -1,4 +1,4 @@
-"""graphblast_tpu_torch: the PyTorch + CUDA port of graphblast_tpu.
+"""graphblast_tpu_torch: the PyTorch + CUDA port of graphblast_tpu, for an
 
 GraphBLAS-style graph analytics as sparse linear algebra over semirings,
 written for an NVIDIA H100. The module names follow the JAX package
@@ -23,45 +23,84 @@ masked mxm and trace_mxm_transpose over the masked-intersection kernels T1
 and T2; the push (SpMSpV) with PUSHONLY BFS and SSSP (slice 11); the
 direction switch PUSHPULL, eager and lazy, so the default bfs and sssp run,
 with diameter, `transpose` and the gbfs, gsssp and gdiameter drivers
-(`graphblast_tpu_torch.utils`, `graphblast_tpu_torch.examples`; slice 12).
+(`graphblast_tpu_torch.utils`, `graphblast_tpu_torch.examples`; slice 12);
+the GraphBLAS operations surface (mxv/vxm with masks and accumulators,
+eWise, apply, assign, extract, reduce, scale, the unmasked ESC SpGEMM,
+spmm and DenseMatrix) and local graph clustering with its glgc driver
+(slice 13).
 """
 
-from .types import Direction, INDEX_DTYPE, LoadBalanceMode, SparseFormat, Storage
+from .types import (Direction, INDEX_DTYPE, Info, LoadBalanceMode,
+                    SparseFormat, Storage)
 from .descriptor import BFS_TUNED, DEFAULT, Descriptor
 from .semiring import (
     ALL_BINARY_OPS,
     ALL_MONOIDS,
     ALL_SEMIRINGS,
     BinaryOp,
-    LogicalOrAndSemiring,
-    MaximumMultipliesSemiring,
-    MinimumMultipliesSemiring,
-    MinimumPlusSemiring,
-    MinimumSelectSecondSemiring,
     Monoid,
-    PlusDividesSemiring,
-    PlusMinusSemiring,
-    PlusMonoid,
-    PlusMultipliesSemiring,
     Semiring,
     extract_add,
     extract_mul,
+    # binary ops
+    LogicalOr, LogicalAnd, LogicalXor, Equal, NotEqualTo, Greater, Less,
+    GreaterEqual, LessEqual, First, Second, Minimum, Maximum, Plus, Minus,
+    Multiplies, Divides, SelectSecond,
+    # monoids
+    PlusMonoid, MultipliesMonoid, MinimumMonoid, MaximumMonoid,
+    LogicalOrMonoid, LogicalAndMonoid, GreaterMonoid, CustomLessMonoid,
+    NotEqualToMonoid,
+    # semirings
+    LogicalOrAndSemiring, PlusMultipliesSemiring, MinimumPlusSemiring,
+    MaximumMultipliesSemiring, PlusDividesSemiring, PlusGreaterSemiring,
+    GreaterPlusSemiring, PlusMinusSemiring, PlusLessSemiring,
+    CustomLessPlusSemiring, MinimumMultipliesSemiring,
+    MultipliesMultipliesSemiring, NotEqualToPlusSemiring,
+    MinimumSelectSecondSemiring, PlusNotEqualToSemiring,
+    CustomLessLessSemiring, MinimumNotEqualToSemiring,
 )
 from .matrix import Matrix
+from .dense_matrix import DenseMatrix, gemm, gemv
 from .vector import Vector
 from .operations import (
+    apply,
+    apply_matrix,
+    apply_vxm,
+    assign,
+    assign_indexed,
+    assign_matrix,
+    assign_matrix_col,
+    assign_matrix_row,
+    assign_matrix_scalar,
+    assign_scatter,
+    eWiseAdd,
+    eWiseAdd_matrix,
+    eWiseMult,
     eWiseMult_matrix_scalar,
+    extract,
+    extract_col,
+    extract_gather,
+    extract_matrix,
     mxm,
+    mxm_dense,
+    mxv,
+    reduce_matrix,
     reduce_matrix_to_vector,
+    reduce_vector,
+    scale_matrix,
+    scale_matrix_cols,
     scale_matrix_rows,
+    scale_vector,
+    scatter,
     trace_mxm_transpose,
     transpose,
     tril,
+    vxm,
 )
 from . import algorithms
-from .algorithms import (cc, cc_cpu, diameter, gc, gc_cpu, mis, mis_cpu, pr,
-                         pr_cpu, prepare_pr_matrix, sssp, sssp_cpu, tc,
-                         tc_cpu, triangle_count, verify_cc, verify_gc,
-                         verify_mis)
+from .algorithms import (cc, cc_cpu, diameter, gc, gc_cpu, lgc, lgc_cpu, mis,
+                         mis_cpu, pr, pr_cpu, prepare_pr_matrix, sssp,
+                         sssp_cpu, tc, tc_cpu, triangle_count, verify_cc,
+                         verify_gc, verify_mis)
 
 __version__ = "0.1.0"

@@ -47,6 +47,12 @@ class Descriptor:
     dirinfo: bool = False          # announce push/pull switches
     seed: int = None               # default from GRB_SEED
 
+    # --- execution (reference: the GrB_BACKEND toggle, types.hpp:69-70,
+    # for apply with stateful host functors, apply.hpp:34-42, 102-111) ---
+    backend: str = "device"        # "device" (torch ops on the tensors'
+    #                                 device) | "cpu" (a host-functor loop,
+    #                                 read by apply and apply_matrix)
+
     def __post_init__(self):
         if self.load_balance is None:
             from .config import default_load_balance

@@ -113,14 +113,3 @@ def canonicalize_coo(rows, cols, vals, *, undirected: bool,
         keep[1:] &= ~((rows[1:] == rows[:-1]) & (cols[1:] == cols[:-1]))
     return rows[keep], cols[keep], vals[keep]
 
-
-def coo_to_csr(rows, cols, vals, nrows):
-    """COO -> CSR (reference: util.hpp:501-559 coo2csr). Input need not be
-    sorted. Returns (row_ptr int64 (nrows+1,), cols, vals)."""
-    rows = np.asarray(rows, np.int64)
-    cols = np.asarray(cols, np.int64)
-    vals = np.asarray(vals)
-    order = np.lexsort((cols, rows))
-    row_ptr = np.zeros(nrows + 1, dtype=np.int64)
-    row_ptr[1:] = np.cumsum(np.bincount(rows, minlength=nrows)[:nrows])
-    return row_ptr, cols[order], vals[order]

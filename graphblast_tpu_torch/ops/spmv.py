@@ -72,8 +72,10 @@ def spmv_pull(row_ptr: torch.Tensor, col_ind: torch.Tensor,
         y = segment_reduce_csr(edge, row_ptr, semiring.add,
                                nrows).to(out_dtype)
     if mask_dense is not None:
+        # the identity as a scalar argument: a tensor of it copied to the
+        # card would wait for the stream
         y = torch.where(mask_pass(mask_dense, mask_scmp), y,
-                        semiring.identity(out_dtype).to(y.device))
+                        semiring.identity(out_dtype).item())
     return y
 
 

@@ -18,6 +18,29 @@ INDEX_DTYPE = torch.int32
 TILE = 1024
 
 
+class Info(enum.Enum):
+    """Status codes (reference: types.hpp:28-42), named for API parity.
+    Errors raise exceptions here: DIMENSION_MISMATCH is
+    dimension.DimensionException (a ValueError), INVALID_VALUE and
+    INVALID_INDEX are ValueError; SUCCESS is a call that returns."""
+
+    SUCCESS = 0
+    NO_VALUE = 1
+    UNINITIALIZED_OBJECT = 2
+    NULL_POINTER = 3
+    INVALID_VALUE = 4
+    INVALID_INDEX = 5
+    DOMAIN_MISMATCH = 6
+    DIMENSION_MISMATCH = 7
+    OUTPUT_NOT_EMPTY = 8
+    OUT_OF_MEMORY = 9
+    INSUFFICIENT_SPACE = 10
+    INVALID_OBJECT = 11
+    INDEX_OUT_OF_BOUNDS = 12
+    PANIC = 13
+    NOT_IMPLEMENTED = 14
+
+
 class Storage(enum.Enum):
     """Vector/Matrix storage state (reference: graphblas/types.hpp:21-23)."""
 

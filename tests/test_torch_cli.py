@@ -1,10 +1,10 @@
 """The port's CLI machinery (`graphblast_tpu_torch.utils`) and its gbfs,
-gsssp and gdiameter drivers (`graphblast_tpu_torch.examples`) against the
-JAX package's, on the CPU (`--device cpu`).
+gsssp, gdiameter and glgc drivers (`graphblast_tpu_torch.examples`)
+against the JAX package's, on the CPU (`--device cpu`).
 
 Every check is exact: descriptor fields, graph arrays, the drivers' exit
 codes and their CORRECT / INCORRECT lines (the drivers verify exactly for
-BFS and the diameter, and within the reference's 1e-3 for SSSP).
+BFS and the diameter, and within the reference's 1e-3 for SSSP and LGC).
 """
 import argparse
 import os
@@ -15,14 +15,14 @@ import torch
 
 import graphblast_tpu_torch as tgb
 from graphblast_tpu.utils import cli as jcli
-from graphblast_tpu_torch.examples import gbfs, gdiameter, gsssp
+from graphblast_tpu_torch.examples import gbfs, gdiameter, glgc, gsssp
 from graphblast_tpu_torch.utils import cli as tcli
 from graphblast_tpu_torch.utils import profiling, verify_list
 
 DATA = os.path.join(os.path.dirname(__file__), "..", "data", "small")
 CHESAPEAKE = os.path.join(DATA, "chesapeake.mtx")
 DRIVERS = {"gbfs": (gbfs, "BFS: CORRECT"), "gsssp": (gsssp, "SSSP: CORRECT"),
-           "gdiameter": (gdiameter, "CORRECT")}
+           "gdiameter": (gdiameter, "CORRECT"), "glgc": (glgc, "LGC: CORRECT")}
 
 
 def _parse(module, argv):
@@ -33,17 +33,18 @@ def _parse(module, argv):
 def test_descriptor_from_args_matches_jax(mxvmode):
     """Each --mxvmode (0 PUSHPULL, 1 PUSHONLY, 2 PULLONLY) and the tuned
     BFS flags give the JAX descriptor, field by field (the Direction and
-    LoadBalanceMode enums by name): every field but JAX's `backend`, which
-    picks between its traced and host-functor paths."""
+    LoadBalanceMode enums by name). `backend`, which picks between the
+    ops on the device and the host-functor path, names each package's
+    device path by default: "tpu" in JAX's, "device" in the port's."""
     argv = ["g.mtx", "--mxvmode", str(mxvmode), "--struconly", "1",
             "--earlyexit", "1", "--opreuse", "1", "--switchpoint", "0.05",
             "--memusage", "0.5", "--sort", "0", "--max_niter", "7",
             "--timing", "1", "--dirinfo", "--seed", "3"]
     jd = jcli.descriptor_from_args(_parse(jcli, argv))
     td = tcli.descriptor_from_args(_parse(tcli, argv))
-    assert set(jd.__dataclass_fields__) - set(td.__dataclass_fields__) == {
-        "backend"}
-    for field in td.__dataclass_fields__:
+    assert set(jd.__dataclass_fields__) == set(td.__dataclass_fields__)
+    assert (jd.backend, td.backend) == ("tpu", "device")
+    for field in set(td.__dataclass_fields__) - {"backend"}:
         a, b = getattr(jd, field), getattr(td, field)
         if hasattr(a, "name"):
             a, b = a.name, b.name
@@ -140,6 +141,10 @@ def test_driver_returns_1_on_a_wrong_golden(driver, monkeypatch, capsys):
         good = reference.sssp_cpu
         monkeypatch.setattr(reference, "sssp_cpu",
                             lambda A, s: good(A, s) + 1.0)
+    elif driver == "glgc":
+        good = reference.lgc_cpu
+        monkeypatch.setattr(reference, "lgc_cpu",
+                            lambda *a, **kw: good(*a, **kw) + 1.0)
     else:
         good = reference.bfs_cpu
         monkeypatch.setattr(reference, "bfs_cpu",
@@ -177,3 +182,32 @@ def test_verify_helpers_report_mismatches(capsys):
     assert not verify_list(np.arange(4), np.array([0, 1, 5, 3]), "X")
     assert "first mismatch at [2]" in capsys.readouterr().out
     assert isinstance(tcli.build_parser("g"), argparse.ArgumentParser)
+
+
+def test_glgc_prints_the_jax_answer(capsys):
+    """glgc's --alpha defaults to 0.15, as the JAX driver's does, and its
+    result on chesapeake from source 3 equals the JAX lgc's within the
+    JAX test's bar (rtol 1e-3, atol 1e-7)."""
+    from graphblast_tpu.algorithms import lgc as jax_lgc
+
+    got = {}
+    real = glgc.run_driver
+
+    def spy(name, description, run_fn, *rest, **kw):
+        def run(A, args, desc):
+            got["alpha"] = args.alpha
+            got["p"] = run_fn(A, args, desc)
+            return got["p"]
+        return real(name, description, run, *rest, **kw)
+
+    glgc.run_driver = spy
+    try:
+        assert glgc.main([CHESAPEAKE, "--device", "cpu", "--source", "3",
+                          "--niter", "1"]) == 0
+    finally:
+        glgc.run_driver = real
+    assert got["alpha"] == 0.15
+    assert "LGC: CORRECT" in capsys.readouterr().out
+    J = jcli.load_graph(_parse(jcli, [CHESAPEAKE]))
+    want = np.asarray(jax_lgc(J, 3, alpha=0.15, eps=1e-6).to_numpy())
+    np.testing.assert_allclose(got["p"].numpy(), want, rtol=1e-3, atol=1e-7)

@@ -1012,3 +1012,149 @@ def test_pushpull_on_the_card_matches_the_cpu(cuda, monkeypatch, name,
         np.testing.assert_array_equal(
             tgb.algorithms.sssp(A, s, sdesc, mode=mode).to_numpy(), want)
     assert tgb.diameter(A, 0, 8, bdesc) == tgb.diameter(C, 0, 8, bdesc)
+
+
+# --------------------------------------- the operations surface on the card
+def _to(M, dev):
+    return dataclasses.replace(M, **{
+        k: None if getattr(M, k) is None else getattr(M, k).to(dev)
+        for k in tgb.matrix.LEAVES}, _plans={})
+
+
+def _within(got, want, exact):
+    if exact:
+        np.testing.assert_array_equal(got, want)
+    else:
+        scale = max(float(np.abs(want[np.abs(want) < 3e38]).max(
+            initial=0)), 1.0)
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * scale)
+
+
+# a non-associative ⊕'s push folds in its sort's order: GreaterPlus pulls
+MATVEC_CARD_CASES = [(s, p) for s in ("LogicalOrAnd", "MinimumPlus",
+                                      "PlusMultiplies", "MaximumMultiplies",
+                                      "PlusMinus", "GreaterPlus")
+                     for p in (False, True) if not (p and s == "GreaterPlus")]
+
+
+@pytest.mark.parametrize("sr_name,sparse", MATVEC_CARD_CASES)
+@pytest.mark.parametrize("fn", ["mxv", "vxm"])
+def test_matvec_on_the_card_matches_the_cpu(cuda, sr_name, sparse, fn):
+    """mxv and vxm on the card, pull (dense u) and push (sparse u), with a
+    complemented mask, a Plus accumulator and w, equal to the same call on
+    the CPU (the plain kernels): exact but for float sums (1e-5·max|y|)."""
+    from graphblast_tpu_torch.io.rmat import rmat_matrix
+
+    sr = getattr(tgb, sr_name + "Semiring")
+    A = rmat_matrix(11, 16, seed=5, device="cpu")
+    rng = np.random.default_rng(len(sr_name))
+    n = A.nrows
+    x = np.where(rng.random(n) < 0.6, 0, rng.standard_normal(n)).astype(
+        np.float32)
+    mask = (rng.random(n) < 0.5).astype(np.float32)
+    w = rng.integers(0, 4, n).astype(np.float32)
+    desc = tgb.Descriptor(mask_scmp=True,
+                          structure_only=sr_name == "LogicalOrAnd")
+    outs = []
+    for M, dev in ((A, "cpu"), (_to(A, cuda), cuda)):
+        u = tgb.Vector.dense_from(x, device=dev)
+        if sparse:
+            u = u.to_sparse(0)
+        args = (M, u) if fn == "mxv" else (u, M)
+        y = getattr(tgb, fn)(*args, sr, mask=tgb.Vector.dense_from(
+            mask, device=dev), accum=tgb.PlusMonoid, desc=desc,
+            w=tgb.Vector.dense_from(w, device=dev))
+        assert y.storage == (tgb.Storage.SPARSE if sparse
+                             else tgb.Storage.DENSE)
+        outs.append(y.to_numpy(sr.identity(torch.float32).item()))
+    _within(outs[1], outs[0], sr.add.name != "PlusMonoid")
+
+
+@pytest.mark.parametrize("sr_name", ["PlusMultiplies", "MinimumPlus",
+                                     "LogicalOrAnd"])
+@pytest.mark.parametrize("max_lanes", [1 << 23, 4096])
+def test_spgemm_esc_on_the_card_matches_the_cpu(cuda, sr_name, max_lanes):
+    """The ESC C = A·A at RMAT scale 10 with seeded symmetric integer
+    weights in 1..8 on the card: every array equal to the CPU's (exact:
+    every sum is an integer below 2^24), in one chunk and in many (the
+    merge); 10 K6 launches a chunk; C equal to scipy's A·A under
+    PlusMultiplies and to a NumPy golden under MinimumPlus."""
+    import scipy.sparse as sp
+
+    from graphblast_tpu_torch.io.rmat import rmat_matrix
+
+    sr = getattr(tgb, sr_name + "Semiring")
+    A0 = rmat_matrix(10, 16, seed=3, device="cpu")
+    ptr, ind, _ = A0.host_csr()
+    n = A0.nrows
+    r = np.repeat(np.arange(n, dtype=np.int64), np.diff(ptr))
+    c = ind.astype(np.int64)
+    _, pair = np.unique(np.minimum(r, c) * n + np.maximum(r, c),
+                        return_inverse=True)
+    w = np.random.default_rng(31).integers(1, 9, pair.max() + 1)[pair]
+    A = tgb.Matrix.from_coo(r, c, w.astype(np.float32), n, n, device="cpu")
+    assert A.symmetric
+    want = sg.spgemm_esc(A, A, sr, max_lanes=max_lanes)
+    ptr, ind, val = A.host_csr()
+    if sr_name == "PlusMultiplies":
+        S = sp.csr_matrix((val, ind, ptr), shape=A.shape)
+        gold = S @ S
+        gold.sort_indices()
+        gold = (gold.indptr, gold.indices, gold.data)
+    elif sr_name == "MinimumPlus":
+        # every product A[i,k] + A[k,j], then the min for each (i, j)
+        cnt = np.diff(ptr)[c]
+        src = np.repeat(np.arange(len(c)), cnt)
+        pos = (np.repeat(ptr[c], cnt) + np.arange(cnt.sum())
+               - np.repeat(np.cumsum(cnt) - cnt, cnt))
+        key = r[src] * n + ind[pos]
+        order = np.argsort(key, kind="stable")
+        ks = key[order]
+        heads = np.flatnonzero(np.r_[True, ks[1:] != ks[:-1]])
+        mins = np.minimum.reduceat((val[src] + val[pos])[order], heads)
+        gold = (np.r_[0, np.cumsum(np.bincount(ks[heads] // n,
+                                               minlength=n))],
+                ks[heads] % n, mins)
+    if sr_name != "LogicalOrAnd":
+        for a, b in zip(want.host_csr(), gold):
+            np.testing.assert_array_equal(a, b)
+    Ac = _to(A, cuda)
+    chunks = len(sg.esc_plan(Ac, Ac, max_lanes=max_lanes)[1]) - 1
+    launches = kg.gather_1d.launches
+    got = sg.spgemm_esc(Ac, Ac, sr, max_lanes=max_lanes)
+    assert kg.gather_1d.launches - launches == 10 * chunks
+    assert (got.nvals, got.symmetric, got.format) == (
+        want.nvals, want.symmetric, want.format)
+    for leaf in tgb.matrix.LEAVES:
+        a, b = getattr(want, leaf), getattr(got, leaf)
+        assert (a is None) == (b is None)
+        if a is not None:
+            assert torch.equal(b.cpu(), a), leaf
+
+
+def test_lgc_and_mxm_dense_on_the_card_match_the_cpu(cuda):
+    """lgc from the hub at RMAT scale 12 within rtol 1e-3 / atol 1e-7 of
+    the CPU's, with 2·iterations + 1 K6 launches; mxm_dense under Plus
+    (1e-5·max|C|) and Min (exact)."""
+    from graphblast_tpu_torch.algorithms.lgc import _lgc_loop
+    from graphblast_tpu_torch.io.rmat import rmat_matrix
+
+    A = rmat_matrix(12, 16, seed=42, device="cpu")
+    s = int(np.argmax(np.diff(A.host_csr()[0])))
+    Ac = _to(A, cuda)
+    want = tgb.lgc(A, s).to_numpy()
+    launches = kg.gather_1d.launches
+    got = tgb.lgc(Ac, s).to_numpy()
+    iters = _lgc_loop(A, s, alpha=0.15, eps=1e-6, max_niter=10000)[2]
+    assert kg.gather_1d.launches - launches == 2 * iters + 1
+    np.testing.assert_allclose(got, want, rtol=1e-3, atol=1e-7)
+    B = np.random.default_rng(1).standard_normal((A.ncols, 8)).astype(
+        np.float32)
+    for sr in (tgb.PlusMultipliesSemiring, tgb.MinimumPlusSemiring):
+        c_cpu = tgb.mxm_dense(A, B, sr).numpy()
+        c_gpu = tgb.mxm_dense(Ac, torch.from_numpy(B).to(cuda), sr)
+        if sr.add.name == "PlusMonoid":
+            np.testing.assert_allclose(c_gpu.cpu().numpy(), c_cpu, rtol=0,
+                                       atol=1e-5 * np.abs(c_cpu).max())
+        else:
+            np.testing.assert_array_equal(c_gpu.cpu().numpy(), c_cpu)

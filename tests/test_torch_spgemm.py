@@ -304,8 +304,10 @@ def test_tril_and_extract_tuples_match_jax():
 def test_mxm_refusals():
     _, T = _chesapeake()
     S = tgb.PlusMultipliesSemiring
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        tgb.mxm(T, T, S)
+    # without a mask, mxm is the unmasked SpGEMM (here its dense route)
+    St = T.to_scipy()
+    np.testing.assert_array_equal(tgb.mxm(T, T, S).to_dense(),
+                                  (St @ St).toarray())
     rows, cols = np.array([0, 1]), np.array([1, 2])
     _, R = _both(rows, cols, np.ones(2), 3, ncols=5)      # 3x5
     with pytest.raises(DimensionException):
