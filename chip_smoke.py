@@ -222,7 +222,28 @@ Phases, each of which fails the run on error (each prints its seconds):
   32. mxm_dense of rmat18's A by a seeded 262,144 × 32 float32 B, under
      PlusMultiplies (within 1e-5·max|C| of scipy's product) and
      MinimumPlus (equal to a NumPy golden); ms beside torch.sparse.mm;
-  33. prints {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
+  33. the six other drivers (gpr, gcc, gmis, ggc, ggc_cusparse,
+     gtc) as subprocesses on rmat:18:16 with their run_*.sh flags, all six
+     started at once: each exits 0 with its timing row; gcc, gmis and the
+     two colourings print their CORRECT line (gpr and gtc skip the golden,
+     as their run_*.sh TEST=1 lines do);
+  34. native ingest: rmat18's raw COO written as a pattern .mtx under a
+     temporary directory and read undirected by io.mmio.read_mtx on the
+     native path (graphblast_tpu_torch/native, built with g++) and with
+     GRB_NATIVE=0: the arrays equal, rmat18's edge count; both times;
+  35. the distributed layer at world size 1 over NCCL (parallel/): its
+     partition of rmat18; bfs_dist pull and auto from the 8 hubs equal to
+     the goldens, one K1 a pull iteration and 7 K6 a push iteration (the
+     directions replayed from the golden levels); sssp_dist from the hubs
+     and cc_dist equal to the goldens of phases 7 and 8, one S an
+     iteration (and CC one K6); pr_dist within phase 5's bars, one value
+     pull an iteration; lgc_dist from the hub within phase 30's bar of
+     lgc_cpu; each timed beside its single-device call; K1, the value
+     pull and S at their dist call sites against their plain versions,
+     timed, with bounds and library calls; then examples/scaling.py at
+     scale 18 on the card as a subprocess (one NCCL rank spawned by
+     parallel.launch): exit 0, its header and the P = 1 row;
+  36. prints {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
 
 Every check of results, launch counts and schedules raises. A
 torch.profiler reading that cannot be trusted (no device time, or more
@@ -777,7 +798,8 @@ def phase_value_pull(tag, plan, x, plain_reps: int):
 
 def phase_pagerank(A, reps: int = 40):
     """PageRank through the entry point, against the port's golden at its
-    fixed point; then the call, its host plan build and its loop, timed."""
+    fixed point; then the call, its host plan build and its loop, timed.
+    Returns (value-pull launches, the golden)."""
     import numpy as np
 
     import graphblast_tpu_torch as gt
@@ -831,7 +853,7 @@ def phase_pagerank(A, reps: int = 40):
           f"{100 * k_ms * iters / (loop_s * 1e3):.2f}% of the loop, "
           f"{100 * k_ms * iters / (call_s * 1e3):.2f}% of the call; host and "
           f"other ops {it_ms - k_ms:.6f} ms/iteration")
-    return launches
+    return launches, gold
 
 
 def phase_monoid_pull(A):
@@ -2772,25 +2794,30 @@ def _cpu_copy(A):
 
 
 def _site_row(tag: str, fn, plain, bound_bytes: int, library=None,
-              reps: int = 200) -> dict:
+              reps: int = 200, rel_tol=None) -> dict:
     """One kernel at one call site: its output torch.equal (NaN where NaN)
-    to its plain version's and to a second launch's; kernel, plain and
-    library times by CUDA events; the bound. The row of the kernels
-    line."""
+    to its plain version's, or with `rel_tol` within rel_tol · max|plain|
+    of it (the value pull's fp32 sums beside its float64 plain version),
+    and torch.equal to a second launch's; kernel, plain and library times
+    by CUDA events; the bound. The row of the kernels line."""
     import torch
 
     y, y_again, y_plain = fn(), fn(), plain()
     torch.cuda.synchronize()
-    if not (_same(y, y_plain) and _same(y, y_again)):
-        raise AssertionError(f"{tag}: differs from its plain version or a "
-                             "second launch")
     err = float((y.double() - y_plain.double()).abs().nan_to_num().max())
+    close = (_same(y, y_plain) if rel_tol is None
+             else err <= rel_tol * float(y_plain.abs().max()))
+    if not (close and _same(y, y_again)):
+        raise AssertionError(f"{tag}: differs from its plain version (max "
+                             f"diff {err}) or a second launch")
     ms = _event_ms(fn, reps)
     plain_ms = _event_ms(plain, 10)
     lib_ms = None if library is None else _event_ms(library, 50)
     bound_ms = bound_bytes / HBM_BYTES_PER_S * 1e3
     lib = "none" if lib_ms is None else f"{lib_ms:.6f} ms"
-    print(f"[{tag}] equal to plain (max diff {err}) and to a second "
+    held = ("equal to" if rel_tol is None
+            else f"within {rel_tol}·max|y| of")
+    print(f"[{tag}] {held} plain (max diff {err}) and equal to a second "
           f"launch; kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, library "
           f"{lib}, bound {bound_bytes} B -> {bound_ms:.6f} ms at 3.35 TB/s "
           f"({100 * bound_ms / ms:.1f}% of it)")
@@ -3029,7 +3056,7 @@ def phase_lgc(A, hub: int, reps: int = 5):
     an iteration at the column ids and once at the row boundaries, and
     once more for the degrees, and no other kernel; iterations and
     ms/run. Then K6 at LGC's gather of x at the column ids. Returns
-    (launches of the two runs, K6's row)."""
+    (launches of the two runs, K6's row, the hub's lgc_cpu golden)."""
     import numpy as np
     import torch
 
@@ -3040,12 +3067,12 @@ def phase_lgc(A, hub: int, reps: int = 5):
                                                          gather_1d_plain)
 
     alpha, eps = 0.15, 1e-6
-    total = {}
+    total, goldens = {}, {}
     deg = np.diff(A.host_csr()[0])
     leaf = int(np.flatnonzero(deg == deg[deg > 0].min())[0])
     for name, s in (("hub", hub), (f"a degree-{deg[leaf]} vertex", leaf)):
         t0 = time.perf_counter()
-        want = lgc_cpu(A, s, alpha, eps, gt.DEFAULT.max_niter)
+        want = goldens[s] = lgc_cpu(A, s, alpha, eps, gt.DEFAULT.max_niter)
         cpu_s = time.perf_counter() - t0
         _reset_counts()
         p = gt.lgc(A, s, alpha=alpha, eps=eps).to_numpy()
@@ -3079,7 +3106,7 @@ def phase_lgc(A, hub: int, reps: int = 5):
                     lambda: gather_1d(r2, col), lambda: gather_1d_plain(
                         r2, col), 4 * (2 * m + min(A.nrows, m)),
                     library=lambda: torch.index_select(r2, 0, col))
-    return total, row
+    return total, row, goldens[hub]
 
 
 def phase_glgc_driver():
@@ -3358,6 +3385,411 @@ def phase_mxm_dense(A, k: int = 32, reps: int = 10):
               f"{reps} calls; torch.sparse.mm(A, B) {lib_ms:.6f} ms")
 
 
+# the six drivers of phase 33, each with its run_*.sh flags (run_cc.sh's for
+# gmis, which has no script), and the line that shows it verified; gpr and
+# gtc skip the golden, as their run_*.sh TEST=1 lines do
+DRIVER_RUNS = (
+    ("gpr", ["--timing", "0", "--mxvmode", "0", "--niter", "5",
+             "--max_niter", "10", "--skip_cpu_verify"], None),
+    ("gcc", ["--mxvmode", "0", "--timing", "0", "--directed", "2",
+             "--niter", "5"], "CC: CORRECT"),
+    ("gmis", ["--mxvmode", "0", "--timing", "0", "--directed", "2",
+              "--niter", "5"], "MIS: CORRECT"),
+    ("ggc", ["--niter", "10", "--mxvmode", "0", "--timing", "1",
+             "--directed", "2"], "GC[CORRECT]: colors="),
+    ("ggc_cusparse", ["--niter", "10", "--mxvmode", "0", "--timing", "1",
+                      "--directed", "2"], "GC[CORRECT]: colors="),
+    ("gtc", ["--timing", "1", "--mxvmode", "0", "--directed", "2",
+             "--niter", "1", "--skip_cpu_verify"], None),
+)
+
+
+def phase_drivers():
+    """The six other drivers as subprocesses on rmat:18:16, all
+    started at once: each exits 0 and prints its timing row, and the four
+    that keep the golden print their CORRECT line. Their output is printed
+    back."""
+    import os
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    procs = {}
+    t0 = time.perf_counter()
+    for name, flags, _ in DRIVER_RUNS:
+        cmd = [sys.executable, "-m", f"graphblast_tpu_torch.examples.{name}",
+               "rmat:18:16"] + flags
+        procs[name] = (cmd, subprocess.Popen(
+            cmd, cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True))
+    failed = []
+    for name, flags, correct in DRIVER_RUNS:
+        cmd, proc = procs[name]
+        try:
+            out, err = proc.communicate(timeout=400)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, err = proc.communicate()
+        secs = time.perf_counter() - t0
+        for line in out.strip().splitlines():
+            print(f"[{name}] {line}")
+        lines = out.strip().splitlines()
+        ok = (proc.returncode == 0 and len(lines) >= 2
+              and lines[-2] == "cpu, warmup, tight, GTEPS"
+              and (correct is None or any(line.startswith(correct)
+                                          for line in lines)))
+        if not ok:
+            failed.append(f"{name} exited {proc.returncode}: {err[-1500:]}")
+        print(f"[{name}] {' '.join(cmd[1:])}: exit {proc.returncode}, done "
+              f"{secs:.2f} s after the six started"
+              + ("" if correct else " (the golden skipped, as run_*.sh "
+                 "TEST=1 does)"))
+    if failed:
+        raise AssertionError("drivers failed: " + "; ".join(failed))
+
+
+@contextlib.contextmanager
+def _numpy_ingest():
+    """GRB_NATIVE=0 inside the block: io.mmio takes its NumPy path."""
+    import os
+
+    old = os.environ.get("GRB_NATIVE")
+    os.environ["GRB_NATIVE"] = "0"
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["GRB_NATIVE"]
+        else:
+            os.environ["GRB_NATIVE"] = old
+
+
+def phase_native_ingest(n_expect: int):
+    """rmat18's raw COO (rmat_edges(18, 16, 42), 4,194,304 edges) written
+    as a pattern .mtx under a temporary directory, then read undirected by
+    io.mmio.read_mtx on the native path and with GRB_NATIVE=0: the arrays
+    equal, and the edge count rmat_matrix gives (n_expect). Both times
+    printed, and those of canonicalize_coo alone on the raw arrays (what
+    rmat_matrix runs), native and NumPy, equal too."""
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from graphblast_tpu_torch import native
+    from graphblast_tpu_torch.io import mmio
+    from graphblast_tpu_torch.io.rmat import rmat_edges
+
+    r, c = rmat_edges(18, 16, 42)
+    n = 1 << 18
+    ones = np.ones(len(r), np.float32)
+    t0 = time.perf_counter()
+    canon = mmio.canonicalize_coo(r, c, ones, undirected=True,
+                                  remove_self_loops=True)
+    canon_s = time.perf_counter() - t0
+    with _numpy_ingest():
+        t0 = time.perf_counter()
+        canon_np = mmio.canonicalize_coo(r, c, ones, undirected=True,
+                                         remove_self_loops=True)
+        canon_np_s = time.perf_counter() - t0
+    if not all(np.array_equal(a, b) and a.dtype == b.dtype
+               for a, b in zip(canon, canon_np)):
+        raise AssertionError("native canonicalize_coo differs from NumPy's")
+    print(f"[native] canonicalize_coo of rmat18's raw COO ({len(r)} "
+          f"edges, undirected): native {canon_s:.3f} s, NumPy "
+          f"{canon_np_s:.3f} s ({canon_np_s / canon_s:.1f}x), equal")
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "rmat18.mtx")
+        t0 = time.perf_counter()
+        with open(path, "w") as f:
+            f.write("%%MatrixMarket matrix coordinate pattern general\n"
+                    f"{n} {n} {len(r)}\n")
+            f.write("\n".join(map("{} {}".format, (r + 1).tolist(),
+                                  (c + 1).tolist())))
+            f.write("\n")
+        write_s = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        if native.get_lib() is None:
+            raise AssertionError("the native path is off (GRB_NATIVE)")
+        t0 = time.perf_counter()
+        got = mmio.read_mtx(path, directed=2)
+        native_s = time.perf_counter() - t0
+        with _numpy_ingest():
+            t0 = time.perf_counter()
+            want = mmio.read_mtx(path, directed=2)
+            numpy_s = time.perf_counter() - t0
+    for a, b, what in zip(got[:5], want[:5], ("rows", "cols", "vals",
+                                              "nrows", "ncols")):
+        same = (np.array_equal(a, b) and a.dtype == b.dtype
+                if isinstance(b, np.ndarray) else a == b)
+        if not same:
+            raise AssertionError(f"native read_mtx differs from NumPy's in "
+                                 f"{what}")
+    if len(got[0]) != n_expect:
+        raise AssertionError(f"native read_mtx: {len(got[0])} edges, "
+                             f"rmat_matrix {n_expect}")
+    print(f"[native] rmat18 raw COO as .mtx ({len(r)} lines, {size} B, "
+          f"written in {write_s:.2f} s): read_mtx native {native_s:.3f} s, "
+          f"NumPy (GRB_NATIVE=0) {numpy_s:.3f} s ({numpy_s / native_s:.1f}x);"
+          f" {len(got[0])} canonical edges, arrays equal")
+
+
+def _directions(golden, switchpoint: float) -> tuple:
+    """(pull, push) iterations of the stepped dist BFS from the golden
+    levels: iteration it holds the level-it frontier and pulls where its
+    share of the vertices passes the switchpoint."""
+    import numpy as np
+
+    sizes = np.bincount(golden.astype(np.int64))[1:]
+    pulls = int((sizes / len(golden) > switchpoint).sum())
+    return pulls, len(sizes) - pulls
+
+
+def phase_dist(A, sources, goldens, sssp_goldens, cc_golden, pr_golden,
+               lgc_golden, reps: int = 3):
+    """The distributed layer at world size 1 over NCCL on the card, at
+    rmat18: bfs_dist pull and auto from the 8 hubs equal to the goldens
+    (one K1 a pull iteration; 7 K6 a push iteration, the push's expansion);
+    sssp_dist and cc_dist equal to the goldens of phases 7 and 8 (one S an
+    iteration, and CC one K6 at the grandparents); pr_dist within phase
+    5's bars (one value pull an iteration); lgc_dist from the hub within
+    rtol 1e-3 / atol 1e-7 of lgc_cpu (K6 as phase 30). Each timed beside
+    its single-device call (PageRank's loop over its prebuilt plan, as the
+    dist partition's plan is built beforehand), both returning the result
+    on the host. Then K1, the value pull and S at their dist call sites
+    against their plain versions; last, scaling.py on the card as a
+    subprocess. Returns the kernels line's three rows."""
+    import os
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    import graphblast_tpu_torch as gt
+    from graphblast_tpu_torch import parallel as par
+    from graphblast_tpu_torch.algorithms.pr import (
+        _pr_fused, prepare_pr_matrix, prepare_pr_plan)
+    from graphblast_tpu_torch.ops.kernels.bitmap_pull import (
+        pack_bitmap, spmv_bitmap_pull, spmv_bitmap_pull_plain)
+    from graphblast_tpu_torch.ops.kernels.minmax_pull import (
+        spmv_minmax_pull, spmv_minmax_pull_plain)
+    from graphblast_tpu_torch.ops.kernels.value_pull import (
+        spmv_value_pull, spmv_value_pull_plain)
+
+    last = par.algorithms.last_run
+    t0 = time.perf_counter()
+    mesh = par.global_mesh()
+    print(f"[dist] mesh {mesh.size()} rank over "
+          f"{dist.get_backend(mesh.get_group())}, torch {torch.__version__}, "
+          f"joined in {time.perf_counter() - t0:.2f} s")
+    if dist.get_backend(mesh.get_group()) != "nccl" or mesh.size() != 1:
+        raise AssertionError("the dist phase needs one NCCL rank")
+    t0 = time.perf_counter()
+    Ash = par.partition(A, mesh)
+    t1 = time.perf_counter()
+    plan = Ash.pull_plan
+    torch.cuda.synchronize()
+    print(f"[dist] partition (CSR and CSC blocks) {t1 - t0:.2f} s, the K1 "
+          f"plan and its schedule at first use {time.perf_counter() - t1:.2f}"
+          f" s; n_pad {Ash.n_pad}, cap {Ash.csr_ind.shape[0]}")
+    n = A.nrows
+    group = mesh.get_group()
+    xb = torch.rand(Ash.rows_per, device="cuda")
+    one = torch.ones(1, dtype=torch.int32, device="cuda")
+    ag_ms = _event_ms(lambda: par.ops.all_gather(xb, group), 200)
+    ar_ms = _event_ms(lambda: par.ops.all_reduce(one, group=group), 200)
+    clone_ms = _event_ms(lambda: xb.clone(), 200)
+    read_s, _ = _timed_runs(lambda: int(par.ops.count(xb > 0.5, group)), 50)
+    local_s, _ = _timed_runs(lambda: int((xb > 0.5).sum()), 50)
+    print(f"[dist] NCCL at world size 1 (CUDA events over back-to-back "
+          f"calls): all-gather of {Ash.rows_per} float32 {ag_ms:.6f} ms "
+          f"(a clone of them {clone_ms:.6f} ms), all-reduce of one int32 "
+          f"{ar_ms:.6f} ms; a count, its all-reduce and the host read "
+          f"{read_s * 1e3:.6f} ms median of 50 (without the all-reduce "
+          f"{local_s * 1e3:.6f} ms)")
+    k1 = 0
+    for mode in ("pull", "auto"):
+        _reset_counts()
+        levels = [par.bfs_dist(A, int(s), mesh, mode=mode, Ash=Ash)
+                  for s in sources]
+        counts = _read_counts()
+        pulls = pushes = 0
+        for s, v, want in zip(sources, levels, goldens):
+            if v.shape != (n,) or not np.array_equal(v, want):
+                raise AssertionError(f"bfs_dist {mode} from {s}: levels != "
+                                     "golden")
+            d = (_directions(want, gt.BFS_TUNED.switchpoint) if mode == "auto"
+                 else (int(want.max()), 0))
+            pulls, pushes = pulls + d[0], pushes + d[1]
+        _expect_launches(f"bfs_dist {mode}", {
+            "bitmap_pull": pulls, "gather_boundary": 7 * pushes}, counts)
+        k1 += pulls
+        print(f"[dist] bfs_dist {mode} from {len(sources)} hubs: levels == "
+              f"golden; {pulls} pull and {pushes} push iterations; "
+              f"launches {counts}")
+    desc_pull = gt.BFS_TUNED.replace(mxv_mode=gt.Direction.PULLONLY)
+    srcs = [int(s) for s in sources]
+
+    def timed(tag, dist_fn, single_fn, runs, single_tag="single-device"):
+        d_s, d_tail = _timed_runs(dist_fn, runs)
+        s_s, s_tail = _timed_runs(single_fn, runs)
+        print(f"[dist] {tag}: {d_s * 1e3:.6f} ms/run median ({d_tail}), "
+              f"{single_tag} {s_s * 1e3:.6f} ms/run ({s_tail}), "
+              f"{runs} runs each, both to a host array")
+
+    it = iter(srcs * reps * 4)
+    timed("bfs pull", lambda: par.bfs_dist(A, next(it), mesh, mode="pull",
+                                           Ash=Ash),
+          lambda: gt.algorithms.bfs(A, next(it), desc_pull).to_numpy(),
+          len(srcs) * reps)
+    timed("bfs auto", lambda: par.bfs_dist(A, next(it), mesh, Ash=Ash),
+          lambda: gt.algorithms.bfs(A, next(it)).to_numpy(),
+          len(srcs) * reps)
+
+    _reset_counts()
+    iters = 0
+    for s, want in zip(srcs, sssp_goldens):
+        d = par.sssp_dist(A, s, mesh, Ash=Ash)
+        iters += last["sssp"]["iterations"]
+        if d.shape != (n,) or not np.array_equal(d, want):
+            raise AssertionError(f"sssp_dist from {s}: != golden")
+    counts = _expect_launches("sssp_dist", {"minmax_pull": iters})
+    s_launches = iters
+    print(f"[dist] sssp_dist from {len(srcs)} hubs: distances == golden; "
+          f"{iters} iterations, launches {counts}")
+    sssp_desc = gt.DEFAULT.replace(mxv_mode=gt.Direction.PULLONLY)
+    it = iter(srcs * reps * 2)
+    timed("sssp", lambda: par.sssp_dist(A, next(it), mesh, Ash=Ash),
+          lambda: gt.algorithms.sssp(A, next(it), sssp_desc).to_numpy(),
+          len(srcs) * reps)
+
+    _reset_counts()
+    labels = par.cc_dist(A, mesh, Ash=Ash)
+    counts = _read_counts()
+    iters = last["cc"]["iterations"]
+    if not np.array_equal(labels, cc_golden):
+        raise AssertionError("cc_dist: labels != golden")
+    _expect_launches("cc_dist", {"minmax_pull": iters, "gather_x": iters},
+                     counts)
+    s_launches += iters
+    print(f"[dist] cc_dist: labels == golden; {iters} iterations, launches "
+          f"{counts}")
+    timed("cc", lambda: par.cc_dist(A, mesh, Ash=Ash),
+          lambda: gt.algorithms.cc(A).to_numpy(), 5 * reps)
+
+    t0 = time.perf_counter()
+    Apr = par.partition(prepare_pr_matrix(A, PR_ALPHA), mesh)
+    vplan = Apr.value_pull_plan
+    torch.cuda.synchronize()
+    print(f"[dist] PageRank's prepared partition with its value-pull plan "
+          f"{time.perf_counter() - t0:.2f} s")
+    _reset_counts()
+    p = par.pr_dist(A, mesh, alpha=PR_ALPHA, eps=PR_EPS, Ash=Apr)
+    counts = _read_counts()
+    pr_iters = last["pr"]["iterations"]
+    l1 = float(np.abs(p.astype(np.float64) - pr_golden).sum())
+    top = np.argsort(pr_golden)[::-1][:100]
+    top_rel = float((np.abs(p[top] - pr_golden[top]) / pr_golden[top]).max())
+    if not (p.shape == (n,) and l1 <= 1e-4 and top_rel <= 1e-3):
+        raise AssertionError(f"pr_dist vs golden: L1 {l1} (bar 1e-4), "
+                             f"top-100 rel {top_rel} (bar 1e-3)")
+    _expect_launches("pr_dist", {"value_pull": pr_iters}, counts)
+    print(f"[dist] pr_dist: {pr_iters} iterations, sum|p - p_gold| {l1:.3e} "
+          f"(bar 1e-4), top-100 rel {top_rel:.3e} (bar 1e-3); launches "
+          f"{counts}")
+    pr_plan = prepare_pr_plan(A, PR_ALPHA)
+    timed("pr", lambda: par.pr_dist(A, mesh, alpha=PR_ALPHA, eps=PR_EPS,
+                                    Ash=Apr),
+          lambda: _pr_fused(A, pr_plan, alpha=PR_ALPHA, eps=PR_EPS,
+                            max_niter=gt.DEFAULT.max_niter)[0].cpu().numpy(),
+          5 * reps, single_tag="single-device loop over its prebuilt plan")
+
+    hub = srcs[0]
+    _reset_counts()
+    q = par.lgc_dist(A, hub, mesh, alpha=0.15, eps=1e-6, Ash=Ash)
+    counts = _read_counts()
+    iters = last["lgc"]["iterations"]
+    if not (q.shape == (n,) and np.isfinite(q).all() and np.allclose(
+            q, lgc_golden, rtol=1e-3, atol=1e-7)):
+        raise AssertionError("lgc_dist: past rtol 1e-3 / atol 1e-7 of "
+                             "lgc_cpu")
+    _expect_launches("lgc_dist", {"gather_x": iters,
+                                  "gather_boundary": iters + 1}, counts)
+    print(f"[dist] lgc_dist from the hub: within rtol 1e-3 / atol 1e-7 of "
+          f"lgc_cpu (max diff {float(np.abs(q - lgc_golden).max())}); "
+          f"{iters} iterations, launches {counts}")
+    timed("lgc", lambda: par.lgc_dist(A, hub, mesh, alpha=0.15, eps=1e-6,
+                                      Ash=Ash),
+          lambda: gt.algorithms.lgc(A, hub, alpha=0.15,
+                                    eps=1e-6).to_numpy(), 2 * reps)
+
+    # the kernels at their dist call sites, on the blocks' arrays
+    nnz = int(plan.ptr[-1])
+    f = torch.zeros(Ash.n_pad, dtype=torch.float32, device="cuda")
+    f[:n] = torch.from_numpy((goldens[0] == 2).astype(np.float32)).cuda()
+    words = pack_bitmap(f)
+    ones = torch.sparse_csr_tensor(
+        plan.ptr, plan.ind[:nnz], torch.ones(nnz, device="cuda"),
+        size=(plan.n_out, plan.n_in), check_invariants=False)
+    rows = {"bitmap_pull_dist": _site_row(
+        "K1 at bfs_dist's pull (the hub's level-2 frontier)",
+        lambda: spmv_bitmap_pull(plan, words),
+        lambda: spmv_bitmap_pull_plain(plan, words),
+        4 * (nnz + (plan.n_out + 1) + words.shape[0] + plan.n_out),
+        lambda: torch.mv(ones, f))}
+    vnnz = int(vplan.ptr[-1])
+    x = torch.from_numpy(np.random.default_rng(35).standard_normal(
+        Ash.n_pad).astype(np.float32)).cuda()
+    vmat = torch.sparse_csr_tensor(vplan.ptr, vplan.ind[:vnnz],
+                                   vplan.val[:vnnz], size=(vplan.n_out,
+                                                           vplan.n_in),
+                                   check_invariants=False)
+    rows["value_pull_dist"] = _site_row(
+        "value pull at pr_dist's pull", lambda: spmv_value_pull(vplan, x),
+        lambda: spmv_value_pull_plain(vplan, x),
+        8 * vnnz + 4 * (vplan.n_out + 1) + 4 * vplan.n_in + 4 * vplan.n_out,
+        lambda: torch.mv(vmat, x), rel_tol=1e-5)
+    ptr, ind, val = Ash.csc()
+    snnz = ind.shape[0]
+    sched = Ash.schedule(True)
+    rng = np.random.default_rng(36)
+    xs = rng.uniform(0.0, 5.0, Ash.n_pad).astype(np.float32)
+    xs[rng.random(Ash.n_pad) < 0.4] = MAXF32
+    xs = torch.from_numpy(xs).cuda()
+    sr = gt.MinimumPlusSemiring
+    prod = (val + xs[ind.long()]).contiguous()
+    rows["minmax_pull_dist"] = _site_row(
+        "S at sssp_dist's MinimumPlus pull",
+        lambda: spmv_minmax_pull(ptr, ind, val, xs, sr, Ash.rows_per,
+                                 sched=sched),
+        lambda: spmv_minmax_pull_plain(ptr, ind, val, xs, sr, Ash.rows_per),
+        8 * snnz + 4 * (Ash.rows_per + 1) + 4 * Ash.n_pad + 4 * Ash.rows_per,
+        lambda: torch.segment_reduce(prod, "min", offsets=ptr.long(),
+                                     initial=sr.identity(
+                                         torch.float32).item()))
+    rows["bitmap_pull_dist"]["launches"] = k1
+    rows["value_pull_dist"]["launches"] = pr_iters
+    rows["minmax_pull_dist"]["launches"] = s_launches
+    dist.destroy_process_group()
+
+    # examples/scaling.py on the card: a rank a card through
+    # parallel.launch (a spawned process over a file store), P = 1
+    cmd = [sys.executable, "-m", "graphblast_tpu_torch.examples.scaling",
+           "--scale", "18", "--algo", "bfs", "--niter", "3"]
+    t0 = time.perf_counter()
+    run = subprocess.run(cmd, cwd=os.path.dirname(os.path.abspath(
+        __file__)), capture_output=True, text=True, timeout=300)
+    out = run.stdout.strip().splitlines()
+    for line in out:
+        print(f"[scaling] {line}")
+    if (run.returncode != 0 or len(out) != 3
+            or out[1] != "P, ms/run, Medges/s, efficiency_vs_P1"
+            or not out[2].startswith("1, ")):
+        raise AssertionError(f"scaling.py exited {run.returncode}: "
+                             f"{run.stderr[-2000:]}")
+    print(f"[scaling] {' '.join(cmd[1:])}: exit 0 in "
+          f"{time.perf_counter() - t0:.2f} s")
+    return rows
+
+
 def _random_csr(n: int, deg: int, seed: int, device: str = "cuda"):
     """A seeded uniform random CSR made on `device`: n rows and columns,
     `deg` edges a row, standard-normal values; and a standard-normal x."""
@@ -3424,7 +3856,7 @@ def main() -> int:
     k2 = phase_value_pull("K2 rmat18", plan_for(A), x, plain_reps=20)
     print(f"[phase] value pull at rmat18 {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
-    pr_launches = phase_pagerank(A)
+    pr_launches, pr_golden = phase_pagerank(A)
     print(f"[phase] PageRank {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
     k4 = phase_monoid_pull(A)
@@ -3513,7 +3945,7 @@ def main() -> int:
     print(f"[phase] operations surface at rmat18 "
           f"{time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
-    lgc_counts, k6_lgc = phase_lgc(A, int(sources[0]))
+    lgc_counts, k6_lgc, lgc_golden = phase_lgc(A, int(sources[0]))
     phase_glgc_driver()
     print(f"[phase] LGC and the glgc driver {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
@@ -3521,8 +3953,19 @@ def main() -> int:
     print(f"[phase] unmasked SpGEMM {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
     phase_mxm_dense(A)
-    del A
     print(f"[phase] mxm_dense at rmat18 {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    phase_drivers()
+    print(f"[phase] the six drivers {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    phase_native_ingest(A.nvals)
+    print(f"[phase] native ingest {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    dist_rows = phase_dist(A, sources, goldens, sssp_goldens, cc_golden,
+                           pr_golden, lgc_golden)
+    del A
+    print(f"[phase] distributed at world size 1 "
+          f"{time.perf_counter() - t0:.2f} s")
 
     kernels = [{
         "name": "bitmap_pull",
@@ -3624,6 +4067,20 @@ def main() -> int:
             "source": f"graphblast_tpu_torch/csrc/{route_src}",
             "replaces": replaces, "launches": launches, "bound_by": "bytes",
             **row})
+    # the distributed layer's call sites (phase 35), each with its launches
+    # in that phase's counted runs: K1 in bfs_dist's pulls, the value pull
+    # in pr_dist's, S in sssp_dist's and cc_dist's
+    for name, route_src, replaces in (
+            ("bitmap_pull_dist", "bitmap_pull.cu",
+             "graphblast_tpu/ops/pallas/bilinear.py:873"),
+            ("value_pull_dist", "value_pull.cu",
+             "graphblast_tpu/ops/pallas/bilinear.py:1287"),
+            ("minmax_pull_dist", "minmax_pull.cu",
+             "graphblast_tpu/ops/segops.py:35")):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"graphblast_tpu_torch/csrc/{route_src}",
+            "replaces": replaces, "bound_by": "bytes", **dist_rows[name]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

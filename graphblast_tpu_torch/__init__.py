@@ -1,4 +1,4 @@
-"""graphblast_tpu_torch: the PyTorch + CUDA port of graphblast_tpu, for an
+"""graphblast_tpu_torch: the PyTorch + CUDA port of graphblast_tpu.
 
 GraphBLAS-style graph analytics as sparse linear algebra over semirings,
 written for an NVIDIA H100. The module names follow the JAX package
@@ -27,7 +27,11 @@ with diameter, `transpose` and the gbfs, gsssp and gdiameter drivers
 the GraphBLAS operations surface (mxv/vxm with masks and accumulators,
 eWise, apply, assign, extract, reduce, scale, the unmasked ESC SpGEMM,
 spmm and DenseMatrix) and local graph clustering with its glgc driver
-(slice 13).
+(slice 13); then the gpr, gcc, gmis, ggc, ggc_cusparse and gtc drivers,
+the native C++ ingest (`graphblast_tpu_torch.native`) and the first half
+of the distributed layer on torch.distributed (`graphblast_tpu_torch.
+parallel`: the 1D partition, the pull and push collectives, BFS, SSSP, CC,
+PageRank, LGC and the diameter, and examples/scaling.py).
 """
 
 from .types import (Direction, INDEX_DTYPE, Info, LoadBalanceMode,

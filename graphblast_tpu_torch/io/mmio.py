@@ -1,5 +1,5 @@
 """Matrix Market I/O with graphblast-compatible preprocessing (counterpart
-of graphblast_tpu/io/mmio.py, NumPy only).
+of graphblast_tpu/io/mmio.py).
 
 Semantics of the reference's MTX ingestion pipeline:
   * banner/size parsing          (reference: graphblas/mmio.hpp:1-333)
@@ -7,6 +7,12 @@ Semantics of the reference's MTX ingestion pipeline:
   * removeSelfloop: self-loop removal + duplicate dedup (util.hpp:263-329)
   * customSort: column-major (col, row) sort (util.hpp:170-195)
   * coo2csr conversion (util.hpp:501-559)
+
+The NumPy code here is the semantic ground truth. The native C++ runtime
+(graphblast_tpu_torch/native, built with g++ at its first use) takes the
+same pipeline where the JAX package sends it: every .mtx parse, and
+canonicalize_coo and coo_to_csr from 2^20 entries on. Its arrays equal the
+NumPy path's. GRB_NATIVE=0 turns it off.
 """
 from __future__ import annotations
 
@@ -14,6 +20,10 @@ import os
 from dataclasses import dataclass
 
 import numpy as np
+
+# canonicalize_coo and coo_to_csr take the native route from this many
+# entries on, as the JAX package's do
+NATIVE_MIN = 1 << 20
 
 _REMOVE_SELFLOOP = os.environ.get("GRB_UTIL_REMOVE_SELFLOOP", "1") not in (
     "0", "false", "False")
@@ -60,6 +70,15 @@ def read_mtx(path: str, directed: int = 0,
         remove_self_loops = _REMOVE_SELFLOOP
     with open(path, "r") as f:
         info = read_banner(f.readline())
+
+    from ..native import read_mtx_native
+
+    nat = read_mtx_native(path, directed, remove_self_loops)
+    if nat is not None:
+        return (*nat, info)
+
+    with open(path, "r") as f:
+        f.readline()
         if info.format != "coordinate":
             raise NotImplementedError(
                 "array-format mtx not supported (matches reference)")
@@ -93,7 +112,15 @@ def canonicalize_coo(rows, cols, vals, *, undirected: bool,
 
     Doubling appends (c, r) for every off-diagonal (r, c); duplicates keep
     the first occurrence in (col, row) order (reference: util.hpp:263-329,
-    170-195)."""
+    170-195). From NATIVE_MIN entries on, the native runtime does it."""
+    if len(rows) >= NATIVE_MIN:
+        from ..native import canonicalize_native
+
+        out = canonicalize_native(rows, cols, vals, undirected,
+                                  remove_self_loops)
+        if out is not None:
+            r, c, v = out
+            return r, c, v.astype(np.asarray(vals).dtype, copy=False)
     rows = np.asarray(rows, np.int64)
     cols = np.asarray(cols, np.int64)
     vals = np.asarray(vals)
@@ -113,3 +140,23 @@ def canonicalize_coo(rows, cols, vals, *, undirected: bool,
         keep[1:] &= ~((rows[1:] == rows[:-1]) & (cols[1:] == cols[:-1]))
     return rows[keep], cols[keep], vals[keep]
 
+
+def coo_to_csr(rows, cols, vals, nrows: int, ncols: int | None = None):
+    """COO -> CSR (reference: util.hpp:501-559 coo2csr): (row_ptr int64,
+    cols, vals), each row's entries sorted by column. The input need not
+    be sorted. From NATIVE_MIN entries on, the native radix runtime does
+    it."""
+    if len(rows) >= NATIVE_MIN:
+        from ..native import coo_to_csr_native
+
+        ncols_eff = ncols if ncols is not None else (
+            int(cols.max()) + 1 if len(cols) else 0)
+        out = coo_to_csr_native(rows, cols, vals, nrows, max(ncols_eff, 1))
+        if out is not None:
+            ptr, c, v = out
+            return ptr, c, v.astype(np.asarray(vals).dtype, copy=False)
+    order = np.lexsort((cols, rows))
+    rows, cols, vals = rows[order], cols[order], vals[order]
+    row_ptr = np.zeros(nrows + 1, dtype=np.int64)
+    np.add.at(row_ptr, rows + 1, 1)
+    return np.cumsum(row_ptr), cols.copy(), vals.copy()

@@ -1,13 +1,17 @@
-"""The port's CLI machinery (`graphblast_tpu_torch.utils`) and its gbfs,
-gsssp, gdiameter and glgc drivers (`graphblast_tpu_torch.examples`)
-against the JAX package's, on the CPU (`--device cpu`).
+"""The port's CLI machinery (`graphblast_tpu_torch.utils`) and its ten
+drivers (`graphblast_tpu_torch.examples`: gbfs, gsssp, gdiameter, glgc,
+gpr, gcc, gmis, ggc, ggc_cusparse, gtc) against the JAX package's, on the
+CPU (`--device cpu`).
 
 Every check is exact: descriptor fields, graph arrays, the drivers' exit
 codes and their CORRECT / INCORRECT lines (the drivers verify exactly for
-BFS and the diameter, and within the reference's 1e-3 for SSSP and LGC).
+BFS, the diameter and TC, within the reference's 1e-3 for SSSP and LGC and
+1e-2 for PageRank, and with the property verifiers for CC, MIS and the
+colourings).
 """
 import argparse
 import os
+import re
 
 import numpy as np
 import pytest
@@ -15,14 +19,31 @@ import torch
 
 import graphblast_tpu_torch as tgb
 from graphblast_tpu.utils import cli as jcli
-from graphblast_tpu_torch.examples import gbfs, gdiameter, glgc, gsssp
+from graphblast_tpu_torch.examples import (gbfs, gcc, gdiameter, ggc,
+                                           ggc_cusparse, glgc, gmis, gpr,
+                                           gsssp, gtc)
 from graphblast_tpu_torch.utils import cli as tcli
 from graphblast_tpu_torch.utils import profiling, verify_list
 
 DATA = os.path.join(os.path.dirname(__file__), "..", "data", "small")
 CHESAPEAKE = os.path.join(DATA, "chesapeake.mtx")
+# each driver and the line it prints when it verifies
 DRIVERS = {"gbfs": (gbfs, "BFS: CORRECT"), "gsssp": (gsssp, "SSSP: CORRECT"),
-           "gdiameter": (gdiameter, "CORRECT"), "glgc": (glgc, "LGC: CORRECT")}
+           "gdiameter": (gdiameter, "CORRECT"), "glgc": (glgc, "LGC: CORRECT"),
+           "gpr": (gpr, "PR: CORRECT"), "gcc": (gcc, "CC: CORRECT"),
+           "gmis": (gmis, "MIS: CORRECT"),
+           "ggc": (ggc, r"^GC\[CORRECT\]: colors=[1-9][0-9]*"),
+           "ggc_cusparse": (ggc_cusparse,
+                            r"^GC\[CORRECT\]: colors=[1-9][0-9]*"),
+           "gtc": (gtc, r"^TC: ntris=[0-9]+ golden=[0-9]+ CORRECT")}
+
+
+def _verified(out, correct) -> bool:
+    """Whether a line of `out` ends with `correct` (a regex match for the
+    drivers whose line carries a number)."""
+    if correct.startswith("^"):
+        return any(re.match(correct + "$", line) for line in out)
+    return any(line.endswith(correct) for line in out)
 
 
 def _parse(module, argv):
@@ -112,7 +133,7 @@ def test_driver_verifies_on_the_cpu(driver, graph, mxvmode, capsys):
         argv += ["--source_start", "0", "--source_end", "3"]
     assert module.main(argv) == 0
     out = capsys.readouterr().out.splitlines()
-    assert any(line.endswith(correct) for line in out)
+    assert _verified(out, correct)
     assert out[-2] == "cpu, warmup, tight, GTEPS"
     assert len(out[-1].split(", ")) == 4
 
@@ -133,11 +154,23 @@ def test_diameter_driver_prints_the_jax_answer(capsys):
 @pytest.mark.parametrize("driver", sorted(DRIVERS))
 def test_driver_returns_1_on_a_wrong_golden(driver, monkeypatch, capsys):
     """A golden that disagrees makes the driver print INCORRECT and return
-    1."""
+    1 (for gcc, gmis and the colourings, whose golden is a property
+    verifier, a verifier that says no)."""
     from graphblast_tpu_torch.algorithms import reference
 
     module, _ = DRIVERS[driver]
-    if driver == "gsssp":
+    verifier = {"gcc": "verify_cc", "gmis": "verify_mis", "ggc": "verify_gc",
+                "ggc_cusparse": "verify_gc"}.get(driver)
+    if verifier:
+        monkeypatch.setattr(reference, verifier, lambda A, got: False)
+    elif driver == "gpr":
+        good = reference.pr_cpu
+        monkeypatch.setattr(reference, "pr_cpu",
+                            lambda *a, **kw: good(*a, **kw) + 1.0)
+    elif driver == "gtc":
+        good = reference.tc_cpu
+        monkeypatch.setattr(reference, "tc_cpu", lambda L: good(L) + 1)
+    elif driver == "gsssp":
         good = reference.sssp_cpu
         monkeypatch.setattr(reference, "sssp_cpu",
                             lambda A, s: good(A, s) + 1.0)
@@ -211,3 +244,33 @@ def test_glgc_prints_the_jax_answer(capsys):
     J = jcli.load_graph(_parse(jcli, [CHESAPEAKE]))
     want = np.asarray(jax_lgc(J, 3, alpha=0.15, eps=1e-6).to_numpy())
     np.testing.assert_allclose(got["p"].numpy(), want, rtol=1e-3, atol=1e-7)
+
+
+def test_gtc_prints_the_jax_count(capsys):
+    """gtc runs tril once and tc(L) on it: on chesapeake it prints the JAX
+    tc's count of tril(A), equal to the golden, and exits 0."""
+    from graphblast_tpu import tril as jax_tril
+    from graphblast_tpu.algorithms import tc as jax_tc
+
+    J = jcli.load_graph(_parse(jcli, [CHESAPEAKE]))
+    want = int(jax_tc(jax_tril(J)))
+    assert gtc.main([CHESAPEAKE, "--device", "cpu", "--niter", "2"]) == 0
+    out = capsys.readouterr().out
+    assert f"TC: ntris={want} golden={want} CORRECT" in out
+
+
+def test_ggc_takes_its_algorithm_and_colour_bound(capsys):
+    """ggc --gcalgo jp|mis|is and --maxcolors reach gc; each colouring
+    verifies, and ggc_cusparse colours as ggc --gcalgo cusparse (the IS
+    colouring) does."""
+    counts = {}
+    for algo in ("is", "mis", "jp", "cusparse"):
+        assert ggc.main([CHESAPEAKE, "--device", "cpu", "--niter", "1",
+                         "--gcalgo", algo, "--maxcolors", "64"]) == 0
+        counts[algo] = re.search(r"colors=(\d+)",
+                                 capsys.readouterr().out).group(1)
+    assert ggc_cusparse.main([CHESAPEAKE, "--device", "cpu", "--niter",
+                              "1"]) == 0
+    assert f"GC[CORRECT]: colors={counts['cusparse']}" in (
+        capsys.readouterr().out)
+    assert counts["cusparse"] == counts["is"]

@@ -373,6 +373,19 @@ PORT_MODULES = [
     "graphblast_tpu_torch.examples.gbfs",
     "graphblast_tpu_torch.examples.gsssp",
     "graphblast_tpu_torch.examples.gdiameter",
+    "graphblast_tpu_torch.examples.gpr",
+    "graphblast_tpu_torch.examples.gcc",
+    "graphblast_tpu_torch.examples.gmis",
+    "graphblast_tpu_torch.examples.ggc",
+    "graphblast_tpu_torch.examples.ggc_cusparse",
+    "graphblast_tpu_torch.examples.gtc",
+    "graphblast_tpu_torch.examples.scaling",
+    "graphblast_tpu_torch.native",
+    "graphblast_tpu_torch.parallel",
+    "graphblast_tpu_torch.parallel.algorithms",
+    "graphblast_tpu_torch.parallel.bootstrap",
+    "graphblast_tpu_torch.parallel.ops",
+    "graphblast_tpu_torch.parallel.partition",
     "chip_smoke",
 ]
 
