@@ -243,7 +243,24 @@ Phases, each of which fails the run on error (each prints its seconds):
      timed, with bounds and library calls; then examples/scaling.py at
      scale 18 on the card as a subprocess (one NCCL rank spawned by
      parallel.launch): exit 0, its header and the P = 1 row;
-  36. prints {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
+  36. the second half of the distributed layer at world size 1 over NCCL
+     (a 1 x 1 mesh with axes ("r", "c") for the 2D layout):
+     bfs_dist(mode="dual") from the 8 hubs equal to the goldens, its
+     directions equal to a host replay of the JAX loop's rule (one K1 a
+     pull iteration, 9 K6 a push and 2 an iteration for the frontier's
+     state, at most two host reads an iteration); owner_buckets' live
+     pairs at the hub's level-2 frontier equal to the accounting's;
+     pr_dist comm="ring" and comm="2d" within phase 5's bars (one K6 at
+     the ids and one at the boundaries a stage, one for the out-degrees);
+     tc_dist of tril(A) equal
+     to tc() and 82,996,539, one T1 launch a stage, and tc_prepare's time;
+     mis_dist and gc_dist (seed 1) verified, and equal to mis and gc(is)
+     handed the same weights; partition_cached built, saved and loaded
+     with equal arrays; each timed beside its single-device call; K6 at
+     the ring stage's gather and T1 at tc_dist's stage against their plain
+     versions, with two more kernels entries (`gather_ring`,
+     `masked_intersect_count_dist`);
+  37. prints {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
 
 Every check of results, launch counts and schedules raises. A
 torch.profiler reading that cannot be trusted (no device time, or more
@@ -3790,6 +3807,289 @@ def phase_dist(A, sources, goldens, sssp_goldens, cc_golden, pr_golden,
     return rows
 
 
+def _dual_directions(A, golden, switchpoint: float, edge_cap: int,
+                     n_pad: int) -> list:
+    """The dual BFS's (count, edge maximum, direction) each iteration,
+    replayed on the host from the golden levels by the JAX loop's rule
+    at world size 1: push iff count / n_pad <= switchpoint and the
+    frontier's edges fit edge_cap."""
+    import numpy as np
+
+    deg = np.diff(A.host_csr()[0].astype(np.int64))
+    out = []
+    for it in range(1, int(golden.max()) + 1):
+        front = golden == it
+        succ, edges = int(front.sum()), int(deg[front].sum())
+        push = succ / n_pad <= switchpoint and edges <= edge_cap
+        out.append((succ, edges, "push" if push else "pull"))
+    return out
+
+
+def phase_dist_second_half(A, sources, goldens, pr_golden, t1_library_ms,
+                           reps: int = 3):
+    """The second half of the distributed layer at world size 1 over NCCL
+    at rmat18 (phase 36): bfs_dist(mode="dual") from the 8 hubs equal to
+    the goldens, its directions equal to a host replay of the JAX rule
+    (one K1 a pull iteration, 9 K6 a push and 2 each iteration for the
+    frontier's state, all at ascending indices); pr_dist(comm="ring") and
+    (comm="2d") within phase 5's bars (one K6 at the ids and one at the
+    boundaries a stage, and one for the out-degrees); tc_dist on tril(A)
+    equal to tc()'s count, one T1 launch a stage, and tc_prepare's time;
+    mis_dist and gc_dist (seed 1) verified, and equal to the
+    single-device mis and gc(is) handed the same weights;
+    partition_cached built, saved and loaded, timed, equal arrays;
+    owner_buckets' count for the hub's level-2 frontier equal to
+    accounting.sparse_push_live_pairs. Each entry is timed beside its
+    single-device call, both ending in a host array. Then K6 at the ring
+    stage's gather and T1 at tc_dist's stage against their plain versions.
+    Returns the kernels line's two rows."""
+    import importlib
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    import graphblast_tpu_torch as gt
+    from graphblast_tpu_torch import parallel as par
+    from graphblast_tpu_torch.algorithms.pr import (
+        _pr_fused, prepare_pr_matrix, prepare_pr_plan)
+    from graphblast_tpu_torch.ops.kernels.gather import (gather_1d,
+                                                         gather_1d_plain)
+    from graphblast_tpu_torch.ops.kernels.masked_intersect import (
+        masked_intersect_count, masked_intersect_count_plain)
+    from graphblast_tpu_torch.parallel.accounting import (
+        sparse_push_live_pairs)
+    from graphblast_tpu_torch.parallel.partition import LEAVES
+
+    last = par.algorithms.last_run
+    t0 = time.perf_counter()
+    mesh = par.global_mesh()
+    mesh2 = init_device_mesh("cuda", (1, 1), mesh_dim_names=("r", "c"))
+    if dist.get_backend(mesh.get_group()) != "nccl" or mesh.size() != 1:
+        raise AssertionError("the dist phase needs one NCCL rank")
+    Ash = par.partition(A, mesh)
+    torch.cuda.synchronize()
+    print(f"[dist2] mesh of 1 NCCL rank and a 1 x 1 mesh (r, c); "
+          f"partition {time.perf_counter() - t0:.2f} s")
+    n = A.nrows
+    srcs = [int(s) for s in sources]
+
+    def timed(tag, dist_fn, single_fn, runs, single_tag="single-device"):
+        d_s, d_tail = _timed_runs(dist_fn, runs)
+        s_s, s_tail = _timed_runs(single_fn, runs)
+        print(f"[dist2] {tag}: {d_s * 1e3:.6f} ms/run median ({d_tail}), "
+              f"{single_tag} {s_s * 1e3:.6f} ms/run ({s_tail}), {runs} runs "
+              f"each, both to a host array")
+
+    # the fused dual-direction BFS
+    sw = gt.BFS_TUNED.switchpoint
+    _reset_counts()
+    pulls = pushes = iters = reads = 0
+    for s, want in zip(srcs, goldens):
+        v = par.bfs_dist(A, s, mesh, mode="dual", Ash=Ash)
+        run = last["bfs"]
+        if v.shape != (n,) or not np.array_equal(v, want):
+            raise AssertionError(f"bfs_dist dual from {s}: levels != golden")
+        replay = _dual_directions(A, want, sw, run["edge_cap"], Ash.n_pad)
+        if [tuple(d) for d in run["directions"]] != replay:
+            raise AssertionError(f"bfs_dist dual from {s}: directions "
+                                 f"{run['directions']} != replay {replay}")
+        iters += run["iterations"]
+        pulls += run["pull_iterations"]
+        pushes += run["iterations"] - run["pull_iterations"]
+        reads += run["host_reads"]
+    counts = _expect_launches("bfs_dist dual", {
+        "bitmap_pull": pulls,
+        "gather_boundary": 2 * (iters + len(srcs)) + 9 * pushes})
+    if reads > 2 * iters + len(srcs):
+        raise AssertionError(f"bfs_dist dual: {reads} host reads in {iters} "
+                             "iterations")
+    print(f"[dist2] bfs_dist dual from {len(srcs)} hubs: levels == golden, "
+          f"directions == the host replay of the JAX rule; {pulls} pull and "
+          f"{pushes} push iterations, {reads} host reads; edge_cap "
+          f"{run['edge_cap']}, pair_cap {run['pair_cap']}; launches {counts}")
+    it = iter(srcs * reps * 4)
+    timed("bfs dual", lambda: par.bfs_dist(A, next(it), mesh, mode="dual",
+                                           Ash=Ash),
+          lambda: gt.algorithms.bfs(A, next(it)).to_numpy(), len(srcs) * reps,
+          single_tag="single-device PUSHPULL bfs")
+
+    # the accounting's live pairs at the hub's level-2 frontier
+    f = torch.from_numpy((goldens[0] == 2).astype(np.float32)).cuda()
+    f_ind, _, f_nv = par.ops.local_frontier(f, 0.0)
+    _, _, _, (_, cnt) = par.ops.owner_buckets(
+        *Ash.csr(), f_ind, None, f_nv, gt.LogicalOrAndSemiring, 1,
+        Ash.rows_per, Ash.csr_ind.shape[0], True, torch.float32)
+    ptr, ind = A.host_csr()[:2]
+    want_pairs = sparse_push_live_pairs(ptr, ind, goldens[0] == 2, 1,
+                                        Ash.rows_per)
+    if cnt.cpu().tolist() != want_pairs[0].tolist():
+        raise AssertionError(f"owner_buckets {cnt.tolist()} != accounting "
+                             f"{want_pairs.tolist()}")
+    print(f"[dist2] owner_buckets at the hub's level-2 frontier: "
+          f"{cnt.tolist()} live pairs == accounting.sparse_push_live_pairs")
+
+    # PageRank over the ring and the 2D layout
+    def pr_check(tag, p):
+        l1 = float(np.abs(p.astype(np.float64) - pr_golden).sum())
+        top = np.argsort(pr_golden)[::-1][:100]
+        rel = float((np.abs(p[top] - pr_golden[top]) / pr_golden[top]).max())
+        if not (p.shape == (n,) and l1 <= 1e-4 and rel <= 1e-3):
+            raise AssertionError(f"{tag} vs golden: L1 {l1} (bar 1e-4), "
+                                 f"top-100 rel {rel} (bar 1e-3)")
+        return f"sum|p - p_gold| {l1:.3e} (bar 1e-4), top-100 rel {rel:.3e}"
+
+    Ap = prepare_pr_matrix(A, PR_ALPHA)
+    ring_launches = 0
+    for comm, key in (("ring", "pr_ring"), ("2d", "pr_2d")):
+        _reset_counts()
+        t0 = time.perf_counter()
+        p = par.pr_dist(A, mesh if comm == "ring" else mesh2, alpha=PR_ALPHA,
+                        eps=PR_EPS, comm=comm)
+        call_s = time.perf_counter() - t0
+        pr_iters = last[key]["iterations"]
+        # and one at the boundaries for prepare_pr_matrix's out-degrees
+        counts = _expect_launches(f"pr_dist {comm}", {
+            "gather_x": pr_iters, "gather_boundary": pr_iters + 1})
+        if comm == "ring":
+            ring_launches = counts["gather_x"]
+        print(f"[dist2] pr_dist comm={comm}: {pr_iters} iterations (one "
+              f"stage each at P = 1), {pr_check(comm, p)}; launches {counts}; "
+              f"the call with its partition {call_s:.2f} s")
+    t0 = time.perf_counter()
+    Rsh = par.partition_ring(gt.transpose(Ap), mesh)
+    t1 = time.perf_counter()
+    A2 = par.partition_2d(gt.transpose(Ap), mesh2)
+    torch.cuda.synchronize()
+    print(f"[dist2] partition_ring of Aᵀ {t1 - t0:.2f} s, partition_2d "
+          f"{time.perf_counter() - t1:.2f} s")
+    ring_run = par.make_pr_ring_dist(mesh, Rsh, PR_ALPHA, PR_EPS)
+    run_2d = par.make_pr_2d_dist(mesh2, A2, PR_ALPHA, PR_EPS)
+    pr_plan = prepare_pr_plan(A, PR_ALPHA)
+    single = lambda: _pr_fused(  # noqa: E731
+        A, pr_plan, alpha=PR_ALPHA, eps=PR_EPS,
+        max_niter=gt.DEFAULT.max_niter)[0].cpu().numpy()
+    timed("pr ring (over its partition)",
+          lambda: ring_run().cpu().numpy(), single, reps,
+          single_tag="single-device loop over its prebuilt plan")
+    timed("pr 2d (over its partition)", lambda: run_2d().cpu().numpy(),
+          single, reps, single_tag="single-device loop over its prebuilt plan")
+
+    # TC over the ring of row blocks
+    L = gt.tril(A)
+    t0 = time.perf_counter()
+    prep = par.tc_prepare(L, mesh)
+    torch.cuda.synchronize()
+    prep_s = time.perf_counter() - t0
+    want_tc = gt.algorithms.tc(L)
+    _reset_counts()
+    got_tc = par.tc_dist(L, mesh, prep=prep)
+    counts = _expect_launches("tc_dist", {"masked_intersect_count": 1})
+    if got_tc != want_tc or got_tc != 82_996_539:
+        raise AssertionError(f"tc_dist {got_tc} != tc() {want_tc} or the "
+                             "recorded 82,996,539")
+    t1_launches = counts["masked_intersect_count"]
+    print(f"[dist2] tc_dist of tril(A): {got_tc:,} == tc() and the record; "
+          f"one stage, launches {counts}; tc_prepare {prep_s:.2f} s (L's "
+          f"partition and the mask-edge buckets; ec {prep.ec}, all values 1: "
+          f"{prep.unit})")
+    timed("tc", lambda: par.tc_dist(L, mesh, prep=prep),
+          lambda: gt.algorithms.tc(L), reps)
+
+    # MIS and IS colouring
+    _reset_counts()
+    m = par.mis_dist(A, mesh, seed=1, Ash=Ash)
+    rounds = last["mis"]["iterations"]
+    counts = _expect_launches("mis_dist", {
+        "minmax_pull": rounds, "gather_x": rounds, "gather_boundary": rounds})
+    if not gt.algorithms.verify_mis(A, m):
+        raise AssertionError("mis_dist: verify_mis fails")
+    _reset_counts()
+    c = par.gc_dist(A, mesh, seed=1, Ash=Ash)
+    gc_rounds = last["gc"]["iterations"]
+    counts_gc = _expect_launches("gc_dist", {"minmax_pull": gc_rounds})
+    if not (gt.algorithms.verify_gc(A, c) and c.min() >= 1):
+        raise AssertionError("gc_dist: verify_gc fails")
+    mis_mod = importlib.import_module("graphblast_tpu_torch.algorithms.mis")
+    gc_mod = importlib.import_module("graphblast_tpu_torch.algorithms.gc")
+    w0 = mis_mod.random_weights(n, 1, "cuda")
+    wb = torch.zeros(Ash.rows_per, dtype=torch.int32, device="cuda")
+    wb[:n] = w0
+    m_w = par.make_mis_dist(mesh, Ash, weights=wb)()[:n].cpu().numpy()
+    c_w = par.make_gc_dist(mesh, Ash, weights=wb)()[:n].cpu().numpy()
+    m_1 = mis_mod.mis_inner(A, w0).cpu().numpy()
+    c_1, _ = gc_mod._gc_is_fused(A, w0, max_niter=gt.DEFAULT.max_niter)
+    if not (np.array_equal(m_w, m_1)
+            and np.array_equal(c_w, c_1.cpu().numpy())):
+        raise AssertionError("mis_dist / gc_dist handed the single-device "
+                             "weights differ from mis / gc(is)")
+    print(f"[dist2] mis_dist seed 1: verify_mis holds, {int(m.sum())} in "
+          f"the set, {rounds} rounds, launches {counts}; gc_dist seed 1: "
+          f"verify_gc holds, {int(c.max())} colours, {gc_rounds} rounds, "
+          f"launches {counts_gc}; both equal mis and gc(is) handed the same "
+          "weights")
+    timed("mis", lambda: par.mis_dist(A, mesh, seed=1, Ash=Ash),
+          lambda: gt.algorithms.mis(A, seed=1).to_numpy(), reps)
+    timed("gc", lambda: par.gc_dist(A, mesh, seed=1, Ash=Ash),
+          lambda: gt.algorithms.gc(A, seed=1).to_numpy(), reps)
+
+    # the partition cache
+    with tempfile.TemporaryDirectory(prefix="grb-shards-") as tmp:
+        base = os.path.join(tmp, "rmat18.mtx")
+        t0 = time.perf_counter()
+        built = par.partition_cached(A, mesh, base)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loaded = par.partition_cached(A, mesh, base)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        size = os.path.getsize(par.shard_cache_path(base, 1, 0))
+        same = all(torch.equal(getattr(built, k), getattr(loaded, k))
+                   for k in LEAVES)
+        if not same:
+            raise AssertionError("partition_cached: loaded != built")
+    print(f"[dist2] partition_cached: built and saved {t1 - t0:.2f} s "
+          f"({size} B), loaded {t2 - t1:.2f} s, arrays equal")
+
+    # K6 at the ring stage's gather, T1 at tc_dist's stage
+    _, rind, _ = Rsh.block(0)
+    x = torch.from_numpy(np.random.default_rng(36).random(
+        Rsh.rows_per).astype(np.float32)).cuda()
+    m_ids = rind.shape[0]
+    rows = {"gather_ring": _site_row(
+        "K6 at the ring stage's gather (x at the column ids)",
+        lambda: gather_1d(x, rind), lambda: gather_1d_plain(x, rind),
+        4 * (2 * m_ids + min(Rsh.rows_per, m_ids)),
+        lambda: torch.index_select(x, 0, rind))}
+    rows["gather_ring"]["launches"] = ring_launches
+    mi, mj = prep.edges(0)
+    lptr, lind, _ = prep.Ash.csr()
+    sched = prep.schedules[(0, True)]
+    args = (mi, mj, lptr, lind, prep.Ash.csr_ptr, prep.Ash.csr_ind)
+    count = lambda: masked_intersect_count(*args, sched=sched)  # noqa: E731
+    got, again = count(), count()
+    plain = masked_intersect_count_plain(*args)
+    if not got == again == plain == got_tc:
+        raise AssertionError(f"T1 at tc_dist's stage: {got}, again {again}, "
+                             f"plain {plain}")
+    ms = _event_ms(count, 20)
+    plain_ms = _event_ms(lambda: masked_intersect_count_plain(*args), 1)
+    bound_bytes = 8 * mi.shape[0] + 4 * (lptr.shape[0])
+    bound_ms = bound_bytes / HBM_BYTES_PER_S * 1e3
+    print(f"[T1 dist] at tc_dist's stage: {got:,} == plain == a second "
+          f"launch; kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, library "
+          f"(phase 15's torch.sparse.mm of L by Lᵀ) {t1_library_ms} ms, "
+          f"bound {bound_bytes} B -> {bound_ms:.6f} ms at 3.35 TB/s")
+    rows["masked_intersect_count_dist"] = dict(
+        max_abs_err=abs(got - plain), ms=ms, plain_ms=plain_ms,
+        bound_ms=bound_ms, library_ms=t1_library_ms, launches=t1_launches)
+    dist.destroy_process_group()
+    return rows
+
+
 def _random_csr(n: int, deg: int, seed: int, device: str = "cuda"):
     """A seeded uniform random CSR made on `device`: n rows and columns,
     `deg` edges a row, standard-normal values; and a standard-normal x."""
@@ -3963,8 +4263,13 @@ def main() -> int:
     t0 = time.perf_counter()
     dist_rows = phase_dist(A, sources, goldens, sssp_goldens, cc_golden,
                            pr_golden, lgc_golden)
-    del A
     print(f"[phase] distributed at world size 1 "
+          f"{time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    dist_rows.update(phase_dist_second_half(A, sources, goldens, pr_golden,
+                                    t1_row["library_ms"]))
+    del A
+    print(f"[phase] distributed, second half, at world size 1 "
           f"{time.perf_counter() - t0:.2f} s")
 
     kernels = [{
@@ -4067,16 +4372,21 @@ def main() -> int:
             "source": f"graphblast_tpu_torch/csrc/{route_src}",
             "replaces": replaces, "launches": launches, "bound_by": "bytes",
             **row})
-    # the distributed layer's call sites (phase 35), each with its launches
-    # in that phase's counted runs: K1 in bfs_dist's pulls, the value pull
-    # in pr_dist's, S in sssp_dist's and cc_dist's
+    # the distributed layer's call sites (phases 35 and 36), each with its
+    # launches in that phase's counted runs: K1 in bfs_dist's pulls, the
+    # value pull in pr_dist's, S in sssp_dist's and cc_dist's, K6 in the
+    # ring PageRank's stages, T1 in tc_dist's
     for name, route_src, replaces in (
             ("bitmap_pull_dist", "bitmap_pull.cu",
              "graphblast_tpu/ops/pallas/bilinear.py:873"),
             ("value_pull_dist", "value_pull.cu",
              "graphblast_tpu/ops/pallas/bilinear.py:1287"),
             ("minmax_pull_dist", "minmax_pull.cu",
-             "graphblast_tpu/ops/segops.py:35")):
+             "graphblast_tpu/ops/segops.py:35"),
+            ("gather_ring", "gather.cu",
+             "graphblast_tpu/ops/pallas/gather.py:45"),
+            ("masked_intersect_count_dist", "masked_intersect.cu",
+             "graphblast_tpu/ops/spgemm.py:159")):
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"graphblast_tpu_torch/csrc/{route_src}",

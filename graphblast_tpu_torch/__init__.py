@@ -31,7 +31,12 @@ spmm and DenseMatrix) and local graph clustering with its glgc driver
 the native C++ ingest (`graphblast_tpu_torch.native`) and the first half
 of the distributed layer on torch.distributed (`graphblast_tpu_torch.
 parallel`: the 1D partition, the pull and push collectives, BFS, SSSP, CC,
-PageRank, LGC and the diameter, and examples/scaling.py).
+PageRank, LGC and the diameter, and examples/scaling.py); and its second
+half: the sparse owner-bucketed push and the fused direction-optimized
+BFS, the ring and 2D layouts with their PageRank, the ring-staged TC, MIS
+and IS colouring, the partition cache and the communication accounting
+with its reader examples/comm_report.py. The port now does what the JAX
+package does, but for its TPU-only switches and diagnostics.
 """
 
 from .types import (Direction, INDEX_DTYPE, Info, LoadBalanceMode,

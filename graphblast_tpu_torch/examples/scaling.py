@@ -2,7 +2,8 @@
 of examples/scaling.py).
 
     python -m graphblast_tpu_torch.examples.scaling [--scale 13]
-        [--edgefactor 16] [--algo bfs|pr|sssp|cc|lgc] [--niter 3]
+        [--edgefactor 16] [--algo bfs|pr|sssp|cc|tc|mis|gc|lgc]
+        [--niter 3]
         [--device cuda|cpu] [--max_procs P]
 
 It runs P NCCL ranks on the attached cards for each P, one a card, up to
@@ -11,17 +12,16 @@ without a card. --device cpu runs P gloo ranks on this machine's CPU
 instead, up to 8 (the JAX harness re-execs into an 8-way virtual CPU mesh
 for the same), which checks the collective paths and shows the harness's
 own overhead curve. Each rank generates the RMAT
-graph (seed 42) and partitions it; the source is the vertex of highest
-degree. A row is `P, ms/run, Medges/s, efficiency_vs_P1`, ms/run the
-slowest rank's mean over --niter runs after a warm-up run. --algo tc, mis
-and gc wait for ROADMAP item 10b.
+graph (seed 42) and partitions it (tc: tril(A), and tc_prepare's mask
+edges); the source is the vertex of highest degree. A row is `P, ms/run,
+Medges/s, efficiency_vs_P1`, ms/run the slowest rank's mean over --niter
+runs after a warm-up run, Medges/s over A's edge count.
 """
 import argparse
 import sys
 import time
 
-ALGOS = ("bfs", "pr", "sssp", "cc", "lgc")
-LATER = ("tc", "mis", "gc")
+ALGOS = ("bfs", "pr", "sssp", "cc", "tc", "mis", "gc", "lgc")
 
 
 def _rank_run(mesh, scale: int, edgefactor: int, algo: str,
@@ -33,16 +33,26 @@ def _rank_run(mesh, scale: int, edgefactor: int, algo: str,
 
     from ..algorithms.pr import prepare_pr_matrix
     from ..io.rmat import rmat_matrix
-    from ..parallel import (bfs_dist, cc_dist, lgc_dist, partition, pr_dist,
-                            sssp_dist)
+    from ..operations import tril
+    from ..parallel import (bfs_dist, cc_dist, gc_dist, lgc_dist, mis_dist,
+                            partition, pr_dist, sssp_dist, tc_dist,
+                            tc_prepare)
 
     A = rmat_matrix(scale, edgefactor, seed=42, device="cpu")
     src = int(np.argmax(np.diff(A.host_csr()[0])))
-    Ash = partition(prepare_pr_matrix(A, 0.85) if algo == "pr" else A, mesh)
+    if algo == "tc":
+        L = tril(A)
+        prep = tc_prepare(L, mesh)
+    else:
+        Ash = partition(prepare_pr_matrix(A, 0.85) if algo == "pr" else A,
+                        mesh)
     run = {"bfs": lambda: bfs_dist(A, src, mesh, mode="pull", Ash=Ash),
            "pr": lambda: pr_dist(A, mesh, Ash=Ash),
            "sssp": lambda: sssp_dist(A, src, mesh, Ash=Ash),
            "cc": lambda: cc_dist(A, mesh, Ash=Ash),
+           "tc": lambda: tc_dist(L, mesh, prep=prep),
+           "mis": lambda: mis_dist(A, mesh, Ash=Ash),
+           "gc": lambda: gc_dist(A, mesh, Ash=Ash),
            "lgc": lambda: lgc_dist(A, src, mesh, Ash=Ash)}[algo]
     run()    # warm: kernels, schedules and plans built
     dist.barrier(group=mesh.get_group())
@@ -59,7 +69,7 @@ def main(argv=None) -> int:
                                  formatter_class=argparse.RawTextHelpFormatter)
     ap.add_argument("--scale", type=int, default=13)
     ap.add_argument("--edgefactor", type=int, default=16)
-    ap.add_argument("--algo", choices=ALGOS + LATER, default="bfs")
+    ap.add_argument("--algo", choices=ALGOS, default="bfs")
     ap.add_argument("--niter", type=int, default=3)
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                     help="NCCL ranks on the attached cards (default), or "
@@ -68,10 +78,6 @@ def main(argv=None) -> int:
                     help="the largest P (default the card count, 8 with "
                          "--device cpu)")
     args = ap.parse_args(argv)
-    if args.algo in LATER:
-        from ..parallel.algorithms import _10B
-
-        raise SystemExit(_10B.format(f"--algo {args.algo}"))
 
     import torch
 

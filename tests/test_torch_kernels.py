@@ -380,12 +380,16 @@ PORT_MODULES = [
     "graphblast_tpu_torch.examples.ggc_cusparse",
     "graphblast_tpu_torch.examples.gtc",
     "graphblast_tpu_torch.examples.scaling",
+    "graphblast_tpu_torch.examples.comm_report",
     "graphblast_tpu_torch.native",
     "graphblast_tpu_torch.parallel",
+    "graphblast_tpu_torch.parallel.accounting",
     "graphblast_tpu_torch.parallel.algorithms",
     "graphblast_tpu_torch.parallel.bootstrap",
     "graphblast_tpu_torch.parallel.ops",
     "graphblast_tpu_torch.parallel.partition",
+    "graphblast_tpu_torch.parallel.partition2d",
+    "graphblast_tpu_torch.parallel.ring",
     "chip_smoke",
 ]
 
