@@ -4,6 +4,9 @@
     python3 chip_smoke.py            # from the repository root; needs one card
     python3 chip_smoke.py --tc-classes   # only the build and phase 16's
                                          # class split of T1
+    python3 chip_smoke.py --rmat24   # only the run at RMAT 24: the
+                                     # cache tool, then gbfs pull-only
+                                     # (main_rmat24; about 10 minutes)
 
 Phases, each of which fails the run on error (each prints its seconds):
   1. device and build: prints the card's name and power limit, builds every
@@ -260,7 +263,35 @@ Phases, each of which fails the run on error (each prints its seconds):
      the ring stage's gather and T1 at tc_dist's stage against their plain
      versions, with two more kernels entries (`gather_ring`,
      `masked_intersect_count_dist`);
-  37. prints {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
+  37. the RMAT 20 and 22 cache: right after phase 1, the port's cache tool
+     (python -m graphblast_tpu_torch.tools.gen_rmat_cache 20 22, at a
+     lower CPU priority) generates and canonicalizes both graphs on the
+     host into a temporary directory while phases 2-36 run; this phase
+     waits for it and prints its lines (each graph's generation,
+     canonicalize and write seconds);
+  38. bench.py's bfs22 and spmv22 stages: RMAT 22 (n = 4,194,304, nnz =
+     128,304,760; its column ids ten times the L2) through rmat_matrix
+     from the cache (generation refused), the cache load and the build
+     timed apart; phase 2's K1 checks and timings there, pull-only BFS
+     from the 4 top-degree hubs equal to the golden, one K1 launch an
+     iteration (ms/run and GTEPS); phase 4's value-pull checks and
+     timings with a seeded x, max |y - y64| / (|y64| + 1) < 1e-3 against
+     a float64 golden (bench.py's spmv check), and 10 PULLONLY mxv_dual
+     calls over the plan, one value-pull launch each;
+  39. bench.py's mtx stage: RMAT 20's raw COO written by io.mmio.write_mtx
+     as a pattern .mtx, read directed by the native read_mtx (MB/s),
+     built on the card; pull-only BFS from its 4 top-degree sources equal
+     to the golden, one K1 launch an iteration;
+  40. bench.py's tc20 stage: RMAT 20 from the cache, L = tril(A), tc(L)
+     equal to T1's plain version and a second launch, 10 timed calls with
+     one T1 launch each; then T2's ordered folds (GreaterPlus,
+     CustomLessPlus, CustomLessLess, NotEqualToPlus, MultipliesMultiplies
+     on float32 and int32: the ⊕ the JAX join folds in its own order) in
+     mxm(X, Y, mask L, transpose_inp1) at rmat18's L with seeded values of
+     both signs and on a seeded 2,000-vertex graph with hub rows, each one
+     ordered launch, bitwise equal to its plain version and a second
+     launch; the GreaterPlus fold timed beside its plain version;
+  41. prints {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
 
 Every check of results, launch counts and schedules raises. A
 torch.profiler reading that cannot be trusted (no device time, or more
@@ -270,8 +301,10 @@ unavailable or the package is missing.
 """
 import contextlib
 import json
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import types
 
@@ -480,16 +513,20 @@ def _reset_counts():
         if hasattr(fn, "routes"):     # T1's and T2's edges by route
             fn.routes = dict.fromkeys(fn.routes, 0)
     _wrappers()["gather"].sorted_launches = 0
+    _wrappers()["masked_intersect_fold"].ordered_launches = 0
 
 
 def _read_counts() -> dict:
     """Launches by kernel since _reset_counts(), K6's by call-site class:
     gather_x at the column ids, gather_boundary at the ascending segment
-    tails and row boundaries (`take(..., sorted=True)`)."""
+    tails and row boundaries (`take(..., sorted=True)`); T2's ordered fold
+    (the comparison and multiplies ⊕) apart from its schedule-walked one."""
     counts = {name: fn.launches for name, fn in _wrappers().items()}
     gather = counts.pop("gather")
     counts["gather_boundary"] = _wrappers()["gather"].sorted_launches
     counts["gather_x"] = gather - counts["gather_boundary"]
+    counts["masked_intersect_fold_ordered"] = _wrappers()[
+        "masked_intersect_fold"].ordered_launches
     return counts
 
 
@@ -548,7 +585,7 @@ def _expect_launches(path: str, expected: dict, counts=None) -> dict:
     return counts
 
 
-def phase_kernel_vs_plain(A, golden_hub, hub):
+def phase_kernel_vs_plain(A, golden_hub, hub, tag: str = "K1"):
     import numpy as np
     import torch
 
@@ -573,10 +610,11 @@ def phase_kernel_vs_plain(A, golden_hub, hub):
     n_words = (plan.n_in + 31) // 32
     bound_bytes = 4 * (nnz + (plan.n_out + 1) + n_words + plan.n_out)
     bound_ms = bound_bytes / HBM_BYTES_PER_S * 1e3
-    print(f"[K1] n_out={plan.n_out} n_in={plan.n_in} nnz={nnz} "
+    print(f"[{tag}] n_out={plan.n_out} n_in={plan.n_in} nnz={nnz} "
           f"words={n_words} bound {bound_bytes} B -> {bound_ms:.6f} ms "
           "at 3.35 TB/s")
-    print(f"[K1] schedule (the CSC's, shared): {_schedule_text(plan.sched)}")
+    print(f"[{tag}] schedule (the CSC's, shared): "
+          f"{_schedule_text(plan.sched)}")
     rows = {}
     for name, f_np in frontiers.items():
         f = torch.from_numpy(f_np).cuda()
@@ -589,12 +627,12 @@ def phase_kernel_vs_plain(A, golden_hub, hub):
         torch.cuda.synchronize()
         err = int((y - y_plain).abs().max())
         if not torch.equal(y, y_plain):
-            raise AssertionError(f"K1 != plain on {name}: max diff {err}")
+            raise AssertionError(f"{tag} != plain on {name}: max diff {err}")
         if not (torch.equal(y, y_again) and torch.equal(y_old, y_plain)):
-            raise AssertionError(f"K1 on {name}: differs from a second "
+            raise AssertionError(f"{tag} on {name}: differs from a second "
                                  "launch or, one warp a row, from plain")
         if not torch.equal(y_lib.round().to(torch.int32), y):
-            raise AssertionError(f"K1 != torch.sparse counts on {name}")
+            raise AssertionError(f"{tag} != torch.sparse counts on {name}")
         ms = _event_ms(lambda: spmv_bitmap_pull(plan, words), 200)
         plain_ms = _event_ms(lambda: spmv_bitmap_pull_plain(plan, words), 20)
         lib_ms = _event_ms(lambda: torch.mv(lib_mat, f), 50)
@@ -602,7 +640,7 @@ def phase_kernel_vs_plain(A, golden_hub, hub):
         ms_again = _event_ms(lambda: spmv_bitmap_pull(plan, words), 200)
         rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                           library_ms=lib_ms)
-        print(f"[K1] {name}: frontier={int(f_np.sum())} "
+        print(f"[{tag}] {name}: frontier={int(f_np.sum())} "
               f"sum(y)={int(y.sum())} equal to plain (max diff {err}), to "
               f"a second launch and to torch.sparse; kernel {ms:.6f} ms "
               f"(again: {ms_again:.6f}), one warp a row (the first "
@@ -612,7 +650,8 @@ def phase_kernel_vs_plain(A, golden_hub, hub):
     return rows, bound_ms
 
 
-def phase_main_path(A, sources, goldens, reps: int = 10):
+def phase_main_path(A, sources, goldens, reps: int = 10,
+                    label: str = "rmat18"):
     import numpy as np
 
     import graphblast_tpu_torch as gt
@@ -641,7 +680,7 @@ def phase_main_path(A, sources, goldens, reps: int = 10):
     deg = np.diff(A.host_csr()[0])
     reached_edges = int(deg[levels[0] != 0].sum())
     reached = int((levels[0] != 0).sum())
-    print(f"[bfs] pull-only rmat18: {per_s * 1e3:.6f} ms/run median, "
+    print(f"[bfs] pull-only {label}: {per_s * 1e3:.6f} ms/run median, "
           f"{tail}, {len(sources) * reps} runs "
           f"({len(sources)} sources x {reps}); reached {reached} vertices, "
           f"{reached_edges} edges; {reached_edges / per_s / 1e9:.6f} GTEPS "
@@ -1721,6 +1760,63 @@ def main_tc_classes() -> int:
     return 0
 
 
+def main_rmat24() -> int:
+    """`--rmat24`: the run at RMAT 24, run_bfs.sh's largest graph
+    (16,777,216 vertices): the port's cache tool writes
+    .rmat24_16_0.torch.npz into a temporary directory (seed 0, the
+    drivers' default --seed; its seconds and the child's peak host
+    memory), then the gbfs driver runs pull-only on rmat:24:16 with
+    run_bfs.sh's other flags, reading that cache and checking its golden;
+    prints the driver's rows and the card's peak memory, by torch's
+    allocator and by nvidia-smi sampled every 2 s. Exits with the
+    driver's code."""
+    import os
+    import resource
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this check "
+              "needs one CUDA card", file=sys.stderr)
+        return 1
+    from graphblast_tpu_torch.examples import gbfs
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], check=True,
+                         capture_output=True, text=True, timeout=60)
+    print(smi.stdout.strip().splitlines()[0])
+    with tempfile.TemporaryDirectory() as d:
+        os.environ["GRB_RMAT_CACHE_DIR"] = d
+        t0 = time.perf_counter()
+        subprocess.run([sys.executable, "-m",
+                        "graphblast_tpu_torch.tools.gen_rmat_cache", "24",
+                        "--seed", "0"], check=True, timeout=3000)
+        rss = resource.getrusage(resource.RUSAGE_CHILDREN).ru_maxrss
+        print(f"[rmat24] gen_rmat_cache 24 --seed 0: "
+              f"{time.perf_counter() - t0:.1f} s, peak host memory "
+              f"{rss / 2**20:.2f} GiB")
+        sampler = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=memory.used",
+             "--format=csv,noheader,nounits", "-lms", "2000"],
+            stdout=subprocess.PIPE, text=True)
+        try:
+            t0 = time.perf_counter()
+            rc = gbfs.main(["--timing", "0", "--earlyexit", "1",
+                            "--mxvmode", "2", "--struconly", "1", "--niter",
+                            "5", "--opreuse", "1", "rmat:24:16"])
+            run_s = time.perf_counter() - t0
+        finally:
+            sampler.terminate()
+            used = [int(x) for x in sampler.communicate()[0].split()
+                    if x.isdigit()]
+    print(f"[rmat24] gbfs exit {rc} in {run_s:.1f} s; the card's peak "
+          f"memory: torch.cuda.max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated()} B, max_memory_reserved "
+          f"{torch.cuda.max_memory_reserved()} B, nvidia-smi memory.used "
+          f"{max(used, default=0)} MiB")
+    return rc
+
+
 def _library_spgemm(L):
     """(ms or None, text) of the library route of tc(L): cuSPARSE's SpGEMM
     of L by Lᵀ (torch.sparse.mm), timed without the masked sum that would
@@ -1973,7 +2069,7 @@ def phase_tc(A, reps: int = 10, golden_scale: int = 16):
           f"equal to its plain version; one T2 launch; schedule "
           f"{_route_text(tsched, sp._diagonal_operands(A, A))}")
     phase_tc_classes(L)
-    return tc_launches, fold_launches, t1_row, fold_rows
+    return tc_launches, fold_launches, t1_row, fold_rows, L
 
 
 def _expect_routes(path: str, fn, sched, launches: int = 1) -> None:
@@ -3481,7 +3577,8 @@ def _numpy_ingest():
 
 def phase_native_ingest(n_expect: int):
     """rmat18's raw COO (rmat_edges(18, 16, 42), 4,194,304 edges) written
-    as a pattern .mtx under a temporary directory, then read undirected by
+    by io.mmio.write_mtx as a pattern .mtx under a temporary directory,
+    then read undirected by
     io.mmio.read_mtx on the native path and with GRB_NATIVE=0: the arrays
     equal, and the edge count rmat_matrix gives (n_expect). Both times
     printed, and those of canonicalize_coo alone on the raw arrays (what
@@ -3516,12 +3613,7 @@ def phase_native_ingest(n_expect: int):
     with tempfile.TemporaryDirectory() as d:
         path = os.path.join(d, "rmat18.mtx")
         t0 = time.perf_counter()
-        with open(path, "w") as f:
-            f.write("%%MatrixMarket matrix coordinate pattern general\n"
-                    f"{n} {n} {len(r)}\n")
-            f.write("\n".join(map("{} {}".format, (r + 1).tolist(),
-                                  (c + 1).tolist())))
-            f.write("\n")
+        mmio.write_mtx(path, r, c, None, n, n, field="pattern")
         write_s = time.perf_counter() - t0
         size = os.path.getsize(path)
         if native.get_lib() is None:
@@ -4090,6 +4182,370 @@ def phase_dist_second_half(A, sources, goldens, pr_golden, t1_library_ms,
     return rows
 
 
+# ------------------------------------------------ RMAT 20 and 22 (bench.py)
+# the larger stages' graphs (bench.py:615-673), edge factor 16, seed 42,
+# with their sizes after symmetrizing and deduplicating
+BIG_SCALES = (20, 22)
+RMAT_NNZ = {20: 31_399_912, 22: 128_304_760}
+
+
+def start_rmat_cache(cache_dir: str):
+    """Start the port's cache tool (python -m graphblast_tpu_torch.tools.
+    gen_rmat_cache 20 22) writing into cache_dir, at a lower CPU priority,
+    so that it generates and canonicalizes both graphs on the host while
+    the rmat18 phases run. Returns (process, its start time)."""
+    import os
+
+    env = dict(os.environ, GRB_RMAT_CACHE_DIR=cache_dir)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "graphblast_tpu_torch.tools.gen_rmat_cache",
+         *map(str, BIG_SCALES)], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, env=env,
+        preexec_fn=lambda: os.nice(10))
+    return proc, time.perf_counter()
+
+
+@contextlib.contextmanager
+def _no_generation():
+    """io.rmat.rmat_edges raises inside the block: a graph must come from
+    its cache file."""
+    from graphblast_tpu_torch.io import rmat
+
+    real = rmat.rmat_edges
+
+    def refuse(*_, **__):
+        raise AssertionError("rmat_matrix generated a graph its cache holds")
+
+    rmat.rmat_edges = refuse
+    try:
+        yield
+    finally:
+        rmat.rmat_edges = real
+
+
+def _cached_rmat(scale: int, cache_dir: str):
+    """rmat_matrix(scale, 16, 42) on the card, read from its cache file
+    (generation refused); prints the file, the cache load alone and the
+    whole call. Returns the Matrix."""
+    import os
+
+    import torch
+
+    from graphblast_tpu_torch.io.rmat import cache_path, load_coo, rmat_matrix
+
+    path = cache_path(scale, 16, 42, cache_dir)
+    t0 = time.perf_counter()
+    load_coo(path)
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with _no_generation():
+        A = rmat_matrix(scale, 16, seed=42, device="cuda",
+                        cache_dir=cache_dir)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    if (A.nrows, A.nvals) != (1 << scale, RMAT_NNZ[scale]):
+        raise AssertionError(f"rmat{scale}: n={A.nrows} nnz={A.nvals}, "
+                             f"expected {1 << scale} and {RMAT_NNZ[scale]}")
+    print(f"[graph] rmat{scale}: n={A.nrows} nnz={A.nvals} from the cache "
+          f"file ({os.path.getsize(path)} B) through rmat_matrix in "
+          f"{total_s:.2f} s: the cache load alone {load_s:.2f} s, the "
+          f"Matrix build on the card the rest, {total_s - load_s:.2f} s")
+    return A
+
+
+def phase_rmat_cache(proc, started: float) -> None:
+    """Waits for the cache tool started by start_rmat_cache and prints its
+    lines: each graph's generation, canonicalize and write seconds."""
+    out, _ = proc.communicate(timeout=1200)
+    for line in out.splitlines():
+        print(f"[rmat cache] {line}")
+    if proc.returncode != 0:
+        raise AssertionError(f"gen_rmat_cache exited {proc.returncode}")
+    print(f"[rmat cache] the tool ran {time.perf_counter() - started:.2f} s "
+          "in the background")
+
+
+def _top_sources(A, k: int):
+    import numpy as np
+
+    deg = np.diff(A.host_csr()[0])
+    return np.argsort(deg, kind="stable")[::-1][:k].astype(np.int64)
+
+
+def phase_rmat22(cache_dir: str):
+    """bench.py's bfs22 and spmv22 stages at RMAT 22, the graph read from
+    the port's cache through rmat_matrix: K1 against its plain version and
+    torch.sparse (phase 2's checks); pull-only BFS from the 4 top-degree
+    hubs equal to the golden, one K1 launch an iteration (phase 3's); the
+    value pull over the CSR with a seeded x (phase 4's checks) and, as
+    bench.py's spmv stage, max |y - y64| / (|y64| + 1) < 1e-3 against a
+    float64 golden; then 10 PULLONLY mxv_dual calls over the plan, one
+    value-pull launch each, equal to the kernel. Returns the K1 row, its
+    bound, BFS's launches, the value pull's row and its launches."""
+    import numpy as np
+    import torch
+
+    import graphblast_tpu_torch as gt
+    from graphblast_tpu_torch.algorithms.reference import bfs_cpu
+    from graphblast_tpu_torch.ops.dispatch import DualFrontier, mxv_dual
+    from graphblast_tpu_torch.ops.kernels.value_pull import (plan_for,
+                                                             spmv_value_pull)
+
+    A = _cached_rmat(22, cache_dir)
+    sources = _top_sources(A, 4)
+    t0 = time.perf_counter()
+    goldens = [bfs_cpu(A, int(s)) for s in sources]
+    print(f"[bfs22] goldens of {len(sources)} hubs in "
+          f"{time.perf_counter() - t0:.2f} s")
+    k1, k1_bound = phase_kernel_vs_plain(A, goldens[0], int(sources[0]),
+                                         tag="K1 rmat22")
+    launches, per_s, iters = phase_main_path(A, sources, goldens, reps=3,
+                                             label="rmat22")
+    print(f"[bfs22] K1 time per run ({iters[0]} launches x "
+          f"{k1['hub_level2']['ms']:.6f} ms at the hub's level 2) beside "
+          f"the median run {per_s * 1e3:.6f} ms")
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        A.ncols).astype(np.float32)).cuda()
+    plan = plan_for(A)
+    k2 = phase_value_pull("K2 rmat22", plan, x, plain_reps=5)
+    nnz = int(plan.ptr[-1])
+    rows = torch.repeat_interleave(
+        torch.arange(plan.n_out, device="cuda"),
+        (plan.ptr[1:] - plan.ptr[:-1]).long(), output_size=nnz)
+    gold = torch.zeros(plan.n_out, dtype=torch.float64, device="cuda")
+    gold.index_add_(0, rows, plan.val[:nnz].double()
+                    * x.double()[plan.ind[:nnz].long()])
+    y = spmv_value_pull(plan, x)
+    err = float(((y.double() - gold).abs() / (gold.abs() + 1)).max())
+    if not err < 1e-3:
+        raise AssertionError(f"spmv22: err {err} against the float64 "
+                             "golden, bar 1e-3")
+    # the pull as a user's mxv_dual makes it over the plan, counted
+    frontier = DualFrontier.from_dense(x, 0.0)
+    _reset_counts()
+    for _ in range(10):
+        f2, _ = mxv_dual(A, frontier, gt.PlusMultipliesSemiring, 0.0,
+                         mode=gt.Direction.PULLONLY, pull_plan=plan)
+    k2_launches = _expect_launches("spmv22 mxv_dual",
+                                   {"value_pull": 10})["value_pull"]
+    if not torch.equal(f2.dense, y):
+        raise AssertionError("spmv22: mxv_dual differs from the kernel")
+    gb_s = (8 * nnz + 4 * (plan.n_out + 1) + 4 * plan.n_in
+            + 4 * plan.n_out) / (k2["ms"] * 1e-3) / 1e9
+    print(f"[spmv22] err {err:.3g} against the float64 golden (bar 1e-3); "
+          f"{gb_s:.3f} GB/s, {nnz / (k2['ms'] * 1e-3) / 1e9:.6f} GTEPS at "
+          f"{k2['ms']:.6f} ms")
+    del A, plan, rows, gold, frontier, f2
+    torch.cuda.empty_cache()
+    return k1["hub_level2"], k1_bound, launches, k2, k2_launches
+
+
+def phase_mtx20(tmp_dir: str) -> None:
+    """bench.py's mtx stage: RMAT 20's raw COO (rmat_edges(20, 16, 42))
+    written by io.mmio.write_mtx as a pattern .mtx, read directed by
+    io.mmio.read_mtx on the native path, built on the card, and BFS
+    pull-only from its 4 top-degree sources equal to the golden, one K1
+    launch an iteration. Prints the write, parse and build seconds and the
+    parse's MB/s."""
+    import os
+
+    import torch
+
+    import graphblast_tpu_torch as gt
+    from graphblast_tpu_torch import native
+    from graphblast_tpu_torch.algorithms.reference import bfs_cpu
+    from graphblast_tpu_torch.io import mmio
+    from graphblast_tpu_torch.io.rmat import rmat_edges
+
+    n = 1 << 20
+    t0 = time.perf_counter()
+    r, c = rmat_edges(20, 16, 42)
+    gen_s = time.perf_counter() - t0
+    path = os.path.join(tmp_dir, "rmat20_16.mtx")
+    t0 = time.perf_counter()
+    mmio.write_mtx(path, r, c, None, n, n, field="pattern")
+    write_s = time.perf_counter() - t0
+    size = os.path.getsize(path)
+    del r, c
+    if native.get_lib() is None:
+        raise AssertionError("the native path is off (GRB_NATIVE)")
+    t0 = time.perf_counter()
+    rows, cols, vals, nr, nc, info = mmio.read_mtx(path, directed=1)
+    parse_s = time.perf_counter() - t0
+    os.remove(path)
+    t0 = time.perf_counter()
+    A = gt.Matrix.from_coo(rows, cols, vals, nr, nc, device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    print(f"[mtx] rmat20 raw COO generated in {gen_s:.2f} s, written by "
+          f"write_mtx ({info.field} {info.symmetry}, {size} B) in "
+          f"{write_s:.2f} s; native read_mtx (directed) {parse_s:.2f} s, "
+          f"{size / parse_s / 1e6:.0f} MB/s, {A.nvals} edges; built on the "
+          f"card in {build_s:.2f} s")
+    sources = _top_sources(A, 4)
+    goldens = [bfs_cpu(A, int(s)) for s in sources]
+    phase_main_path(A, sources, goldens, reps=3, label="mtx rmat20")
+    del A
+    torch.cuda.empty_cache()
+
+
+def phase_tc20(cache_dir: str, reps: int = 10):
+    """bench.py's tc20 stage: L = tril(A) of RMAT 20 (read from the
+    cache), tc(L) warm, then `reps` timed calls, one T1 launch each; the
+    count equal to T1's plain version on the card and to a second
+    launch. Returns T1's kernels-line row and the timed calls' launches."""
+    import torch
+
+    import graphblast_tpu_torch as gt
+    from graphblast_tpu_torch.ops import spgemm as sp
+    from graphblast_tpu_torch.ops.kernels.masked_intersect import (
+        masked_intersect_count, masked_intersect_count_plain)
+
+    A = _cached_rmat(20, cache_dir)
+    t0 = time.perf_counter()
+    L = gt.tril(A)
+    torch.cuda.synchronize()
+    print(f"[tc20] L = tril(A): nnz={L.nvals}, built in "
+          f"{time.perf_counter() - t0:.2f} s")
+    _reset_counts()
+    t0 = time.perf_counter()
+    ntris = gt.algorithms.tc(L)
+    first_s = time.perf_counter() - t0
+    _expect_launches("tc20 first", {"masked_intersect_count": 1})
+    args = sp._count_args(sp._operands(L, L, L, True))
+    sched = L._plans["intersect/mask"][0][2]
+    again = masked_intersect_count(*args, sched=sched)
+    t0 = time.perf_counter()
+    plain = masked_intersect_count_plain(*args)
+    plain_s = time.perf_counter() - t0
+    if not ntris == again == plain:
+        raise AssertionError(f"tc20: {ntris}, again {again}, plain {plain}")
+    _reset_counts()
+    per_s, tail = _timed_runs(lambda: gt.algorithms.tc(L), reps)
+    _expect_launches("tc20", {"masked_intersect_count": reps})
+    launches = _read_counts()["masked_intersect_count"]
+    ms = _event_ms(lambda: masked_intersect_count(*args, sched=sched), reps)
+    m, n = L.nvals, L.nrows
+    bound_ms = (8 * m + 4 * (n + 1)) / HBM_BYTES_PER_S * 1e3
+    lib_ms, lib_text = _library_spgemm(L)
+    print(f"[tc20] tc(L) = {ntris} triangles, equal to T1's plain version "
+          f"({plain_s:.2f} s) and a second launch; first call (the lists' "
+          f"check and the schedule) {first_s:.2f} s; {per_s * 1e3:.6f} "
+          f"ms/run median, {tail}; {A.nvals / per_s / 1e6:.3f} M edges/s "
+          f"(A's nnz over a call); one T1 launch a call; T1 alone "
+          f"{ms:.6f} ms, bound {bound_ms:.6f} ms (inputs once at 3.35 "
+          f"TB/s); library {lib_text}")
+    del A, L
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=abs(again - plain), ms=ms,
+                plain_ms=plain_s * 1e3, bound_ms=bound_ms,
+                library_ms=lib_ms), launches
+
+
+ORDERED_SEMIRINGS = ("GreaterPlus", "CustomLessPlus", "CustomLessLess",
+                     "NotEqualToPlus", "MultipliesMultiplies")
+
+
+def phase_ordered_folds(L, reps: int = 20):
+    """T2's ordered folds (the ⊕ that are not associative, or round), held
+    bitwise to their plain version (the JAX join's lanes through
+    segops.segmented_scan) and to a second launch: mxm(X, Y, mask L,
+    transpose_inp1) at rmat18's L with seeded values of both signs
+    (float32 in [-2, 2), int32 in [-3, 3]) for the five semirings on each
+    dtype, one ordered launch each and no other kernel, then the same on a
+    seeded small graph. Times the GreaterPlus float32 fold beside its plain
+    version and computes its bound. Returns the kernels-line row and the
+    launches of the rmat18 calls."""
+    import numpy as np
+    import torch
+
+    import graphblast_tpu_torch as gt
+    from graphblast_tpu_torch.ops import spgemm as sp
+    from graphblast_tpu_torch.ops.kernels.masked_intersect import (
+        masked_intersect_fold, masked_intersect_fold_plain)
+
+    def copies(M, seed):
+        r, c, _ = M.extract_tuples()
+        g = torch.Generator().manual_seed(seed)
+        m, n = len(r), M.nrows
+        out = {}
+        for dtype in (torch.float32, torch.int32):
+            pair = []
+            for k in range(2):
+                v = (torch.rand(m, generator=g) * 4 - 2 if dtype
+                     == torch.float32 else torch.randint(-3, 4, (m,),
+                                                         generator=g))
+                pair.append(gt.Matrix.from_coo(r, c, v.to(dtype).numpy(), n,
+                                               n, dtype=dtype,
+                                               device="cuda"))
+            out[dtype] = pair
+        return out
+
+    def check(tag, M, graphs):
+        launches = 0
+        for dtype, (X, Y) in graphs.items():
+            for name in ORDERED_SEMIRINGS:
+                sr = getattr(gt.semiring, f"{name}Semiring")
+                _reset_counts()
+                C = gt.mxm(X, Y, sr, mask=M,
+                           desc=gt.Descriptor(transpose_inp1=True))
+                launches += _expect_launches(
+                    f"{tag} {name}", {"masked_intersect_fold_ordered": 1})[
+                        "masked_intersect_fold_ordered"]
+                ops = sp._operands(X, Y, M, True)
+                c = C.val[: M.nvals]
+                again = masked_intersect_fold(*ops, sr)
+                want = masked_intersect_fold_plain(*ops, sr)
+                if not (torch.equal(c.view(torch.int32),
+                                    want.view(torch.int32))
+                        and torch.equal(c.view(torch.int32),
+                                        again.view(torch.int32))):
+                    bad = int((c.view(torch.int32)
+                               != want.view(torch.int32)).sum())
+                    raise AssertionError(f"T2 ordered {tag} {name} {dtype}: "
+                                         f"{bad} values != plain, or a "
+                                         "second launch differs")
+        print(f"[T2 ordered] {tag}: {', '.join(ORDERED_SEMIRINGS)} on "
+              f"float32 and int32, each one ordered launch, bitwise equal "
+              f"to its plain version and a second launch")
+        return launches
+
+    graphs = copies(L, 42)
+    launches = check("rmat18's L", L, graphs)
+    X, Y = graphs[torch.float32]
+    sr = gt.semiring.GreaterPlusSemiring
+    ops = sp._operands(X, Y, L, True)
+    fold = lambda: masked_intersect_fold(*ops, sr)  # noqa: E731
+    ms = _event_ms(fold, reps)
+    plain_ms = _event_ms(lambda: masked_intersect_fold_plain(*ops, sr), 2)
+    m = L.nvals
+    # bytes once: the mask ids, A's and B's pointers, ids and values, c
+    bound_bytes = 8 * m + 2 * (4 * (L.nrows + 1) + 8 * m) + 4 * m
+    bound_ms = bound_bytes / HBM_BYTES_PER_S * 1e3
+    mi, mj, a_ptr, _, _, b_ptr, _, _ = ops
+    walked = int(torch.minimum(a_ptr[mi.long() + 1] - a_ptr[mi.long()],
+                               b_ptr[mj.long() + 1] - b_ptr[mj.long()])
+                 .sum())
+    print(f"[T2 ordered] GreaterPlus float32 at rmat18's L ({m} mask "
+          f"edges, {walked} lanes): kernel {ms:.6f} ms, plain "
+          f"{plain_ms:.6f} ms, bound {bound_bytes} B -> {bound_ms:.6f} ms "
+          f"at 3.35 TB/s; no PyTorch call folds a masked product under a "
+          f"comparison ⊕")
+    del graphs, X, Y, ops
+    # a seeded small graph with 4 hub rows, whose walks take both sides
+    rng = np.random.default_rng(7)
+    n = 2000
+    r = rng.integers(0, n, 40_000)
+    r[:10_000] = rng.integers(0, 4, 10_000)
+    key = np.unique(r * n + rng.integers(0, n, 40_000))
+    S = gt.Matrix.from_coo(key // n, key % n, np.ones(len(key), np.float32),
+                           n, n, device="cuda")
+    check("a seeded 2,000-vertex graph", S, copies(S, 7))
+    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, library_ms=None), launches
+
+
+
 def _random_csr(n: int, deg: int, seed: int, device: str = "cuda"):
     """A seeded uniform random CSR made on `device`: n rows and columns,
     `deg` edges a row, standard-normal values; and a standard-normal x."""
@@ -4114,16 +4570,29 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this check "
               "needs one CUDA card", file=sys.stderr)
         return 1
-    import numpy as np
-
     import graphblast_tpu_torch  # noqa: F401  (fails alone in a directory)
-    from graphblast_tpu_torch.algorithms.reference import bfs_cpu
-    from graphblast_tpu_torch.io.rmat import rmat_matrix
-    from graphblast_tpu_torch.ops.kernels.value_pull import plan_for
 
     t0 = time.perf_counter()
     phase_device_and_build()
     print(f"[phase] device and build {time.perf_counter() - t0:.2f} s")
+    cache_dir = tempfile.mkdtemp()   # RMAT 20 and 22's cache, the .mtx
+    proc, started = start_rmat_cache(cache_dir)
+    try:
+        return _main_phases(cache_dir, proc, started)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        shutil.rmtree(cache_dir, ignore_errors=True)
+
+
+def _main_phases(cache_dir: str, proc, started: float) -> int:
+    import numpy as np
+    import torch
+
+    from graphblast_tpu_torch.algorithms.reference import bfs_cpu
+    from graphblast_tpu_torch.io.rmat import rmat_matrix
+    from graphblast_tpu_torch.ops.kernels.value_pull import plan_for
 
     t0 = time.perf_counter()
     A = rmat_matrix(18, 16, seed=42, device="cuda")
@@ -4191,7 +4660,7 @@ def main() -> int:
     cc_s_counts = phase_cc_plan_less(A, cc_golden, cc_per_s)
     print(f"[phase] plan-less CC {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
-    tc_launches, fold_launches, t1_row, t2_row = phase_tc(A)
+    tc_launches, fold_launches, t1_row, t2_row, L18 = phase_tc(A)
     print(f"[phase] TC and the masked mxm {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
     phase_tc_past_budget()
@@ -4270,6 +4739,23 @@ def main() -> int:
                                     t1_row["library_ms"]))
     del A
     print(f"[phase] distributed, second half, at world size 1 "
+          f"{time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    phase_rmat_cache(proc, started)
+    print(f"[phase] RMAT 20 and 22 cache (waited) "
+          f"{time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    k1_22, k1_22_bound, bfs22_launches, k2_22, k2_22_launches = \
+        phase_rmat22(cache_dir)
+    print(f"[phase] bfs22 and spmv22 {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    phase_mtx20(cache_dir)
+    print(f"[phase] mtx at rmat20 {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    t1_20, tc20_launches = phase_tc20(cache_dir)
+    ordered_row, ordered_launches = phase_ordered_folds(L18)
+    del L18
+    print(f"[phase] tc20 and T2's ordered folds "
           f"{time.perf_counter() - t0:.2f} s")
 
     kernels = [{
@@ -4391,6 +4877,26 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": f"graphblast_tpu_torch/csrc/{route_src}",
             "replaces": replaces, "bound_by": "bytes", **dist_rows[name]})
+    # the larger stages (phases 38 and 40): K1 in bfs22's pulls, the value
+    # pull in spmv22's mxv_dual calls, T1 in tc20's calls, and T2's ordered
+    # fold in the masked mxm calls at rmat18's L
+    for name, route_src, replaces, launches, row in (
+            ("bitmap_pull_rmat22", "bitmap_pull.cu",
+             "graphblast_tpu/ops/pallas/bilinear.py:873", bfs22_launches,
+             dict(k1_22, bound_ms=k1_22_bound)),
+            ("value_pull_rmat22", "value_pull.cu",
+             "graphblast_tpu/ops/pallas/bilinear.py:1287", k2_22_launches,
+             k2_22),
+            ("masked_intersect_count_rmat20", "masked_intersect.cu",
+             "graphblast_tpu/ops/spgemm.py:159", tc20_launches, t1_20),
+            ("masked_intersect_fold_ordered", "masked_intersect.cu",
+             "graphblast_tpu/ops/spgemm.py:70", ordered_launches,
+             ordered_row)):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"graphblast_tpu_torch/csrc/{route_src}",
+            "replaces": replaces, "launches": launches, "bound_by": "bytes",
+            **row})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -4399,5 +4905,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main_tc_classes() if sys.argv[1:] == ["--tc-classes"]
-             else main())
+    sys.exit({"--tc-classes": main_tc_classes, "--rmat24": main_rmat24}.get(
+        " ".join(sys.argv[1:]), main)())

@@ -7,7 +7,7 @@ from .cc import cc, cc_cpu, verify_cc
 from .diameter import diameter
 from .gc import gc, gc_cpu, verify_gc
 from .lgc import lgc, lgc_cpu
-from .mis import mis, mis_cpu, verify_mis
+from .mis import mis, mis_cpu, mis_inner, verify_mis
 from .pr import pr, pr_cpu, prepare_pr_matrix
 from .sssp import sssp, sssp_cpu
 from .tc import tc, tc_cpu, triangle_count

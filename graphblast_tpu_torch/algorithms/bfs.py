@@ -155,10 +155,9 @@ def bfs(A: Matrix, source: int, desc: Descriptor = BFS_TUNED,
     bfs.hpp:14-89; levels per SimpleReferenceBfs, test_bfs.hpp:19-22).
     Runs on A's device, in the direction desc.mxv_mode asks for. A
     descriptor that is not structure-only pulls with no plan in both modes,
-    and pushes the frontier's values."""
-    if mode not in ("fused", "stepped"):
-        raise ValueError(f"mode must be 'fused' or 'stepped', not {mode!r}")
-    stepped = mode == "stepped"
+    and pushes the frontier's values. Any mode but "fused" runs stepped,
+    as in the JAX package."""
+    stepped = mode != "fused"
     plan = None if stepped else bfs_pull_plan(A, desc)
     return dense_result(A.nrows, _bfs_levels(A, source, desc, plan, stepped))
 

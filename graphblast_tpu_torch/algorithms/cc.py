@@ -104,9 +104,8 @@ def cc(A: Matrix, seed: int = 0, desc: Descriptor = DEFAULT,
        mode: str = "fused") -> Vector:
     """Component labels, int32: the least vertex id of each component, as
     FastSV gives them on a symmetric graph. Runs on A's device. `seed` is
-    accepted for the JAX signature and unused there too."""
-    if mode not in ("fused", "stepped"):
-        raise ValueError(f"mode must be 'fused' or 'stepped', not {mode!r}")
+    accepted for the JAX signature and unused there too. Any mode but
+    "fused" runs stepped, as in the JAX package."""
     if A.row_ptr is None:
         raise NotImplementedError(
             "cc needs A's CSR, which it pulls over; the JAX package has no "
@@ -114,7 +113,7 @@ def cc(A: Matrix, seed: int = 0, desc: Descriptor = DEFAULT,
     plan = (plan_for_monoid(A, transpose=False, ones=True)
             if A.nrows < EXACT_IDS else None)
     parent, _ = _cc_fused(A, plan, max_niter=desc.max_niter,
-                          timing=desc.timing if mode == "stepped" else 0)
+                          timing=desc.timing if mode != "fused" else 0)
     return dense_result(A.nrows, parent)
 
 

@@ -94,9 +94,8 @@ def pr(A: Matrix, alpha: float = 0.85, eps: float = 1e-6,
     already α-scaled column-stochastic (the reference pr() contract) and its
     stored CSC values are pulled as they are; otherwise the α/outdegree
     scaling goes into the plan. Raises NotImplementedError when A lacks its
-    CSC or, unprepared, its CSR."""
-    if mode not in ("fused", "stepped"):
-        raise ValueError(f"mode must be 'fused' or 'stepped', not {mode!r}")
+    CSC or, unprepared, its CSR. Any mode but "fused" runs stepped, as in
+    the JAX package."""
     plan = (plan_for(A, transpose=True) if prepared
             else prepare_pr_plan(A, alpha))
     if plan is None:
@@ -106,7 +105,7 @@ def pr(A: Matrix, alpha: float = 0.85, eps: float = 1e-6,
             "route for a one-sided matrix either")
     p, _, _ = _pr_fused(A, plan, alpha=alpha, eps=eps,
                         max_niter=desc.max_niter,
-                        timing=desc.timing if mode == "stepped" else 0)
+                        timing=desc.timing if mode != "fused" else 0)
     return dense_result(A.nrows, p)
 
 

@@ -136,10 +136,9 @@ def sssp(A: Matrix, source: int, desc: Descriptor = DEFAULT,
          mode: str = "fused") -> Vector:
     """Distances from `source`, float32; unreachable = FLT_MAX (reference:
     sssp.hpp:26, the SimpleReferenceSssp conventions). Runs on A's device,
-    in the direction desc.mxv_mode asks for."""
-    if mode not in ("fused", "stepped"):
-        raise ValueError(f"mode must be 'fused' or 'stepped', not {mode!r}")
-    stepped = mode == "stepped"
+    in the direction desc.mxv_mode asks for. Any mode but "fused" runs
+    stepped, as in the JAX package."""
+    stepped = mode != "fused"
     plan = (None if desc.mxv_mode == Direction.PUSHONLY
             else plan_for_monoid(A, transpose=True))
     v, _ = _sssp_fused(A, source, plan, switchpoint=desc.switchpoint,

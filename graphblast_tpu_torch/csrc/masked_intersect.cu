@@ -7,7 +7,10 @@
 //   T2 gb_masked_intersect_fold:  c[e] = (+)_{k in la ∩ lb} A[i,k] (x) B[k,j]
 //      for the catalogue's semirings whose (+) is plus, min, max or logical
 //      or, in float32 or int32 (the masked mxm, and the trace over the
-//      diagonal pairs (i, i)).
+//      diagonal pairs (i, i));
+//   T2 gb_masked_intersect_fold_ordered: the same c[e] for the semirings
+//      whose (+) is multiplies, greater, less (CustomLess) or not-equal-to
+//      (the masked mxm only), folded in the JAX join's exact order (below).
 //
 // Replaces no Pallas kernel: graphblast_tpu/ops/spgemm.py:159
 // _masked_count_chunk and :70 _masked_join_chunk are plain jnp. There the
@@ -78,6 +81,27 @@
 // routes keep it. This matters for min and max only, where the identity is
 // not neutral: MaximumMonoid's is 0 (the reference's quirk), so a max of
 // negative products is 0 exactly where a walked id missed.
+// The ordered fold. Greater, less and not-equal-to are not associative,
+// and float32 products round, so for these (+) the order of the JAX join
+// is the result: its lanes of a mask edge are the ids of the list it
+// expands (the shorter; B's only when strictly shorter), ascending, each
+// the product where the other list holds the id, else (+)'s identity; a
+// segmented Hillis-Steele scan (graphblast_tpu/ops/segops.py:35-62) folds
+// them. Its bracketing depends only on a lane's offset from its edge's
+// first lane: with M = L - 1 lanes after the first, the result is x_0
+// (+) T_1 (+) T_2 ..., left to right, where T_1, T_2, ... are balanced
+// trees (left (+) right) over consecutive runs of the lanes 1..L-1 whose
+// sizes are the set bits of M, smallest first. Counted from the last lane
+// back, those runs are aligned binary-counter blocks. So one warp a mask
+// edge takes 32 lanes at a time from the end, folds each full 32 by a
+// shuffle tree (a lane at the larger offset on the left), and lane 0
+// keeps the finished trees on a stack, merging two of one size (the later
+// one on the left) as a binary counter does; the lanes left over (M mod
+// 32) go onto the stack one by one, and last x_0 folds the stack from its
+// top. No schedule is read: the warps stride the mask. Every float32 value
+// read and every result of (x) and (+) is flushed to a zero of its sign
+// where it is subnormal, as the JAX package's XLA does on the CPU and the
+// TPU (a long product of small values ends there at zero).
 // Float products and sums round once (__fmul_rn, __fadd_rn, __fdiv_rn: no
 // fused multiply-add); int32 arithmetic wraps, formed in uint32_t; min and
 // max propagate NaN, as torch.minimum and torch.maximum do; logical ops
@@ -105,7 +129,11 @@ constexpr int kSmemBudget = 112 * 1024;
 constexpr size_t kStaticSmem = 1024;
 
 // (+) and (x) codes; the wrapper passes the same numbers
-constexpr int kAddPlus = 0, kAddMin = 1, kAddMax = 2, kAddLor = 3;
+constexpr int kAddPlus = 0, kAddMin = 1, kAddMax = 2, kAddLor = 3,
+              kAddTimes = 4, kAddGreater = 5, kAddLess = 6,
+              kAddNotEqual = 7;
+// warps a block of the ordered fold
+constexpr int kOrderedWarps = 8;
 constexpr int kMulPlus = 0, kMulMinus = 1, kMulTimes = 2, kMulDiv = 3,
               kMulGreater = 4, kMulLess = 5, kMulNotEqual = 6,
               kMulSecond = 7, kMulLand = 8;
@@ -423,6 +451,10 @@ __device__ __forceinline__ T add_op(T a, T b) {
   if (kAdd == kAddPlus) return Arith<T>::plus(a, b);
   if (kAdd == kAddMin) return Arith<T>::min(a, b);
   if (kAdd == kAddMax) return Arith<T>::max(a, b);
+  if (kAdd == kAddTimes) return Arith<T>::times(a, b);
+  if (kAdd == kAddGreater) return a > b ? T(1) : T(0);
+  if (kAdd == kAddLess) return a < b ? T(1) : T(0);
+  if (kAdd == kAddNotEqual) return a != b ? T(1) : T(0);
   return (a != T(0) || b != T(0)) ? T(1) : T(0);   // logical or
 }
 
@@ -487,6 +519,119 @@ fold_kernel(Operands o, Schedule s, const T* __restrict__ a_val,
                     });
         finish(e, acc, hits, a1 - a0, b1 - b0);
       });
+}
+
+// a subnormal float32 to a zero of its sign (the ordered fold's rule)
+__device__ __forceinline__ float flush(float x) {
+  return fabsf(x) < 1.17549435e-38f ? copysignf(0.0f, x) : x;
+}
+__device__ __forceinline__ int32_t flush(int32_t x) { return x; }
+
+// The ordered fold (file header): one warp a mask edge, the warps striding
+// the mask. Lane l of a round takes the lane L - 1 - (32 r + l) of the
+// edge, counted from its last, so each lane's keys descend and its
+// lower_bound can end where its last one began.
+template <class T, int kAdd, int kMul>
+__global__ void __launch_bounds__(32 * kOrderedWarps)
+ordered_fold_kernel(Operands o, long long m, const T* __restrict__ a_val,
+                    const T* __restrict__ b_val, T* __restrict__ c,
+                    T identity) {
+  const int lane = threadIdx.x & 31;
+  const long long warps = (long long)gridDim.x * kOrderedWarps;
+  for (long long e = (long long)blockIdx.x * kOrderedWarps +
+                     (threadIdx.x >> 5);
+       e < m; e += warps) {
+    const int i = __ldg(o.mi + e), j = __ldg(o.mj + e);
+    const int a0 = __ldg(o.a_ptr + i), a1 = __ldg(o.a_ptr + i + 1);
+    const int b0 = __ldg(o.b_ptr + j), b1 = __ldg(o.b_ptr + j + 1);
+    const bool walk_a = !(b1 - b0 < a1 - a0);   // B only when strictly shorter
+    const int32_t* w = walk_a ? o.a_ind : o.b_ind;
+    const int32_t* s = walk_a ? o.b_ind : o.a_ind;
+    const int w0 = walk_a ? a0 : b0, len = walk_a ? a1 - a0 : b1 - b0;
+    const int s0 = walk_a ? b0 : a0;
+    int hi = walk_a ? b1 : a1;   // this lane's keys descend
+    // the value of the edge's lane t: the product where the other list
+    // holds the walked id, else the identity
+    const auto lane_value = [&](int t) {
+      const int key = __ldg(w + w0 + t);
+      const int p = lower_bound(s, s0, hi, key);
+      hi = p + (p < hi && __ldg(s + p) == key);
+      if (p >= hi || __ldg(s + p) != key) return identity;
+      const int wp = w0 + t;
+      const int ap = walk_a ? wp : p, bp = walk_a ? p : wp;
+      return flush(mul_op<T, kMul>(flush(__ldg(a_val + ap)),
+                                   flush(__ldg(b_val + bp))));
+    };
+    const auto add = [](T x, T y) { return flush(add_op<T, kAdd>(x, y)); };
+    if (len == 0) {   // no lane: the identity, as an empty segment gives
+      if (lane == 0) c[e] = identity;
+      continue;
+    }
+    T stack[32];   // lane 0's finished trees, the latest on top
+    int size[32], depth = 0;
+    const auto push = [&](T v, int n) {
+      stack[depth] = v;
+      size[depth++] = n;
+      while (depth > 1 && size[depth - 1] == size[depth - 2]) {
+        stack[depth - 2] = add(stack[depth - 1], stack[depth - 2]);
+        size[depth - 2] *= 2;
+        --depth;
+      }
+    };
+    const int rest = len - 1, full = rest >> 5;
+    for (int r = 0; r < full; ++r) {
+      T v = lane_value(len - 1 - (32 * r + lane));
+      for (int d = 1; d < 32; d <<= 1) {
+        const T other = __shfl_down_sync(kFull, v, d);
+        if ((lane & (2 * d - 1)) == 0) v = add(other, v);
+      }
+      if (lane == 0) push(v, 32);
+    }
+    const int left = rest & 31;
+    T v = identity;
+    if (lane < left) v = lane_value(len - 1 - (32 * full + lane));
+    for (int t = 0; t < left; ++t) {
+      const T x = __shfl_sync(kFull, v, t);
+      if (lane == 0) push(x, 1);
+    }
+    if (lane == 0) {
+      T acc = lane_value(0);
+      while (depth > 0) acc = add(acc, stack[--depth]);
+      c[e] = acc;
+    }
+  }
+}
+
+template <class T, int kAdd, int kMul>
+cudaError_t launch_ordered(const Operands& o, long long m, const void* a_val,
+                           const void* b_val, void* c,
+                           uint32_t identity_bits, cudaStream_t stream) {
+  T identity;
+  std::memcpy(&identity, &identity_bits, sizeof(T));
+  const long long blocks = (m + kOrderedWarps - 1) / kOrderedWarps;
+  const unsigned grid = (unsigned)(blocks < 132 * 64 ? blocks : 132 * 64);
+  ordered_fold_kernel<T, kAdd, kMul><<<grid, 32 * kOrderedWarps, 0, stream>>>(
+      o, m, (const T*)a_val, (const T*)b_val, (T*)c, identity);
+  return cudaGetLastError();
+}
+
+// the catalogue's semirings whose (+) is multiplies, greater, less or
+// not-equal-to
+template <class T>
+cudaError_t launch_ordered_pair(int add, int mul, const Operands& o,
+                                long long m, const void* a_val,
+                                const void* b_val, void* c, uint32_t bits,
+                                cudaStream_t st) {
+#define GB_PAIR(A, M)                                                     \
+  if (add == A && mul == M)                                               \
+    return launch_ordered<T, A, M>(o, m, a_val, b_val, c, bits, st);
+  GB_PAIR(kAddGreater, kMulPlus)    // GreaterPlus
+  GB_PAIR(kAddLess, kMulPlus)       // CustomLessPlus
+  GB_PAIR(kAddLess, kMulLess)       // CustomLessLess
+  GB_PAIR(kAddNotEqual, kMulPlus)   // NotEqualToPlus
+  GB_PAIR(kAddTimes, kMulTimes)     // MultipliesMultiplies
+#undef GB_PAIR
+  return cudaErrorInvalidValue;
 }
 
 // The dynamic shared memory of a launch: the bitmap, and T2's prefix
@@ -601,6 +746,28 @@ int gb_masked_intersect_fold(const void* mi, const void* mj,
   }
   return (int)launch_pair<int32_t>(add, mul, o, s, a_val, b_val, c,
                                    identity_bits, rule, st);
+}
+
+// T2's ordered fold. Writes c[e] for the m mask edges. add: 4 multiplies,
+// 5 greater, 6 less, 7 not-equal-to; mul and is_float as above. Returns
+// the launch's error (0 on success), or cudaErrorInvalidValue for a pair
+// with no instantiation. The caller passes m > 0.
+int gb_masked_intersect_fold_ordered(const void* mi, const void* mj,
+                                     const void* a_ptr, const void* a_ind,
+                                     const void* a_val, const void* b_ptr,
+                                     const void* b_ind, const void* b_val,
+                                     long long m, void* c, int add, int mul,
+                                     int is_float, unsigned int identity_bits,
+                                     void* stream) {
+  const Operands o{(const int32_t*)mi, (const int32_t*)mj,
+                   (const int32_t*)a_ptr, (const int32_t*)a_ind,
+                   (const int32_t*)b_ptr, (const int32_t*)b_ind};
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (is_float)
+    return (int)launch_ordered_pair<float>(add, mul, o, m, a_val, b_val, c,
+                                           identity_bits, st);
+  return (int)launch_ordered_pair<int32_t>(add, mul, o, m, a_val, b_val, c,
+                                           identity_bits, st);
 }
 
 const char* gb_masked_intersect_error_string(int err) {

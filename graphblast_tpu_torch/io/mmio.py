@@ -6,7 +6,9 @@ Semantics of the reference's MTX ingestion pipeline:
   * readMtx symmetric doubling + directedness forcing (util.hpp:364-430)
   * removeSelfloop: self-loop removal + duplicate dedup (util.hpp:263-329)
   * customSort: column-major (col, row) sort (util.hpp:170-195)
-  * coo2csr conversion (util.hpp:501-559)
+  * coo2csr conversion (util.hpp:501-559), coo2csc (util.hpp:562-572)
+  * write_mtx, the MatrixMarket writer (a file byte-equal to the JAX
+    package's writer's)
 
 The NumPy code here is the semantic ground truth. The native C++ runtime
 (graphblast_tpu_torch/native, built with g++ at its first use) takes the
@@ -160,3 +162,36 @@ def coo_to_csr(rows, cols, vals, nrows: int, ncols: int | None = None):
     row_ptr = np.zeros(nrows + 1, dtype=np.int64)
     np.add.at(row_ptr, rows + 1, 1)
     return np.cumsum(row_ptr), cols.copy(), vals.copy()
+
+
+def coo_to_csc(rows, cols, vals, ncols: int):
+    """COO -> CSC (reference: util.hpp:562-572, coo2csc = coo2csr on the
+    swapped ids): (col_ptr int64, row ids, vals), each column's entries
+    sorted by row."""
+    return coo_to_csr(cols, rows, vals, ncols)
+
+
+def write_mtx(path, rows, cols, vals, nrows, ncols, field="real",
+              symmetry="general", chunk: int = 1 << 22):
+    """Write COO (0-based ids) to a MatrixMarket coordinate file: the
+    banner, the size line, one 1-based entry a line (`field` "pattern":
+    ids only, `vals` unread; else "%d %d %.9g"), chunk entries at a time
+    through np.savetxt, so multi-GB files write at C-loop speed."""
+    rows = np.asarray(rows, np.int64)
+    cols = np.asarray(cols, np.int64)
+    m = len(rows)
+    with open(path, "wb") as f:
+        f.write(f"%%MatrixMarket matrix coordinate {field} {symmetry}\n"
+                .encode())
+        f.write(f"{nrows} {ncols} {m}\n".encode())
+        for s in range(0, m, chunk):
+            t = min(s + chunk, m)
+            if field == "pattern":
+                np.savetxt(f, np.column_stack([rows[s:t] + 1, cols[s:t] + 1]),
+                           fmt="%d %d")
+            else:
+                np.savetxt(
+                    f, np.column_stack([(rows[s:t] + 1).astype(np.float64),
+                                        (cols[s:t] + 1).astype(np.float64),
+                                        np.asarray(vals)[s:t]]),
+                    fmt="%d %d %.9g")

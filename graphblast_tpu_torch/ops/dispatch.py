@@ -303,41 +303,35 @@ def _finish_dense(y: torch.Tensor, identity, postprocess, with_vals: bool,
     return y, sind, sval, nv, True, True
 
 
-def _check_pull_plan(pull_plan, semiring: Semiring, structure_only: bool,
-                     dtype: torch.dtype, n_out: int, transpose: bool):
-    """Raises unless `pull_plan` (None or a plan) can run this pull."""
+def _plan_serves(pull_plan, semiring: Semiring, structure_only: bool,
+                 dtype: torch.dtype, n_out: int, transpose: bool) -> bool:
+    """Whether `pull_plan` runs this pull, as the JAX dispatch decides
+    (graphblast_tpu/ops/dispatch.py:251-296): a BitmapPlan the
+    structure-only LogicalOrAnd pull, a ValuePlan that pull (unit values
+    only) or the PlusMultiplies pull, a MonoidPlan a min/max semiring of
+    SEMIRING_MAP over a float32 frontier with values. Where it does not,
+    the pull falls through to `spmv_pull`. Raises for the or-pull over a
+    plan with stored values (JAX asserts) and for a plan of another size."""
+    if pull_plan is None:
+        return False
     or_pull = structure_only and semiring.name == "LogicalOrAnd"
     if isinstance(pull_plan, MonoidPlan):
-        missing = [why for why, bad in (
-            ("a pull that reads values (structure_only is set)",
-             structure_only),
-            (f"a semiring of SEMIRING_MAP ({semiring.name} is not)",
-             not monoid_supported(semiring)),
-            (f"a float32 frontier ({dtype} given)",
-             dtype != torch.float32)) if bad]
-        if missing:
-            raise NotImplementedError("the monoid pull needs "
-                                      + " and ".join(missing))
-    elif isinstance(pull_plan, ValuePlan):
-        if not (or_pull or (not structure_only
-                            and semiring.name == "PlusMultiplies")):
-            raise NotImplementedError(
-                f"the {semiring.name} pull over a value plan is not ported: "
-                "the min/max semirings run over a MonoidPlan "
-                "(plan_for_monoid, K4 of ROADMAP queue 2)")
-        if or_pull and not pull_plan.unit_vals:
+        serves = (not structure_only and monoid_supported(semiring)
+                  and dtype == torch.float32)
+    elif or_pull:
+        if isinstance(pull_plan, ValuePlan) and not pull_plan.unit_vals:
             # count>0 is the fused-or result only when every edge value is
             # 1: cancelling weights could sum to 0 for a reached vertex
             raise ValueError("the LogicalOrAnd pull needs a bitmap plan or a "
                              "unit-valued (ones=True) value plan")
-    elif pull_plan is not None and not (or_pull and isinstance(pull_plan,
-                                                               BitmapPlan)):
-        raise NotImplementedError(
-            f"the {semiring.name} pull over a {type(pull_plan).__name__} "
-            "is not ported; pass no plan for spmv_pull")
-    if pull_plan is not None and pull_plan.n_out != n_out:
+        serves = True
+    else:
+        serves = (isinstance(pull_plan, ValuePlan) and not structure_only
+                  and semiring.name == "PlusMultiplies")
+    if serves and pull_plan.n_out != n_out:
         raise ValueError(f"plan has {pull_plan.n_out} output rows, the "
                          f"{'vxm' if transpose else 'mxv'} pull needs {n_out}")
+    return serves
 
 
 def _pull(A: Matrix, fd: torch.Tensor, semiring: Semiring, n_out: int,
@@ -395,9 +389,11 @@ def mxv_dual(A: Matrix, f: DualFrontier, semiring: Semiring, identity, *,
     orientation: a BitmapPlan for the structure-only LogicalOrAnd pull, a
     ValuePlan for that pull (unit values only) or the PlusMultiplies pull,
     or a MonoidPlan for a min/max semiring of SEMIRING_MAP over a float32
-    frontier. `postprocess(y)` runs after the mask and before the count of
-    non-identity entries. PULLONLY keeps the sparse image stale (only push
-    reads it); a PUSHPULL pull rebuilds it, since the next call may push.
+    frontier; a plan that does not serve the pull is passed over for
+    `spmv_pull`, as in the JAX package. `postprocess(y)` runs after the
+    mask and before the count of non-identity entries. PULLONLY keeps the
+    sparse image stale (only push reads it); a PUSHPULL pull rebuilds it,
+    since the next call may push.
 
     Push reads the frontier's sparse image (which must hold no
     identity-valued entry, see DualFrontier.from_sparse) and ignores
@@ -439,9 +435,10 @@ def mxv_dual(A: Matrix, f: DualFrontier, semiring: Semiring, identity, *,
                      transpose, mask_dense=mask_dense, mask_scmp=mask_scmp,
                      structure_only=structure_only, pull_plan=pull_plan)
 
-    if mode != Direction.PUSHONLY:
-        _check_pull_plan(pull_plan, semiring, structure_only, f.dense.dtype,
-                         n_out, transpose)
+    if mode != Direction.PUSHONLY and not _plan_serves(
+            pull_plan, semiring, structure_only, f.dense.dtype, n_out,
+            transpose):
+        pull_plan = None
     carry = (f.sind, f.sval, f.snvals)
     if mode == Direction.PULLONLY:
         # pull-only loops skip re-sparsifying: only push reads sind/sval

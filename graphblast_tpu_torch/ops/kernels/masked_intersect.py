@@ -6,7 +6,9 @@ mj[e] (b_ptr, b_ind: B's rows when B is taken transposed, else its CSC).
      (triangle counting);
   T2 `masked_intersect_fold`: c[e] = ⊕_{k ∈ la ∩ lb} a_val[i,k] ⊗
      b_val[k,j], in a_val's dtype, with ⊕'s identity joined as below (the
-     masked mxm, the trace).
+     masked mxm, the trace). Where ⊕ is multiplies, greater, less or
+     not-equal-to (`ORDERED_ADDS`: not associative, or rounding), the
+     masked mxm's fold repeats the JAX join's order exactly (below).
 
 Replaces no Pallas kernel: the JAX package computes both as plain jnp
 (graphblast_tpu/ops/spgemm.py:159 _masked_count_chunk, :70
@@ -41,6 +43,22 @@ A's row holds an id B's lacks. Only min and max see it, since there the
 identity is not neutral: MaximumMonoid's is 0 (the reference's quirk), so
 a max of negative products is 0 exactly where a walked id missed.
 
+The ordered folds. The JAX join gives each mask edge one lane for each
+id of the list it expands (the shorter; B's only when strictly shorter,
+graphblast_tpu/ops/spgemm.py:247-330), in ascending order, holding the
+product where the other list holds the id and ⊕'s identity where it does
+not, and folds the lanes by a segmented Hillis–Steele scan
+(graphblast_tpu/ops/segops.py:35-62); an edge with no lane gets the
+identity, and where no edge of the mask has a lane the JAX plan is None
+and the result zeros (ops/spgemm.py keeps that rule). The kernel
+(`gb_masked_intersect_fold_ordered`, one warp an edge, no schedule)
+reproduces the scan's bracketing from the lane offsets alone (its source
+says how); the plain version builds the same lanes and runs
+`segops.segmented_scan` over them. Both flush a subnormal float32 value
+(each value read and each result of ⊗ and ⊕) to a zero of its sign, as
+the JAX package's XLA does on the CPU and the TPU: a long product of
+small values would otherwise end subnormal where JAX's ends at zero.
+
 The plain versions are independent of the kernel's walk: they always
 expand A's side and look each (j, k) up with `torch.searchsorted` on int64
 keys over B's lists, chunked so the expansion fits (`_chunk_lanes`); on
@@ -56,6 +74,7 @@ import functools
 import torch
 
 from ...types import INDEX_DTYPE
+from ..segops import segmented_scan
 from . import _build
 from .intersect_schedule import IntersectSchedule, build_intersect_schedule
 
@@ -65,26 +84,39 @@ _ERROR_SIG = ([ctypes.c_int], ctypes.c_char_p)
 _COUNT_SIG = ([ctypes.c_void_p] * 9, ctypes.c_int)
 _FOLD_SIG = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 3
              + [ctypes.c_uint, ctypes.c_int, ctypes.c_void_p], ctypes.c_int)
+_ORDERED_SIG = ([ctypes.c_void_p] * 8 + [ctypes.c_longlong, ctypes.c_void_p]
+                + [ctypes.c_int] * 3 + [ctypes.c_uint, ctypes.c_void_p],
+                ctypes.c_int)
 _SIGNATURES = {"gb_masked_intersect_count": _COUNT_SIG,
-               "gb_masked_intersect_fold": _FOLD_SIG, _ERROR: _ERROR_SIG}
+               "gb_masked_intersect_fold": _FOLD_SIG,
+               "gb_masked_intersect_fold_ordered": _ORDERED_SIG,
+               _ERROR: _ERROR_SIG}
 _LAUNCH_COUNT = _build.launcher(_LIBRARY, _SIGNATURES,
                                 "gb_masked_intersect_count", _ERROR)
 _LAUNCH_FOLD = _build.launcher(_LIBRARY, _SIGNATURES,
                                "gb_masked_intersect_fold", _ERROR)
+_LAUNCH_ORDERED = _build.launcher(_LIBRARY, _SIGNATURES,
+                                  "gb_masked_intersect_fold_ordered", _ERROR)
 
 # the kernel's codes for ⊕ (by monoid) and ⊗ (by operator name)
 _ADD_CODE = {"PlusMonoid": 0, "MinimumMonoid": 1, "MaximumMonoid": 2,
-             "LogicalOrMonoid": 3}
+             "LogicalOrMonoid": 3, "MultipliesMonoid": 4, "GreaterMonoid": 5,
+             "CustomLessMonoid": 6, "NotEqualToMonoid": 7}
 _MUL_CODE = {"plus": 0, "minus": 1, "multiplies": 2, "divides": 3,
              "greater": 4, "less": 5, "not_equal_to": 6, "select_second": 7,
              "logical_and": 8}
-# the catalogue's semirings whose ⊕ is plus, min, max or logical or: the
-# pairs csrc/masked_intersect.cu instantiates
+# the pairs csrc/masked_intersect.cu instantiates: the catalogue's
+# semirings whose ⊕ is plus, min, max or logical or, then those folded in
+# the JAX join's order
 FOLD_SEMIRINGS = ("LogicalOrAnd", "PlusMultiplies", "MinimumPlus",
                   "MaximumMultiplies", "PlusDivides", "PlusGreater",
                   "PlusMinus", "PlusLess", "MinimumMultiplies",
                   "MinimumSelectSecond", "PlusNotEqualTo",
-                  "MinimumNotEqualTo")
+                  "MinimumNotEqualTo", "GreaterPlus", "CustomLessPlus",
+                  "CustomLessLess", "NotEqualToPlus", "MultipliesMultiplies")
+# the ⊕ whose fold repeats the JAX join's lanes and bracketing
+ORDERED_ADDS = ("MultipliesMonoid", "GreaterMonoid", "CustomLessMonoid",
+                "NotEqualToMonoid")
 DTYPES = (torch.float32, torch.int32)
 # scatter_reduce's reduction for each ⊕ (logical or: max of the 0/1 truths)
 _REDUCE = {"PlusMonoid": "sum", "MinimumMonoid": "amin",
@@ -92,6 +124,8 @@ _REDUCE = {"PlusMonoid": "sum", "MinimumMonoid": "amin",
 # the ⊕ whose identity is not its neutral element
 _MIN_MAX = ("MinimumMonoid", "MaximumMonoid")
 
+# the least normal float32: the ordered folds flush values below it
+_TINY = float(torch.finfo(torch.float32).tiny)
 # the plain versions' expansion: at most this many lanes at once, fewer
 # where the card's free memory asks for it (about this many bytes a lane
 # in int64 temporaries)
@@ -99,12 +133,9 @@ PLAIN_CHUNK_LANES = 1 << 25
 _PLAIN_BYTES_A_LANE = 128
 
 
-def fold_supported(semiring, dtype: torch.dtype) -> bool:
-    """Whether T2 folds `semiring` on values of `dtype` (PlusDivides only
-    on float32: true division leaves int32)."""
-    return (semiring.name in FOLD_SEMIRINGS and dtype in DTYPES
-            and not (semiring.name == "PlusDivides"
-                     and dtype == torch.int32))
+def ordered(semiring) -> bool:
+    """Whether the fold of `semiring` repeats the JAX join's order."""
+    return semiring.add.name in ORDERED_ADDS
 
 
 @functools.lru_cache(maxsize=None)
@@ -145,15 +176,27 @@ def _check(mi, mj, a_ptr, a_ind, b_ptr, b_ind, a_val=None, b_val=None):
         raise ValueError("operands must be contiguous")
 
 
-def _check_fold(semiring, dtype=None):
-    """Raise NotImplementedError unless T2 folds `semiring` (on `dtype`,
-    where one is given: the plain versions take any dtype)."""
-    if semiring.name not in FOLD_SEMIRINGS or (
-            dtype is not None and not fold_supported(semiring, dtype)):
+def _check_fold(semiring, dtype: torch.dtype, trace: bool = False,
+                kernel: bool = True):
+    """Raise unless T2 folds `semiring` on `dtype` (the kernel on float32
+    and int32, the plain versions on any dtype the torch ops take).
+    PlusDivides on int32 raises TypeError, as the JAX spgemm_masked does
+    (its true division leaves int32); the trace of an ordered ⊕ raises
+    NotImplementedError: the JAX trace folds it in XLA's reduce order over
+    every stored entry, which no fixed order repeats."""
+    if semiring.name == "PlusDivides" and dtype == torch.int32:
+        raise TypeError("PlusDivides on int32: true division leaves int32, "
+                        "as in the JAX spgemm_masked")
+    if trace and ordered(semiring):
+        raise NotImplementedError(
+            f"no trace over {semiring.name}: the JAX trace folds "
+            f"{semiring.add.name} in XLA's reduce order")
+    if semiring.name not in FOLD_SEMIRINGS or (kernel and dtype not in
+                                               DTYPES):
         raise NotImplementedError(
             f"no masked fold for {semiring.name} on {dtype}: T2 folds "
             f"{list(FOLD_SEMIRINGS)} on float32 and int32 (PlusDivides on "
-            "float32); the rest is ROADMAP queue 1 item 11")
+            "float32)")
 
 
 def _chunk_lanes(device: torch.device) -> int:
@@ -161,6 +204,15 @@ def _chunk_lanes(device: torch.device) -> int:
         return PLAIN_CHUNK_LANES
     free, _ = torch.cuda.mem_get_info(device)
     return max(1 << 16, min(PLAIN_CHUNK_LANES, free // _PLAIN_BYTES_A_LANE))
+
+
+def _list_keys(ptr: torch.Tensor, ind: torch.Tensor) -> torch.Tensor:
+    """int64 keys (list id << 32 | id) of every stored id, ascending."""
+    nnz = int(ptr[-1])
+    owner = torch.repeat_interleave(
+        torch.arange(ptr.shape[0] - 1, device=ptr.device), ptr[1:] - ptr[:-1],
+        output_size=nnz)
+    return (owner << 32) | ind[:nnz].long()
 
 
 def _plain_matches(mi, mj, a_ptr, a_ind, b_ptr, b_ind):
@@ -173,10 +225,7 @@ def _plain_matches(mi, mj, a_ptr, a_ind, b_ptr, b_ind):
     nb = int(b_ptr[-1])
     if mi.shape[0] == 0 or nb == 0:
         return
-    owner = torch.repeat_interleave(
-        torch.arange(b_ptr.shape[0] - 1, device=dev), b_ptr[1:] - b_ptr[:-1],
-        output_size=nb)
-    b_keys = (owner << 32) | b_ind[:nb].long()
+    b_keys = _list_keys(b_ptr, b_ind)
     a_start = a_ptr[mi64]
     deg = a_ptr[mi64 + 1] - a_start
     ends = torch.cumsum(deg, 0)
@@ -203,6 +252,94 @@ def _plain_matches(mi, mj, a_ptr, a_ind, b_ptr, b_ind):
         s = t
 
 
+def _lookup(keys: torch.Tensor, q: torch.Tensor):
+    """(position, found) of each query key q among the sorted keys."""
+    if keys.shape[0] == 0:
+        return torch.zeros_like(q), torch.zeros_like(q, dtype=torch.bool)
+    hit = torch.searchsorted(keys, q).clamp_(max=keys.shape[0] - 1)
+    return hit, keys[hit] == q
+
+
+def _flush(t: torch.Tensor) -> torch.Tensor:
+    """Subnormal float32 values to a zero of their sign (other dtypes as
+    they are)."""
+    if t.dtype != torch.float32:
+        return t
+    return torch.where(t.abs() < _TINY, torch.zeros_like(t).copysign(t), t)
+
+
+class _Flushed:
+    """A monoid whose results are flushed (`_flush`), for segmented_scan."""
+
+    def __init__(self, monoid):
+        self.monoid, self.name = monoid, monoid.name
+
+    def __call__(self, a, b):
+        return _flush(self.monoid(a, b))
+
+    def identity(self, dtype):
+        return self.monoid.identity(dtype)
+
+
+def _ordered_fold_plain(mi, mj, a_ptr, a_ind, a_val, b_ptr, b_ind, b_val,
+                        semiring) -> torch.Tensor:
+    """The JAX join's fold (module docstring): each edge's lanes over the
+    list it expands, the product or the identity, through
+    segops.segmented_scan, one chunk of whole edges at a time."""
+    dev, dtype, m = mi.device, a_val.dtype, mi.shape[0]
+    ident = semiring.identity(dtype).item()
+    c = torch.full((m,), ident, dtype=dtype, device=dev)
+    if m == 0:
+        return c
+    a_ptr, b_ptr = a_ptr.long(), b_ptr.long()
+    mi64, mj64 = mi.long(), mj.long()
+    len_a = a_ptr[mi64 + 1] - a_ptr[mi64]
+    len_b = b_ptr[mj64 + 1] - b_ptr[mj64]
+    side_b = len_b < len_a                 # B's only when strictly shorter
+    walk = torch.where(side_b, len_b, len_a)
+    start = torch.where(side_b, b_ptr[mj64], a_ptr[mi64])
+    a_keys, b_keys = _list_keys(a_ptr, a_ind), _list_keys(b_ptr, b_ind)
+    ends = torch.cumsum(walk, 0)
+    ends_host = ends.cpu()
+    cap = _chunk_lanes(dev)
+    s = 0
+    while s < m:
+        base = int(ends_host[s - 1]) if s else 0
+        t = int(torch.searchsorted(ends_host, base + cap, right=True))
+        t = min(max(t, s + 1), m)
+        lanes = int(ends_host[t - 1]) - base
+        if lanes:
+            d = walk[s:t]
+            local = torch.repeat_interleave(torch.arange(t - s, device=dev),
+                                            d, output_size=lanes)
+            edge = local + s
+            first = ends[s:t] - d - base       # each edge's first lane
+            pos = start[edge] + torch.arange(lanes, device=dev) \
+                - first[local]
+            sb = side_b[edge]
+            ids = torch.empty(lanes, dtype=torch.int64, device=dev)
+            ids[~sb] = a_ind[pos[~sb]].long()
+            ids[sb] = b_ind[pos[sb]].long()
+            # look each walked id up in the other side's list
+            a_pos, b_pos = pos.clone(), pos.clone()
+            hit_b, in_b = _lookup(b_keys, (mj64[edge] << 32) | ids)
+            hit_a, in_a = _lookup(a_keys, (mi64[edge] << 32) | ids)
+            b_pos[~sb], a_pos[sb] = hit_b[~sb], hit_a[sb]
+            found = torch.where(sb, in_a, in_b)
+            lane = torch.full((lanes,), ident, dtype=dtype, device=dev)
+            lane[found] = _flush(semiring.mul(
+                _flush(a_val[a_pos[found]]),
+                _flush(b_val[b_pos[found]])).to(dtype))
+            heads = torch.zeros(lanes, dtype=torch.bool, device=dev)
+            nonempty = d > 0
+            heads[first[nonempty]] = True
+            scanned = segmented_scan(lane, heads, _Flushed(semiring.add))
+            tails = (first + d - 1)[nonempty]
+            c[s + torch.nonzero(nonempty).flatten()] = scanned[tails]
+        s = t
+    return c
+
+
 def masked_intersect_count_plain(mi, mj, a_ptr, a_ind, b_ptr, b_ind) -> int:
     """Plain PyTorch version of T1."""
     _check(mi, mj, a_ptr, a_ind, b_ptr, b_ind)
@@ -218,10 +355,13 @@ def masked_intersect_fold_plain(mi, mj, a_ptr, a_ind, a_val, b_ptr, b_ind,
     scatter-reduced into ⊕'s neutral element; then ⊕ the identity where
     the module's rule joins it (`trace`: the trace's rule)."""
     _check(mi, mj, a_ptr, a_ind, b_ptr, b_ind, a_val, b_val)
-    _check_fold(semiring)
-    add = semiring.add.name
     dtype = a_val.dtype
+    _check_fold(semiring, dtype, trace, kernel=False)
     b_val = b_val.to(dtype)
+    if ordered(semiring):
+        return _ordered_fold_plain(mi, mj, a_ptr, a_ind, a_val, b_ptr, b_ind,
+                                   b_val, semiring)
+    add = semiring.add.name
     m = mi.shape[0]
     c = torch.full((m,), _neutral(add, dtype), dtype=dtype, device=mi.device)
     hits = torch.zeros(m, dtype=torch.int64, device=mi.device)
@@ -298,7 +438,9 @@ def masked_intersect_fold(mi, mj, a_ptr, a_ind, a_val, b_ptr, b_ind, b_val,
     docstring); (m,) of a_val's dtype; b_val is cast to it. CPU tensors run
     the plain version; CUDA tensors launch the kernel on the current
     stream over `sched` (built for the fold here when None), or raise
-    (NotImplementedError for a semiring or dtype it does not fold)."""
+    (NotImplementedError for a semiring or dtype it does not fold). An
+    ordered ⊕ launches the ordered fold, which reads no schedule, and
+    counts in `.ordered_launches` in place of `.launches`."""
     if mi.device.type == "cpu":
         return masked_intersect_fold_plain(mi, mj, a_ptr, a_ind, a_val,
                                            b_ptr, b_ind, b_val, semiring,
@@ -307,12 +449,22 @@ def masked_intersect_fold(mi, mj, a_ptr, a_ind, a_val, b_ptr, b_ind, b_val,
     if mi.device.type != "cuda":
         raise ValueError(f"no masked intersection for device {mi.device}")
     dtype = a_val.dtype
-    _check_fold(semiring, dtype)
+    _check_fold(semiring, dtype, trace)
     if b_val.dtype != dtype:
         b_val = b_val.to(dtype)
     m = mi.shape[0]
     c = torch.empty(m, dtype=dtype, device=mi.device)
     if m == 0:
+        return c
+    if ordered(semiring):
+        _LAUNCH_ORDERED(mi.get_device(), mi.data_ptr(), mj.data_ptr(),
+                        a_ptr.data_ptr(), a_ind.data_ptr(), a_val.data_ptr(),
+                        b_ptr.data_ptr(), b_ind.data_ptr(), b_val.data_ptr(),
+                        m, c.data_ptr(), _ADD_CODE[semiring.add.name],
+                        _MUL_CODE[semiring.mul.name],
+                        int(dtype == torch.float32),
+                        _identity_bits(semiring, dtype))
+        masked_intersect_fold.ordered_launches += 1
         return c
     sched = _schedule(mi, mj, a_ptr, a_ind, b_ptr, b_ind, sched, True)
     _LAUNCH_FOLD(mi.get_device(), mi.data_ptr(), mj.data_ptr(),
@@ -327,5 +479,6 @@ def masked_intersect_fold(mi, mj, a_ptr, a_ind, a_val, b_ptr, b_ind, b_val,
 
 masked_intersect_count.launches = 0
 masked_intersect_fold.launches = 0
+masked_intersect_fold.ordered_launches = 0
 masked_intersect_count.routes = {"bitmap": 0, "search": 0}
 masked_intersect_fold.routes = {"bitmap": 0, "search": 0}

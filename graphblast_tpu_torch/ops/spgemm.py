@@ -52,7 +52,7 @@ from .kernels.intersect_schedule import (IntersectSchedule,
 from .kernels.masked_intersect import (masked_intersect_count,
                                        masked_intersect_count_plain,
                                        masked_intersect_fold,
-                                       masked_intersect_fold_plain)
+                                       masked_intersect_fold_plain, ordered)
 from .segops import reduce_dim, segmented_scan
 from .spmspv import expand_lanes
 
@@ -147,11 +147,24 @@ def spgemm_masked_count_plain(A: Matrix, B: Matrix, M: Matrix,
         *_count_args(_operands(A, B, M, transpose_b)))
 
 
-def _masked_result(M: Matrix, c: torch.Tensor) -> Matrix:
+def _walks_nothing(ops: tuple) -> torch.Tensor:
+    """A 0-d bool tensor, on the operands' device (no host read): whether
+    no mask edge walks a lane, the walked list being the shorter (B's only
+    when strictly shorter). The JAX plan is None there and its result
+    zeros (graphblast_tpu/ops/spgemm.py:322-323, 447-453)."""
+    mi, mj, a_ptr, _, _, b_ptr, _, _ = ops
+    mi64, mj64 = mi.long(), mj.long()
+    len_a = a_ptr[mi64 + 1] - a_ptr[mi64]
+    len_b = b_ptr[mj64 + 1] - b_ptr[mj64]
+    return torch.minimum(len_a, len_b).sum() == 0
+
+
+def _masked_result(M: Matrix, c: torch.Tensor, ops: tuple) -> Matrix:
     """C with M's sparsity (reference spgemm.hpp:85-87, C.dup(mask)), its
-    values padded with zeros as every Matrix's are; CSR only."""
+    values padded with zeros as every Matrix's are; CSR only. All zeros
+    where no mask edge walks a lane, as in the JAX package."""
     val = torch.zeros(M.nnz_pad, dtype=c.dtype, device=c.device)
-    val[: M.nvals] = c
+    val[: M.nvals] = torch.where(_walks_nothing(ops), 0, c)
     return Matrix(M.nrows, M.ncols, M.nvals, M.row_ptr, M.col_ind,
                   M.row_ind, val, None, None, None, None,
                   format=SparseFormat.CSRONLY, symmetric=False)
@@ -162,18 +175,23 @@ def spgemm_masked(A: Matrix, B: Matrix, M: Matrix, semiring: Semiring,
     """C = (A ⊕.⊗ B, or A ⊕.⊗ Bᵀ) on the structure of M, in A's dtype: one
     T2 launch. ⊕'s identity joins an entry where its lists share fewer ids
     than the shorter holds, as in the JAX package's join, so an entry whose
-    lists share no id holds the identity. Needs A's CSR, M's CSR and B's
-    CSC (its CSR when transpose_b)."""
+    lists share no id holds the identity; an ordered ⊕ (multiplies, the
+    comparisons) folds the JAX join's lanes in its order. Where no mask
+    edge walks a lane, C is zeros, as the JAX package's. Needs A's CSR,
+    M's CSR and B's CSC (its CSR when transpose_b)."""
     ops = _operands(A, B, M, transpose_b)
-    return _masked_result(M, masked_intersect_fold(
-        *ops, semiring, sched=schedule_for(M, ops, A.ncols, True)))
+    sched = (None if ordered(semiring)    # the ordered fold reads none
+             else schedule_for(M, ops, A.ncols, True))
+    return _masked_result(M, masked_intersect_fold(*ops, semiring,
+                                                   sched=sched), ops)
 
 
 def spgemm_masked_plain(A: Matrix, B: Matrix, M: Matrix, semiring: Semiring,
                         transpose_b: bool = False) -> Matrix:
     """Plain PyTorch version of `spgemm_masked`."""
-    return _masked_result(M, masked_intersect_fold_plain(
-        *_operands(A, B, M, transpose_b), semiring))
+    ops = _operands(A, B, M, transpose_b)
+    return _masked_result(M, masked_intersect_fold_plain(*ops, semiring),
+                          ops)
 
 
 def _diagonal_operands(A: Matrix, B: Matrix) -> tuple:

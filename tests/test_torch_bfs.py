@@ -131,8 +131,8 @@ def test_bfs_max_niter_stops_the_loop(graphs):
 
 def test_push_modes_run(graphs):
     """PUSHPULL (BFS_TUNED's default) runs and gives the JAX PUSHPULL bfs's
-    levels and the golden in both modes, as PUSHONLY does; an unknown mode
-    raises."""
+    levels and the golden in both modes, as PUSHONLY does; any other mode
+    runs stepped, as the JAX package's does."""
     J, T = graphs["chesapeake"]
     want = np.asarray(jax_bfs(J, 0, jgb.BFS_TUNED).to_numpy())
     np.testing.assert_array_equal(want, bfs_cpu(T, 0))
@@ -142,8 +142,9 @@ def test_push_modes_run(graphs):
             bfs(T, 0, tgb.BFS_TUNED, mode=mode).to_numpy(), want)
         np.testing.assert_array_equal(bfs(T, 0, push, mode=mode).to_numpy(),
                                       bfs_cpu(T, 0))
-    with pytest.raises(ValueError):
-        bfs(T, 0, PULL, mode="async")
+    np.testing.assert_array_equal(
+        bfs(T, 0, PULL, mode="async").to_numpy(),
+        np.asarray(jax_bfs(J, 0, JAX_PULL, mode="async").to_numpy()))
 
 
 def test_pull_without_a_plan_matches_the_plan_and_pushpull_runs(graphs):

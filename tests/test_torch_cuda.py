@@ -4,6 +4,7 @@ They skip where torch.cuda.is_available() is False. On a machine with a
 card:  python -m pytest tests/test_torch_cuda.py -q
 """
 import dataclasses
+import itertools
 
 import numpy as np
 import pytest
@@ -21,9 +22,11 @@ from graphblast_tpu_torch.ops.kernels import orpull as ko
 from graphblast_tpu_torch.ops.kernels import row_schedule as rs
 from graphblast_tpu_torch.ops.kernels import value_pull as vp
 
-from test_torch_intersect_replay import (ROUTINGS, SEMIRING_DTYPES,
-                                         _ids_bound, fuzz_matrices,
-                                         nested_coo, replay_ops)
+from test_torch_intersect_replay import (ORDERED_DTYPES, ROUTINGS,
+                                         SEMIRING_DTYPES, _ids_bound,
+                                         _long_lists_coo, _sr,
+                                         fuzz_matrices, nested_coo,
+                                         replay_ordered, replay_ops)
 
 pytestmark = pytest.mark.cuda
 
@@ -844,19 +847,39 @@ def test_masked_intersect_past_the_budget_on_the_card(cuda):
 
 
 def test_masked_fold_refuses_on_the_card(cuda):
-    """A semiring or dtype T2 does not fold raises on the card; nothing
-    falls back to the plain version."""
+    """The ordered folds (GreaterPlus, CustomLessPlus, CustomLessLess,
+    NotEqualToPlus, MultipliesMultiplies) on float32 and int32 launch the
+    ordered kernel, bitwise equal to their plain version and the Python
+    replay, with nothing falling back to the plain version; a dtype T2
+    does not fold raises, and PlusDivides on int32 raises TypeError, as
+    the JAX spgemm_masked does."""
+    for (name, dtype), transpose_b, long_lists in itertools.product(
+            ORDERED_DTYPES, (False, True), (False, True)):
+        if long_lists:   # several 32-lane rounds and a partial one
+            _, (A, B, M) = fuzz_matrices(0, dtype, device=cuda,
+                                         make=_long_lists_coo,
+                                         transpose_b=transpose_b)
+        else:            # hub rows: both sides walked
+            _, (A, B, M) = fuzz_matrices(1, dtype, device=cuda)
+        ops = sg._operands(A, B, M, transpose_b)
+        before = (mx.masked_intersect_fold.launches,
+                  mx.masked_intersect_fold.ordered_launches)
+        got = mx.masked_intersect_fold(*ops, _sr(name))
+        assert (mx.masked_intersect_fold.launches,
+                mx.masked_intersect_fold.ordered_launches) == (
+                    before[0], before[1] + 1)
+        want = mx.masked_intersect_fold_plain(*ops, _sr(name))
+        assert got.cpu().numpy().tobytes() == want.cpu().numpy().tobytes()
+        with np.errstate(all="ignore"):
+            replay = replay_ordered(_on_cpu(ops), name, dtype)
+        assert got.cpu().numpy().tobytes() == replay.tobytes()
     _, (A, B, M) = fuzz_matrices(1, device=cuda)
     ops = sg._operands(A, B, M, True)
-    for sr in (tgb.semiring.GreaterPlusSemiring,
-               tgb.semiring.MultipliesMultipliesSemiring):
-        with pytest.raises(NotImplementedError, match="queue 1 item 11"):
-            mx.masked_intersect_fold(*ops, sr)
     d_ops = ops[:4] + (ops[4].double(),) + ops[5:]
     with pytest.raises(NotImplementedError):
         mx.masked_intersect_fold(*d_ops, tgb.PlusMultipliesSemiring)
     i_ops = ops[:4] + (ops[4].int(),) + ops[5:]
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError):
         mx.masked_intersect_fold(*i_ops, tgb.semiring.PlusDividesSemiring)
 
 

@@ -158,6 +158,10 @@ def _np_ops(name, dtype):
         "MinimumMonoid": lambda a, b: a if (a != a or a < b) else b,
         "MaximumMonoid": lambda a, b: a if (a != a or a > b) else b,
         "LogicalOrMonoid": lambda a, b: one if (a != 0 or b != 0) else zero,
+        "MultipliesMonoid": muls["multiplies"],
+        "GreaterMonoid": muls["greater"],
+        "CustomLessMonoid": muls["less"],
+        "NotEqualToMonoid": muls["not_equal_to"],
     }
     return adds[sr.add.name], muls[sr.mul.name], f(ident)
 
@@ -278,9 +282,85 @@ def _replay(ops, add=None, mul=None, ident=None, neutral=None,
     return count, c, sides, set(routes)
 
 
+# the folds over the intersection schedule, and the ordered ones
 SEMIRING_DTYPES = [(name, dt) for name in mx.FOLD_SEMIRINGS
                    for dt in (np.float32, np.int32)
-                   if not (name == "PlusDivides" and dt == np.int32)]
+                   if not (name == "PlusDivides" and dt == np.int32)
+                   and not mx.ordered(_sr(name))]
+ORDERED_DTYPES = [(name, dt) for name in mx.FOLD_SEMIRINGS
+                  for dt in (np.float32, np.int32) if mx.ordered(_sr(name))]
+
+
+def replay_ordered(ops, name, dtype):
+    """The ordered fold of csrc/masked_intersect.cu replayed in Python: for
+    each mask edge, its walked list (B's only when strictly shorter) from
+    the end, 32 lanes a round, each round's lanes folded by the shuffle
+    tree (the lane at the larger offset on the left), the trees kept on a
+    stack that merges two of one size (the later one on the left); the
+    lanes left over pushed one by one; then lane 0's first lane folds the
+    stack from its top; every float32 value read and result flushed to a
+    zero of its sign where subnormal. Returns the values, a NumPy array of
+    dtype."""
+    add0, mul0, ident = _np_ops(name, dtype)
+    tiny = np.finfo(np.float32).tiny
+
+    def flush(x):
+        if dtype == np.float32 and abs(x) < tiny:
+            return np.float32(np.copysign(0.0, x))
+        return x
+
+    def add(x, y):
+        return flush(add0(x, y))
+
+    def mul(x, y):
+        return flush(mul0(flush(x), flush(y)))
+
+    mi, mj, a_ptr, a_ind, a_val, b_ptr, b_ind, b_val = [t.tolist()
+                                                        for t in ops]
+    cast = type(ident)
+    a_val, b_val = [cast(v) for v in a_val], [cast(v) for v in b_val]
+    out = []
+    for i, j in zip(mi, mj):
+        a0, a1, b0, b1 = a_ptr[i], a_ptr[i + 1], b_ptr[j], b_ptr[j + 1]
+        walk_a = not (b1 - b0 < a1 - a0)
+        w, w0, n = (a_ind, a0, a1 - a0) if walk_a else (b_ind, b0, b1 - b0)
+        o, o0, o1 = (b_ind, b0, b1) if walk_a else (a_ind, a0, a1)
+
+        def lane(t):
+            key = w[w0 + t]
+            p = bisect.bisect_left(o, key, o0, o1)
+            if p == o1 or o[p] != key:
+                return ident
+            return (mul(a_val[w0 + t], b_val[p]) if walk_a
+                    else mul(a_val[p], b_val[w0 + t]))
+
+        if n == 0:
+            out.append(ident)
+            continue
+        stack = []
+
+        def push(v, size):
+            stack.append((v, size))
+            while len(stack) > 1 and stack[-1][1] == stack[-2][1]:
+                (later, k), (earlier, _) = stack.pop(), stack.pop()
+                stack.append((add(later, earlier), 2 * k))
+
+        rest = n - 1
+        for r in range(rest // 32):
+            v = [lane(n - 1 - (32 * r + x)) for x in range(32)]
+            d = 1
+            while d < 32:
+                v = [add(v[x + d], v[x]) if x % (2 * d) == 0 else v[x]
+                     for x in range(32 - d)] + v[32 - d:]
+                d *= 2
+            push(v[0], 32)
+        for x in range(rest % 32):
+            push(lane(n - 1 - (32 * (rest // 32) + x)), 1)
+        acc = lane(0)
+        while stack:
+            acc = add(acc, stack.pop()[0])
+        out.append(acc)
+    return np.array(out, dtype=dtype)
 
 
 def replay_ops(ops, name, dtype, trace=False, budget=isch.SMEM_BUDGET,
@@ -401,3 +481,70 @@ def test_max_identity_joins_only_on_a_miss():
         _, got, _, _ = replay_ops(ops, "MaximumMultiplies", np.float32,
                                   budget=budget, all_bitmap=all_bitmap)
         assert got.tolist() == want
+
+
+def _long_lists_coo(seed, dtype=np.float32, transpose_b=True):
+    """n and the COO of A, B and M where A's rows and B's lists (its rows
+    when transpose_b, else its columns) hold 70-200 ids
+    (several 32-lane rounds of the ordered fold and a partial one), with
+    values of both signs, half of B's ids shared with A's order."""
+    rng = np.random.default_rng(1200 + seed)
+    n = 256
+    order = rng.permutation(n)
+
+    def lists(k):
+        rows, cols = [], []
+        for r in range(k):
+            m = int(rng.integers(70, 200))
+            c = (order[:m] if rng.random() < 0.5
+                 else rng.choice(n, m, replace=False))
+            rows.append(np.full(m, r))
+            cols.append(np.sort(c))
+        return np.concatenate(rows), np.concatenate(cols)
+
+    def vals(m):
+        if dtype == np.int32:
+            return rng.integers(-5, 6, m).astype(np.int32)
+        return (rng.random(m) * 2.5 - 1.0).astype(np.float32)
+
+    ar, ac = lists(12)
+    br, bc = lists(12)
+    if not transpose_b:         # B's lists are its columns
+        br, bc = bc, br
+    mr = rng.integers(0, 12, 60)
+    mc = rng.integers(0, 12, 60)
+    key = np.unique(mr * n + mc)
+    mr, mc = key // n, key % n
+    return n, [(ar, ac, vals(len(ar))), (br, bc, vals(len(br))),
+               (mr, mc, np.ones(len(mr), dtype))]
+
+
+@pytest.mark.parametrize("transpose_b", [False, True])
+@pytest.mark.parametrize("make", ["fuzz", "nested", "long"])
+@pytest.mark.parametrize("name,dtype", ORDERED_DTYPES)
+def test_replay_of_the_ordered_fold_equals_plain(name, dtype, make,
+                                                 transpose_b):
+    """The ordered fold's rounds, shuffle trees and stack, replayed, equal
+    the plain version (the JAX join's lanes through segops.segmented_scan)
+    bitwise, on the fuzz lists (hub rows: both sides walked), the nested
+    lists (walked lists matched in full, empty lists) and long lists
+    (several rounds and a partial one)."""
+    if make == "fuzz":
+        _, (A, B, M) = fuzz_matrices(4, dtype)
+    elif make == "nested":
+        _, (A, B, M) = fuzz_matrices(3, dtype, make=nested_coo,
+                                     transpose_b=transpose_b)
+    else:
+        _, (A, B, M) = fuzz_matrices(0, dtype, make=_long_lists_coo,
+                                     transpose_b=transpose_b)
+    ops = sp._operands(A, B, M, transpose_b)
+    want = mx.masked_intersect_fold_plain(*ops, _sr(name)).numpy()
+    with np.errstate(all="ignore"):
+        got = replay_ordered(ops, name, dtype)
+    assert got.tobytes() == want.tobytes()
+    mi, mj, a_ptr, _, _, b_ptr, _, _ = ops
+    len_a = (a_ptr[mi.long() + 1] - a_ptr[mi.long()])
+    len_b = (b_ptr[mj.long() + 1] - b_ptr[mj.long()])
+    assert bool((len_b < len_a).any()) and bool((len_b >= len_a).any())
+    if make == "long":
+        assert int(torch.minimum(len_a, len_b).max()) > 64

@@ -23,6 +23,7 @@ from graphblast_tpu_torch.algorithms import pr, pr_cpu, prepare_pr_matrix
 from graphblast_tpu_torch.ops.kernels import value_pull as vp
 
 DATA = os.path.join(os.path.dirname(__file__), "..", "data", "small")
+MAXF32 = float(np.finfo(np.float32).max)
 LEAVES = ("row_ptr", "col_ind", "row_ind", "val", "col_ptr", "csc_row_ind",
           "csc_col_ind", "csc_val")
 
@@ -223,22 +224,48 @@ def test_mxv_dual_or_pull_over_ones_plan_matches_jax(graphs, transpose,
 
 
 def test_mxv_dual_value_plan_refuses_other_pulls(graphs):
-    """An or-pull over a plan with stored values (JAX asserts), and a
-    semiring no ported kernel computes, raise instead of running."""
+    """An or-pull over a plan with stored values raises (JAX asserts); a
+    semiring the value plan does not serve falls through to spmv_pull, as
+    the JAX dispatch does, and equals the JAX pull over its own plan."""
+    from graphblast_tpu.ops.dispatch import DualFrontier as JFrontier
+    from graphblast_tpu.ops.dispatch import mxv_dual as jmxv
+    from graphblast_tpu.ops.pallas.bilinear import plan_for as jplan_for
     from graphblast_tpu_torch.ops.dispatch import DualFrontier, mxv_dual
 
-    _, T = graphs["weighted"]
+    J, T = graphs["weighted"]
     f = DualFrontier.from_dense(torch.ones(T.nrows), 0.0)
     plan = vp.plan_for(T, transpose=True)
     pull = dict(transpose=True, mode=tgb.Direction.PULLONLY, pull_plan=plan)
     with pytest.raises(ValueError, match="ones=True"):
         mxv_dual(T, f, tgb.LogicalOrAndSemiring, 0.0, structure_only=True,
                  **pull)
-    with pytest.raises(NotImplementedError, match="queue 2"):
-        mxv_dual(T, f, tgb.semiring.MinimumPlusSemiring, 0.0, **pull)
-    with pytest.raises(NotImplementedError, match="queue 2"):
-        mxv_dual(T, f, tgb.PlusMultipliesSemiring, 0.0, structure_only=True,
-                 **pull)
+    jplan = jplan_for(J, transpose=True)
+    assert jplan is not None
+    x = np.random.default_rng(24).random(T.nrows).astype(np.float32)
+    for name, ident, struct in (("MinimumPlus", MAXF32, False),
+                                ("PlusMultiplies", 0.0, True)):
+        jf, _ = jmxv(J, JFrontier.from_dense(jnp.asarray(x), ident),
+                     getattr(jgb.semiring, f"{name}Semiring"), ident,
+                     transpose=True, mode=jgb.Direction.PULLONLY,
+                     structure_only=struct, pull_plan=jplan)
+        tf, used_push = mxv_dual(
+            T, DualFrontier.from_dense(torch.from_numpy(x), float(ident)),
+            getattr(tgb.semiring, f"{name}Semiring"), float(ident),
+            structure_only=struct, **pull)
+        want, got = np.asarray(jf.dense), tf.dense.numpy()
+        assert not used_push
+        assert int(tf.snvals) == int(jf.snvals) > 0
+        if not struct:
+            np.testing.assert_array_equal(got, want)
+            continue
+        # JAX's float32 prefix-sum differences stray from the sums: the
+        # port within 1e-5·max|y| of a float64 golden (spmv_pull reads the
+        # values: structure_only changes only the LogicalOrAnd pull), and
+        # of JAX within JAX's own distance from it
+        gold = T.to_scipy().T.astype(np.float64) @ x.astype(np.float64)
+        bar = 1e-5 * np.abs(gold).max()
+        assert np.abs(got - gold).max() <= bar
+        assert np.abs(got - want).max() <= bar + np.abs(want - gold).max()
 
 
 # ------------------------------------------------------------ PageRank
@@ -356,9 +383,10 @@ def test_pr_stepped_prints_the_reference_rows(graphs, capsys):
 
 
 def test_pr_refuses_what_is_not_ported(graphs):
-    _, T = graphs["test_pr"]
-    with pytest.raises(ValueError):
-        pr(T, mode="async")
+    J, T = graphs["test_pr"]
+    np.testing.assert_allclose(pr(T, mode="async").to_numpy(),
+                               np.asarray(jax_pr(J, mode="async").to_numpy()),
+                               rtol=1e-3, atol=1e-6)
     rows, cols, vals, n = _directed(weighted=False)
     C = tgb.Matrix.from_coo(rows, cols, vals, n, n,
                             fmt=tgb.SparseFormat.CSRONLY, device="cpu")

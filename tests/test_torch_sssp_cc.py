@@ -177,8 +177,8 @@ def test_sssp_stepped_prints_the_reference_rows(graphs, capsys):
 
 def test_sssp_push_modes_run(graphs):
     """The default descriptor's PUSHPULL runs and gives the JAX PUSHPULL
-    sssp's distances and the golden in both modes, as PUSHONLY does; an
-    unknown mode raises."""
+    sssp's distances and the golden in both modes, as PUSHONLY does; any
+    other mode runs stepped, as the JAX package's does."""
     J, T = graphs["chesapeake"]
     want = np.asarray(jax_sssp(J, 0).to_numpy())
     np.testing.assert_array_equal(want, sssp_cpu(T, 0))
@@ -188,8 +188,9 @@ def test_sssp_push_modes_run(graphs):
             sssp(T, 0, tgb.DEFAULT, mode=mode).to_numpy(), want)
         np.testing.assert_array_equal(sssp(T, 0, push, mode=mode).to_numpy(),
                                       sssp_cpu(T, 0))
-    with pytest.raises(ValueError):
-        sssp(T, 0, PULL, mode="async")
+    np.testing.assert_array_equal(
+        sssp(T, 0, PULL, mode="async").to_numpy(),
+        np.asarray(jax_sssp(J, 0, JAX_PULL, mode="async").to_numpy()))
 
 
 # -------------------------------------------------------------------- CC
@@ -261,15 +262,17 @@ def test_cc_stepped_prints_the_reference_rows(graphs, capsys):
 
 def test_cc_refuses_csc_only_and_unknown_mode(graphs):
     """A CSC-only matrix raises: cc pulls over the CSR, and the JAX package
-    has no route for it either; an unknown mode raises. (At n >= 2^24 cc
-    takes the plan-less spmv_pull, held in tests/test_torch_mis_gc.py.)"""
-    _, T = graphs["test_cc"]
+    has no route for it either; any mode but "fused" runs stepped, as the
+    JAX package's does. (At n >= 2^24 cc takes the plan-less spmv_pull,
+    held in tests/test_torch_mis_gc.py.)"""
+    J, T = graphs["test_cc"]
     with pytest.raises(NotImplementedError,
                        match="no route for a CSC-only matrix"):
         cc(dataclasses.replace(T, row_ptr=None, col_ind=None, row_ind=None,
                                val=None))
-    with pytest.raises(ValueError):
-        cc(T, mode="async")
+    np.testing.assert_array_equal(
+        cc(T, mode="async").to_numpy(),
+        np.asarray(jax_cc(J, mode="async").to_numpy()))
 
 
 # -------------------------------------------------------------- mxv_dual
@@ -340,23 +343,70 @@ def test_mxv_dual_postprocess_follows_the_mask(graphs):
 
 def test_mxv_dual_monoid_plan_refuses_other_pulls(graphs):
     """Over a monoid plan, anything but a SEMIRING_MAP semiring on a float32
-    frontier with values raises NotImplementedError naming what is
-    missing."""
+    frontier with values falls through to spmv_pull, as the JAX dispatch
+    does, and equals the JAX pull over its own monoid plan; a plan of
+    another size raises."""
+    from graphblast_tpu.ops.dispatch import DualFrontier as JFrontier
+    from graphblast_tpu.ops.dispatch import mxv_dual as jmxv
+    from graphblast_tpu.ops.pallas.monopull import (plan_for_monoid as
+                                                    jplan_for_monoid)
     from graphblast_tpu_torch.ops.dispatch import DualFrontier, mxv_dual
 
-    _, T = graphs["weighted"]
+    J, T = graphs["weighted"]
     plan = mp.plan_for_monoid(T, transpose=True)
     pull = dict(transpose=True, mode=tgb.Direction.PULLONLY, pull_plan=plan)
-    f64 = DualFrontier.from_dense(torch.zeros(T.nrows, dtype=torch.float64),
-                                  float(MAXF))
-    with pytest.raises(NotImplementedError, match="float32 frontier"):
-        mxv_dual(T, f64, tgb.MinimumPlusSemiring, float(MAXF), **pull)
+    jplan = jplan_for_monoid(J, transpose=True)
+    assert jplan is not None
+    # finite: FLT_MAX + a weight stays FLT_MAX only in float32
+    x = (np.random.default_rng(25).random(T.nrows) * 5).astype(np.float32)
+    for name, ident, struct, dtype in (
+            ("MinimumPlus", MAXF, False, np.float64),   # not float32
+            ("PlusMultiplies", 0.0, False, np.float32),  # not SEMIRING_MAP
+            ("MinimumPlus", MAXF, True, np.float32)):    # structure only
+        jf, _ = jmxv(J, JFrontier.from_dense(jnp.asarray(x), ident),
+                     getattr(jgb.semiring, f"{name}Semiring"), ident,
+                     transpose=True, mode=jgb.Direction.PULLONLY,
+                     structure_only=struct, pull_plan=jplan)
+        # the identity in the frontier's dtype (the Minimum monoid's is its
+        # largest value)
+        tident = float(np.finfo(dtype).max) if ident else 0.0
+        tf, used_push = mxv_dual(
+            T, DualFrontier.from_dense(torch.from_numpy(x.astype(dtype)),
+                                       tident),
+            getattr(tgb.semiring, f"{name}Semiring"), tident,
+            structure_only=struct, **pull)
+        want = np.asarray(jf.dense, np.float64)
+        got = tf.dense.numpy().astype(np.float64)
+        assert not used_push and tf.dense.dtype == torch.from_numpy(
+            np.zeros(0, dtype)).dtype
+        assert int(tf.snvals) == int(jf.snvals) > 0
+        if dtype == np.float64:
+            # JAX computes in float32 (x64 off): the same reached rows and
+            # sums within float32 rounding; the port equals its own
+            # plan-less pull
+            reached = want < MAXF
+            np.testing.assert_array_equal(got < np.finfo(np.float64).max,
+                                          reached)
+            np.testing.assert_allclose(got[reached], want[reached],
+                                       rtol=1e-5)
+            alone, _ = mxv_dual(
+                T, DualFrontier.from_dense(torch.from_numpy(x.astype(dtype)),
+                                           tident),
+                getattr(tgb.semiring, f"{name}Semiring"), tident,
+                transpose=True, mode=tgb.Direction.PULLONLY)
+            assert torch.equal(tf.dense, alone.dense)
+        elif name.startswith("Plus"):
+            # JAX's float32 prefix-sum differences stray from the sums (the
+            # ROADMAP's caveat): the port within 1e-5·max|y| of a float64
+            # golden, and of JAX within JAX's own distance from it
+            gold = T.to_scipy().T.astype(np.float64) @ x.astype(np.float64)
+            bar = 1e-5 * np.abs(gold).max()
+            assert np.abs(got - gold).max() <= bar
+            assert (np.abs(got - want).max()
+                    <= bar + np.abs(want - gold).max())
+        else:
+            np.testing.assert_array_equal(got, want)
     f = DualFrontier.from_dense(torch.zeros(T.nrows), float(MAXF))
-    with pytest.raises(NotImplementedError, match="SEMIRING_MAP"):
-        mxv_dual(T, f, tgb.PlusMultipliesSemiring, 0.0, **pull)
-    with pytest.raises(NotImplementedError, match="structure_only"):
-        mxv_dual(T, f, tgb.MinimumPlusSemiring, float(MAXF),
-                 structure_only=True, **pull)
     with pytest.raises(ValueError, match="output rows"):
         mxv_dual(T, f, tgb.MinimumPlusSemiring, float(MAXF),
                  **dict(pull, pull_plan=mp.MonoidPlan(
