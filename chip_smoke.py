@@ -4,9 +4,6 @@
     python3 chip_smoke.py            # from the repository root; needs one card
     python3 chip_smoke.py --tc-classes   # only the build and phase 16's
                                          # class split of T1
-    python3 chip_smoke.py --rmat24   # only the run at RMAT 24: the
-                                     # cache tool, then gbfs pull-only
-                                     # (main_rmat24; about 10 minutes)
 
 Phases, each of which fails the run on error (each prints its seconds):
   1. device and build: prints the card's name and power limit, builds every
@@ -263,12 +260,11 @@ Phases, each of which fails the run on error (each prints its seconds):
      the ring stage's gather and T1 at tc_dist's stage against their plain
      versions, with two more kernels entries (`gather_ring`,
      `masked_intersect_count_dist`);
-  37. the RMAT 20 and 22 cache: right after phase 1, the port's cache tool
-     (python -m graphblast_tpu_torch.tools.gen_rmat_cache 20 22, at a
-     lower CPU priority) generates and canonicalizes both graphs on the
-     host into a temporary directory while phases 2-36 run; this phase
-     waits for it and prints its lines (each graph's generation,
-     canonicalize and write seconds);
+  37. the RMAT 20 and 22 cache: the port's cache tool (python -m
+     graphblast_tpu_torch.tools.gen_rmat_cache 20 22) generates and
+     canonicalizes both graphs on the host into a temporary directory,
+     with nothing else running; prints its lines (each graph's
+     generation, canonicalize and write seconds, its peak host memory);
   38. bench.py's bfs22 and spmv22 stages: RMAT 22 (n = 4,194,304, nnz =
      128,304,760; its column ids ten times the L2) through rmat_matrix
      from the cache (generation refused), the cache load and the build
@@ -301,7 +297,6 @@ unavailable or the package is missing.
 """
 import contextlib
 import json
-import shutil
 import subprocess
 import sys
 import tempfile
@@ -1758,63 +1753,6 @@ def main_tc_classes() -> int:
     phase_tc_classes(gt.tril(A))
     print(f"[phase] T1 class split {time.perf_counter() - t0:.2f} s")
     return 0
-
-
-def main_rmat24() -> int:
-    """`--rmat24`: the run at RMAT 24, run_bfs.sh's largest graph
-    (16,777,216 vertices): the port's cache tool writes
-    .rmat24_16_0.torch.npz into a temporary directory (seed 0, the
-    drivers' default --seed; its seconds and the child's peak host
-    memory), then the gbfs driver runs pull-only on rmat:24:16 with
-    run_bfs.sh's other flags, reading that cache and checking its golden;
-    prints the driver's rows and the card's peak memory, by torch's
-    allocator and by nvidia-smi sampled every 2 s. Exits with the
-    driver's code."""
-    import os
-    import resource
-
-    import torch
-
-    if not torch.cuda.is_available():
-        print("chip_smoke: torch.cuda.is_available() is False; this check "
-              "needs one CUDA card", file=sys.stderr)
-        return 1
-    from graphblast_tpu_torch.examples import gbfs
-
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], check=True,
-                         capture_output=True, text=True, timeout=60)
-    print(smi.stdout.strip().splitlines()[0])
-    with tempfile.TemporaryDirectory() as d:
-        os.environ["GRB_RMAT_CACHE_DIR"] = d
-        t0 = time.perf_counter()
-        subprocess.run([sys.executable, "-m",
-                        "graphblast_tpu_torch.tools.gen_rmat_cache", "24",
-                        "--seed", "0"], check=True, timeout=3000)
-        rss = resource.getrusage(resource.RUSAGE_CHILDREN).ru_maxrss
-        print(f"[rmat24] gen_rmat_cache 24 --seed 0: "
-              f"{time.perf_counter() - t0:.1f} s, peak host memory "
-              f"{rss / 2**20:.2f} GiB")
-        sampler = subprocess.Popen(
-            ["nvidia-smi", "--query-gpu=memory.used",
-             "--format=csv,noheader,nounits", "-lms", "2000"],
-            stdout=subprocess.PIPE, text=True)
-        try:
-            t0 = time.perf_counter()
-            rc = gbfs.main(["--timing", "0", "--earlyexit", "1",
-                            "--mxvmode", "2", "--struconly", "1", "--niter",
-                            "5", "--opreuse", "1", "rmat:24:16"])
-            run_s = time.perf_counter() - t0
-        finally:
-            sampler.terminate()
-            used = [int(x) for x in sampler.communicate()[0].split()
-                    if x.isdigit()]
-    print(f"[rmat24] gbfs exit {rc} in {run_s:.1f} s; the card's peak "
-          f"memory: torch.cuda.max_memory_allocated "
-          f"{torch.cuda.max_memory_allocated()} B, max_memory_reserved "
-          f"{torch.cuda.max_memory_reserved()} B, nvidia-smi memory.used "
-          f"{max(used, default=0)} MiB")
-    return rc
 
 
 def _library_spgemm(L):
@@ -4189,22 +4127,6 @@ BIG_SCALES = (20, 22)
 RMAT_NNZ = {20: 31_399_912, 22: 128_304_760}
 
 
-def start_rmat_cache(cache_dir: str):
-    """Start the port's cache tool (python -m graphblast_tpu_torch.tools.
-    gen_rmat_cache 20 22) writing into cache_dir, at a lower CPU priority,
-    so that it generates and canonicalizes both graphs on the host while
-    the rmat18 phases run. Returns (process, its start time)."""
-    import os
-
-    env = dict(os.environ, GRB_RMAT_CACHE_DIR=cache_dir)
-    proc = subprocess.Popen(
-        [sys.executable, "-m", "graphblast_tpu_torch.tools.gen_rmat_cache",
-         *map(str, BIG_SCALES)], stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True, env=env,
-        preexec_fn=lambda: os.nice(10))
-    return proc, time.perf_counter()
-
-
 @contextlib.contextmanager
 def _no_generation():
     """io.rmat.rmat_edges raises inside the block: a graph must come from
@@ -4253,16 +4175,23 @@ def _cached_rmat(scale: int, cache_dir: str):
     return A
 
 
-def phase_rmat_cache(proc, started: float) -> None:
-    """Waits for the cache tool started by start_rmat_cache and prints its
-    lines: each graph's generation, canonicalize and write seconds."""
-    out, _ = proc.communicate(timeout=1200)
-    for line in out.splitlines():
+def phase_rmat_cache(cache_dir: str) -> None:
+    """Runs the port's cache tool (python -m graphblast_tpu_torch.tools.
+    gen_rmat_cache 20 22) writing into cache_dir and prints its lines:
+    each graph's generation, canonicalize and write seconds."""
+    import os
+
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "graphblast_tpu_torch.tools.gen_rmat_cache",
+         *map(str, BIG_SCALES)], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, timeout=900,
+        env=dict(os.environ, GRB_RMAT_CACHE_DIR=cache_dir))
+    for line in out.stdout.splitlines():
         print(f"[rmat cache] {line}")
-    if proc.returncode != 0:
-        raise AssertionError(f"gen_rmat_cache exited {proc.returncode}")
-    print(f"[rmat cache] the tool ran {time.perf_counter() - started:.2f} s "
-          "in the background")
+    if out.returncode != 0:
+        raise AssertionError(f"gen_rmat_cache exited {out.returncode}")
+    print(f"[rmat cache] the tool ran {time.perf_counter() - t0:.2f} s")
 
 
 def _top_sources(A, k: int):
@@ -4563,6 +4492,27 @@ def _random_csr(n: int, deg: int, seed: int, device: str = "cuda"):
     return build_plan(ptr, ind, val, n, n), x
 
 
+def phase_big_graphs():
+    """Phases 37-40 in one temporary directory (RMAT 20 and 22's cache
+    files, the .mtx), removed at the end: the cache tool, bfs22 and
+    spmv22, mtx at RMAT 20, tc20. Returns phase_rmat22's values and
+    phase_tc20's."""
+    with tempfile.TemporaryDirectory() as cache_dir:
+        t0 = time.perf_counter()
+        phase_rmat_cache(cache_dir)
+        print(f"[phase] RMAT 20 and 22 cache {time.perf_counter() - t0:.2f} s")
+        t0 = time.perf_counter()
+        rmat22 = phase_rmat22(cache_dir)
+        print(f"[phase] bfs22 and spmv22 {time.perf_counter() - t0:.2f} s")
+        t0 = time.perf_counter()
+        phase_mtx20(cache_dir)
+        print(f"[phase] mtx at rmat20 {time.perf_counter() - t0:.2f} s")
+        t0 = time.perf_counter()
+        tc20 = phase_tc20(cache_dir)
+        print(f"[phase] tc20 {time.perf_counter() - t0:.2f} s")
+    return (*rmat22, *tc20)
+
+
 def main() -> int:
     import torch
 
@@ -4570,29 +4520,16 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this check "
               "needs one CUDA card", file=sys.stderr)
         return 1
+    import numpy as np
+
     import graphblast_tpu_torch  # noqa: F401  (fails alone in a directory)
+    from graphblast_tpu_torch.algorithms.reference import bfs_cpu
+    from graphblast_tpu_torch.io.rmat import rmat_matrix
+    from graphblast_tpu_torch.ops.kernels.value_pull import plan_for
 
     t0 = time.perf_counter()
     phase_device_and_build()
     print(f"[phase] device and build {time.perf_counter() - t0:.2f} s")
-    cache_dir = tempfile.mkdtemp()   # RMAT 20 and 22's cache, the .mtx
-    proc, started = start_rmat_cache(cache_dir)
-    try:
-        return _main_phases(cache_dir, proc, started)
-    finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait()
-        shutil.rmtree(cache_dir, ignore_errors=True)
-
-
-def _main_phases(cache_dir: str, proc, started: float) -> int:
-    import numpy as np
-    import torch
-
-    from graphblast_tpu_torch.algorithms.reference import bfs_cpu
-    from graphblast_tpu_torch.io.rmat import rmat_matrix
-    from graphblast_tpu_torch.ops.kernels.value_pull import plan_for
 
     t0 = time.perf_counter()
     A = rmat_matrix(18, 16, seed=42, device="cuda")
@@ -4740,23 +4677,12 @@ def _main_phases(cache_dir: str, proc, started: float) -> int:
     del A
     print(f"[phase] distributed, second half, at world size 1 "
           f"{time.perf_counter() - t0:.2f} s")
+    (k1_22, k1_22_bound, bfs22_launches, k2_22, k2_22_launches, t1_20,
+     tc20_launches) = phase_big_graphs()
     t0 = time.perf_counter()
-    phase_rmat_cache(proc, started)
-    print(f"[phase] RMAT 20 and 22 cache (waited) "
-          f"{time.perf_counter() - t0:.2f} s")
-    t0 = time.perf_counter()
-    k1_22, k1_22_bound, bfs22_launches, k2_22, k2_22_launches = \
-        phase_rmat22(cache_dir)
-    print(f"[phase] bfs22 and spmv22 {time.perf_counter() - t0:.2f} s")
-    t0 = time.perf_counter()
-    phase_mtx20(cache_dir)
-    print(f"[phase] mtx at rmat20 {time.perf_counter() - t0:.2f} s")
-    t0 = time.perf_counter()
-    t1_20, tc20_launches = phase_tc20(cache_dir)
     ordered_row, ordered_launches = phase_ordered_folds(L18)
     del L18
-    print(f"[phase] tc20 and T2's ordered folds "
-          f"{time.perf_counter() - t0:.2f} s")
+    print(f"[phase] T2's ordered folds {time.perf_counter() - t0:.2f} s")
 
     kernels = [{
         "name": "bitmap_pull",
@@ -4905,5 +4831,5 @@ def _main_phases(cache_dir: str, proc, started: float) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit({"--tc-classes": main_tc_classes, "--rmat24": main_rmat24}.get(
-        " ".join(sys.argv[1:]), main)())
+    sys.exit(main_tc_classes() if sys.argv[1:] == ["--tc-classes"]
+             else main())

@@ -72,4 +72,11 @@ def run_driver(name, description, run_fn, cpu_fn, verify_fn,
     eps = A.nvals / (tight_ms * 1e-3) if tight_ms > 0 else float("inf")
     print("cpu, warmup, tight, GTEPS")
     print(f"{cpu_ms:.3f}, {warmup_ms:.3f}, {tight_ms:.3f}, {eps / 1e9:.4f}")
+    if args.memory and A.device.type == "cuda":
+        # the reference's memory_ flag: the card's memory after the runs
+        # (cudaMemGetInfo, backend/cuda/util.hpp:26-33)
+        free, total = torch.cuda.mem_get_info(A.device)
+        print(f"memory: {total - free} B used of {total} B on the card, "
+              f"{torch.cuda.max_memory_allocated(A.device)} B the most "
+              "allocated")
     return 0 if ok else 1

@@ -8,8 +8,8 @@ From scale CACHE_MIN_SCALE (20) on, `rmat_matrix` keeps the canonicalized
 COO of an undirected graph on disk, as the JAX package does: generating and
 canonicalizing RMAT 22 takes minutes on the host, reading it back seconds.
 The file is `.rmat{scale}_{edge_factor}_{seed}.torch.npz` (int32 rows and
-cols, float32 vals) in `cache_dir`, else GRB_RMAT_CACHE_DIR, else /tmp;
-GRB_RMAT_CACHE=0 turns the cache off. It is written to a temporary name and
+cols, float32 vals) in `cache_dir`, else GRB_RMAT_CACHE_DIR, else the
+temporary directory (TMPDIR, /tmp where it is unset); GRB_RMAT_CACHE=0 turns the cache off. It is written to a temporary name and
 renamed, so a reader never sees half a file, and the JAX package's file
 (`.npz` without `.torch`) is never read. `python -m
 graphblast_tpu_torch.tools.gen_rmat_cache 22 24` builds the files ahead.
@@ -31,8 +31,10 @@ CACHE_MIN_SCALE = 20
 def cache_path(scale: int, edge_factor: int, seed: int,
                cache_dir: str | None = None) -> str:
     """Where the canonicalized COO of rmat(scale, edge_factor, seed) is
-    kept: `cache_dir`, else GRB_RMAT_CACHE_DIR, else /tmp."""
-    d = cache_dir or os.environ.get("GRB_RMAT_CACHE_DIR", "/tmp")
+    kept: `cache_dir`, else GRB_RMAT_CACHE_DIR, else the temporary
+    directory (TMPDIR, /tmp where it is unset)."""
+    d = cache_dir or os.environ.get("GRB_RMAT_CACHE_DIR",
+                                    tempfile.gettempdir())
     return os.path.join(d, f".rmat{scale}_{edge_factor}_{seed}.torch.npz")
 
 

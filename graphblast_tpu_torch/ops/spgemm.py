@@ -147,16 +147,25 @@ def spgemm_masked_count_plain(A: Matrix, B: Matrix, M: Matrix,
         *_count_args(_operands(A, B, M, transpose_b)))
 
 
-def _walks_nothing(ops: tuple) -> torch.Tensor:
+def _walks_nothing(M: Matrix, ops: tuple) -> torch.Tensor:
     """A 0-d bool tensor, on the operands' device (no host read): whether
     no mask edge walks a lane, the walked list being the shorter (B's only
     when strictly shorter). The JAX plan is None there and its result
-    zeros (graphblast_tpu/ops/spgemm.py:322-323, 447-453)."""
+    zeros (graphblast_tpu/ops/spgemm.py:322-323, 447-453). It depends on
+    the structure alone, so it is computed once per mask and operands and
+    kept in M._plans beside the intersection schedules."""
     mi, mj, a_ptr, _, _, b_ptr, _, _ = ops
+    cache = M._plans.setdefault("intersect/empty", [])
+    for a, b, flag in cache:
+        if a is a_ptr and b is b_ptr:
+            return flag
     mi64, mj64 = mi.long(), mj.long()
     len_a = a_ptr[mi64 + 1] - a_ptr[mi64]
     len_b = b_ptr[mj64 + 1] - b_ptr[mj64]
-    return torch.minimum(len_a, len_b).sum() == 0
+    flag = torch.minimum(len_a, len_b).sum() == 0
+    cache.append((a_ptr, b_ptr, flag))
+    del cache[:-SCHEDULES_KEPT]
+    return flag
 
 
 def _masked_result(M: Matrix, c: torch.Tensor, ops: tuple) -> Matrix:
@@ -164,7 +173,7 @@ def _masked_result(M: Matrix, c: torch.Tensor, ops: tuple) -> Matrix:
     values padded with zeros as every Matrix's are; CSR only. All zeros
     where no mask edge walks a lane, as in the JAX package."""
     val = torch.zeros(M.nnz_pad, dtype=c.dtype, device=c.device)
-    val[: M.nvals] = torch.where(_walks_nothing(ops), 0, c)
+    val[: M.nvals] = torch.where(_walks_nothing(M, ops), 0, c)
     return Matrix(M.nrows, M.ncols, M.nvals, M.row_ptr, M.col_ind,
                   M.row_ind, val, None, None, None, None,
                   format=SparseFormat.CSRONLY, symmetric=False)

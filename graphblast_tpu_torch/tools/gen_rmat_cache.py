@@ -7,13 +7,16 @@ graph.
     python -m graphblast_tpu_torch.tools.gen_rmat_cache 22 24
 
 The files go to GRB_RMAT_CACHE_DIR, default `.cache/` at the repository
-root (gitignored); an existing file is left as it is. Prints the raw and
-canonical edge counts and the seconds of each step.
+root (gitignored); an existing file is left as it is. `rmat_matrix` looks in
+the temporary directory unless GRB_RMAT_CACHE_DIR is set, so give the run
+that reads the files the same GRB_RMAT_CACHE_DIR. Prints the raw and
+canonical edge counts, the seconds of each step and the peak host memory.
 """
 from __future__ import annotations
 
 import argparse
 import os
+import resource
 import sys
 import time
 
@@ -54,6 +57,8 @@ def main(argv=None) -> int:
         save_coo(cpath, rows, cols, vals)
         print(f"[gen] wrote {cpath} ({os.path.getsize(cpath) / 1e9:.2f} GB, "
               f"{time.perf_counter() - t2:.1f} s)", flush=True)
+    peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss  # KiB
+    print(f"[gen] peak host memory {peak / 2**20:.2f} GiB", flush=True)
     return 0
 
 

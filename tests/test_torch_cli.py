@@ -210,6 +210,19 @@ def test_profile_writes_a_chrome_trace(tmp_path, capsys):
         pass
 
 
+def test_memory_flag_reads_the_card_only(capsys):
+    """--memory (the reference's memory_ flag) prints the card's memory
+    after the runs; with --device cpu there is no card, and the driver
+    prints what it prints without the flag."""
+    argv = [CHESAPEAKE, "--device", "cpu", "--niter", "1"]
+    assert gbfs.main(argv) == 0
+    plain = capsys.readouterr().out
+    assert gbfs.main(argv + ["--memory"]) == 0
+    out = capsys.readouterr().out
+    assert "memory:" not in out
+    assert re.sub(r"[\d.]+", "#", out) == re.sub(r"[\d.]+", "#", plain)
+
+
 def test_verify_helpers_report_mismatches(capsys):
     assert verify_list(np.arange(4), np.arange(4), "X")
     assert not verify_list(np.arange(4), np.array([0, 1, 5, 3]), "X")

@@ -1181,3 +1181,17 @@ def test_lgc_and_mxm_dense_on_the_card_match_the_cpu(cuda):
                                        atol=1e-5 * np.abs(c_cpu).max())
         else:
             np.testing.assert_array_equal(c_gpu.cpu().numpy(), c_cpu)
+
+
+def test_driver_memory_flag_prints_the_cards_memory(cuda, capsys):
+    """gbfs --memory on the card prints one line: the bytes in use on the
+    card after the runs and the most torch allocated, both above 0."""
+    from graphblast_tpu_torch.examples import gbfs
+
+    assert gbfs.main(["rmat:10:16", "--niter", "1", "--memory"]) == 0
+    lines = [ln for ln in capsys.readouterr().out.splitlines()
+             if ln.startswith("memory: ")]
+    assert len(lines) == 1
+    nums = [int(w) for w in lines[0].split() if w.isdigit()]
+    assert len(nums) == 3 and nums[0] > 0 and nums[2] > 0
+    assert nums[0] <= nums[1]

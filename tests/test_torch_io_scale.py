@@ -7,6 +7,7 @@ are compared byte for byte, arrays exactly. The cache's scale threshold is
 lowered by monkeypatch so that small graphs take it.
 """
 import os
+import tempfile
 
 import numpy as np
 import pytest
@@ -162,6 +163,26 @@ def test_rmat_cache_off_and_cache_dir(cache_env, monkeypatch, tmp_path):
     for a, b in zip(_tuples(A), _tuples(B)):
         np.testing.assert_array_equal(a, b)
     assert loaded == [str(other / f".rmat{SCALE}_16_7.torch.npz")]
+
+
+def test_rmat_cache_default_dir_is_tmpdir(cache_env, monkeypatch, tmp_path):
+    """Without cache_dir and GRB_RMAT_CACHE_DIR the file goes to the
+    temporary directory, which TMPDIR names, and is read from there."""
+    d, loaded = cache_env
+    monkeypatch.delenv("GRB_RMAT_CACHE_DIR")
+    tmp = tmp_path / "tmpdir"
+    tmp.mkdir()
+    monkeypatch.setenv("TMPDIR", str(tmp))
+    monkeypatch.setattr(tempfile, "tempdir", None)  # gettempdir re-reads
+    name = f".rmat{SCALE}_16_5.torch.npz"
+    assert rmat.cache_path(SCALE, 16, 5) == str(tmp / name)
+    A = rmat.rmat_matrix(SCALE, 16, seed=5, device="cpu")
+    assert [p.name for p in tmp.iterdir()] == [name]
+    monkeypatch.setattr(rmat, "rmat_edges", _refuse)
+    B = rmat.rmat_matrix(SCALE, 16, seed=5, device="cpu")
+    for a, b in zip(_tuples(A), _tuples(B)):
+        np.testing.assert_array_equal(a, b)
+    assert loaded == [str(tmp / name)] and list(d.iterdir()) == []
 
 
 def test_rmat_cache_skips_directed_small_and_unwritable(cache_env,

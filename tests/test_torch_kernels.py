@@ -390,6 +390,9 @@ PORT_MODULES = [
     "graphblast_tpu_torch.parallel.partition",
     "graphblast_tpu_torch.parallel.partition2d",
     "graphblast_tpu_torch.parallel.ring",
+    "graphblast_tpu_torch.tools",
+    "graphblast_tpu_torch.tools.gen_rmat_cache",
+    "graphblast_tpu_torch.tools.mtx_ingest_check",
     "chip_smoke",
 ]
 

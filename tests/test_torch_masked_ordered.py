@@ -152,6 +152,9 @@ def test_masked_mxm_without_a_walked_lane_equals_jax(name, dtype,
     for fn in (sp.spgemm_masked, sp.spgemm_masked_plain):
         got = _values(fn(A, B, M, sr, transpose_b=True), M)
         assert got.tobytes() == want.astype(dtype).tobytes()
+    # both routes read one flag, computed once and kept with the mask
+    (flag,) = [f for _, _, f in M._plans["intersect/empty"]]
+    assert bool(flag) == (not walked_any)
     ident = sr.identity(torch.from_numpy(np.zeros(0, dtype)).dtype).item()
     assert (want == (ident if walked_any else 0)).all()
 
