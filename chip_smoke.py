@@ -4145,10 +4145,11 @@ def _no_generation():
         rmat.rmat_edges = real
 
 
-def _cached_rmat(scale: int, cache_dir: str):
+def _cached_rmat(scale: int, cache_dir: str, steps=None):
     """rmat_matrix(scale, 16, 42) on the card, read from its cache file
-    (generation refused); prints the file, the cache load alone and the
-    whole call. Returns the Matrix."""
+    (generation refused); prints the file, the whole call and then the
+    cache load alone. `steps` goes to Matrix.from_coo, so its first step
+    starts with the call. Returns the Matrix."""
     import os
 
     import torch
@@ -4157,14 +4158,14 @@ def _cached_rmat(scale: int, cache_dir: str):
 
     path = cache_path(scale, 16, 42, cache_dir)
     t0 = time.perf_counter()
-    load_coo(path)
-    load_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
     with _no_generation():
         A = rmat_matrix(scale, 16, seed=42, device="cuda",
-                        cache_dir=cache_dir)
+                        cache_dir=cache_dir, steps=steps)
     torch.cuda.synchronize()
     total_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    load_coo(path)
+    load_s = time.perf_counter() - t0
     if (A.nrows, A.nvals) != (1 << scale, RMAT_NNZ[scale]):
         raise AssertionError(f"rmat{scale}: n={A.nrows} nnz={A.nvals}, "
                              f"expected {1 << scale} and {RMAT_NNZ[scale]}")
@@ -4203,7 +4204,8 @@ def _top_sources(A, k: int):
 
 def phase_rmat22(cache_dir: str):
     """bench.py's bfs22 and spmv22 stages at RMAT 22, the graph read from
-    the port's cache through rmat_matrix: K1 against its plain version and
+    the port's cache through rmat_matrix, its build's card memory printed
+    by step and held to 40 B an edge: K1 against its plain version and
     torch.sparse (phase 2's checks); pull-only BFS from the 4 top-degree
     hubs equal to the golden, one K1 launch an iteration (phase 3's); the
     value pull over the CSR with a seeded x (phase 4's checks) and, as
@@ -4220,7 +4222,18 @@ def phase_rmat22(cache_dir: str):
     from graphblast_tpu_torch.ops.kernels.value_pull import (plan_for,
                                                              spmv_value_pull)
 
-    A = _cached_rmat(22, cache_dir)
+    from graphblast_tpu_torch.utils.profiling import MemorySteps
+
+    rec = MemorySteps()
+    A = _cached_rmat(22, cache_dir, steps=rec)
+    for line in rec.lines("[build] rmat22", A.nvals):
+        print(line)
+    per_edge = rec.peak() / A.nvals
+    print(f"[build] rmat22: {rec.peak()} B the most allocated by the build "
+          f"above its start, {per_edge:.2f} B an edge (bar 40)")
+    if not per_edge <= 40:
+        raise AssertionError(f"rmat22: the build peaks at {per_edge:.2f} B "
+                             "an edge, bar 40")
     sources = _top_sources(A, 4)
     t0 = time.perf_counter()
     goldens = [bfs_cpu(A, int(s)) for s in sources]

@@ -41,6 +41,13 @@ def run_driver(name, description, run_fn, cpu_fn, verify_fn,
     build_ms = (time.perf_counter() - t0) * 1000
     print(f"{name}: {args.mtx} n={A.nrows} nnz={A.nvals} "
           f"build={build_ms:.1f}ms device={A.device}")
+    build_peak = None
+    if args.memory and A.device.type == "cuda":
+        # the build's peak, told apart from the runs' below
+        build_peak = torch.cuda.max_memory_allocated(A.device)
+        print(f"memory: {build_peak} B the most allocated by the build, "
+              f"{build_peak / max(A.nvals, 1):.2f} B an edge")
+        torch.cuda.reset_peak_memory_stats(A.device)
 
     # CPU golden (reference: gbfs.cu:74-76 bfsCpu)
     want = None
@@ -72,11 +79,12 @@ def run_driver(name, description, run_fn, cpu_fn, verify_fn,
     eps = A.nvals / (tight_ms * 1e-3) if tight_ms > 0 else float("inf")
     print("cpu, warmup, tight, GTEPS")
     print(f"{cpu_ms:.3f}, {warmup_ms:.3f}, {tight_ms:.3f}, {eps / 1e9:.4f}")
-    if args.memory and A.device.type == "cuda":
+    if build_peak is not None:
         # the reference's memory_ flag: the card's memory after the runs
         # (cudaMemGetInfo, backend/cuda/util.hpp:26-33)
         free, total = torch.cuda.mem_get_info(A.device)
+        runs_peak = torch.cuda.max_memory_allocated(A.device)
         print(f"memory: {total - free} B used of {total} B on the card, "
-              f"{torch.cuda.max_memory_allocated(A.device)} B the most "
-              "allocated")
+              f"{max(build_peak, runs_peak)} B the most allocated "
+              f"({runs_peak} B after the build)")
     return 0 if ok else 1

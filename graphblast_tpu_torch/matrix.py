@@ -34,26 +34,95 @@ def _numpy_dtype(dtype: torch.dtype) -> np.dtype:
     return torch.empty(0, dtype=dtype).numpy().dtype
 
 
-def _orient(major, minor, vals, n_major: int, n_minor: int) -> tuple:
-    """The edges stably sorted by (major, minor), as np.lexsort((minor,
-    major)) sorts them: (ptr int32 (n_major + 1,), the sorted minor ids and
-    major ids as int32, the values in that order), on the edges' device."""
-    major, minor = major.long(), minor.long()
-    order = torch.sort(major * n_minor + minor, stable=True).indices
-    sorted_major = major[order]
-    ptr = torch.searchsorted(
-        sorted_major, torch.arange(n_major + 1, device=major.device),
-        out_int32=True)
-    return (ptr, minor[order].to(INDEX_DTYPE), sorted_major.to(INDEX_DTYPE),
-            vals[order])
+# entries of one chunk of the build's passes: a pass's temporaries are a
+# few tens of bytes an entry of one chunk, whatever the edge count
+_CHUNK = 1 << 24
+_INDEX_MAX = torch.iinfo(INDEX_DTYPE).max
 
 
-def _pad(a: torch.Tensor, nnz_pad: int, fill,
-         dtype: torch.dtype = INDEX_DTYPE) -> torch.Tensor:
-    """a, cast to `dtype`, followed by `fill` up to nnz_pad entries."""
-    out = torch.full((nnz_pad,), fill, dtype=dtype, device=a.device)
-    out[: a.shape[0]] = a
+def _chunks(m: int):
+    return ((s, min(s + _CHUNK, m)) for s in range(0, m, _CHUNK))
+
+
+def _check_index_range(nrows: int, ncols: int, nvals: int) -> None:
+    """The leaves hold ids, pointers and sentinels as int32: raise past
+    2^31 - 1."""
+    if max(nrows, ncols, nvals) > _INDEX_MAX:
+        raise ValueError(f"{nrows}x{ncols} with {nvals} entries: the "
+                         f"index arrays are int32, at most {_INDEX_MAX}")
+
+
+def _padded(a, nnz_pad: int, dtype: torch.dtype, device) -> torch.Tensor:
+    """A new (nnz_pad,) buffer of `dtype` on `device` holding the NumPy
+    array or tensor `a` and zeros after it, copied a chunk at a time."""
+    out = torch.zeros(nnz_pad, dtype=dtype, device=device)
+    for s, e in _chunks(a.shape[0]):
+        piece = a[s:e]
+        if isinstance(piece, np.ndarray):
+            piece = torch.from_numpy(piece)
+        out[s:e].copy_(piece)
     return out
+
+
+def _ascending(major: torch.Tensor, minor: torch.Tensor,
+               m: int) -> torch.Tensor:
+    """0-d bool: whether the first m (major, minor) pairs are in (major,
+    minor) order, equal pairs allowed; compared as int32, neighbour by
+    neighbour."""
+    ok = torch.ones((), dtype=torch.bool, device=major.device)
+    for s, e in _chunks(m - 1):
+        a, b = major[s:e], major[s + 1:e + 1]
+        ok &= ((a < b) | ((a == b) & (minor[s:e] <= minor[s + 1:e + 1]))
+               ).all()
+    return ok
+
+
+def _equal(a: torch.Tensor, b: torch.Tensor, m: int) -> torch.Tensor:
+    """0-d bool: a[:m] == b[:m] everywhere (NaN equal to nothing)."""
+    ok = torch.ones((), dtype=torch.bool, device=a.device)
+    for s, e in _chunks(m):
+        ok &= (a[s:e] == b[s:e]).all()
+    return ok
+
+
+def _ptr(major: torch.Tensor, m: int, n_major: int) -> torch.Tensor:
+    """int64 (n_major + 1,) pointers of the first m major ids; raises on an
+    id outside [0, n_major)."""
+    counts = torch.bincount(major[:m], minlength=n_major)
+    if counts.shape[0] > n_major:
+        raise ValueError(f"ids outside [0, {n_major})")
+    ptr = torch.zeros(n_major + 1, dtype=torch.int64, device=major.device)
+    torch.cumsum(counts, 0, out=ptr[1:])
+    return ptr
+
+
+def _stable_by(key: torch.Tensor, n_keys: int, m: int, srcs: tuple) -> tuple:
+    """The first m entries of key and of each tensor in srcs, stably
+    reordered by key (int32 ids in [0, n_keys)), as np.argsort(key[:m],
+    kind="stable") orders them: a counting sort, a chunk of _CHUNK entries
+    at a time (one stable int32 sort of the chunk ranks its equal keys),
+    each entry scattered to its place in new buffers of key's length.
+    Returns (ptr int32 (n_keys + 1,), the sorted keys padded with n_keys,
+    the reordered srcs padded with 0)."""
+    dev = key.device
+    ptr = _ptr(key, m, n_keys)
+    nxt = ptr[:-1].clone()
+    keys_out = torch.full_like(key, n_keys)
+    outs = [torch.zeros_like(s) for s in srcs]
+    for s, e in _chunks(m):
+        sk, order = torch.sort(key[s:e], stable=True)
+        first = torch.searchsorted(sk, sk)
+        sk_long = sk.long()
+        base = nxt[sk_long]
+        dest = base + (torch.arange(e - s, device=dev) - first)
+        # every entry of a key writes the same next free slot
+        nxt[sk_long] = base + (torch.searchsorted(sk, sk, right=True) - first)
+        del first, base
+        keys_out[dest] = sk
+        order += s
+        for src, out in zip(srcs, outs):
+            out[dest] = src[order]
+    return ptr.to(INDEX_DTYPE), keys_out, outs
 
 
 @dataclasses.dataclass
@@ -115,22 +184,38 @@ class Matrix:
     def from_coo(rows, cols, vals, nrows: int, ncols: int,
                  dtype: torch.dtype = torch.float32,
                  fmt: SparseFormat = None, pad_to: int = TILE,
-                 device=None) -> "Matrix":
+                 device=None, steps=None) -> "Matrix":
         """Build from COO triplets (reference: Matrix::build, matrix.hpp:126
-        → sparse_matrix.hpp:291-351): the triplets are copied to the device
-        and built there by `from_device_coo`, and the result keeps host
-        copies of its CSR and CSC, as the JAX package's does. Runs on
-        "cuda" unless `device` says otherwise."""
+        → sparse_matrix.hpp:291-351): the ids are copied to the device as
+        int32 and the values in their own dtype, each straight into a
+        padded buffer, built there as `from_device_coo` builds, and the
+        result keeps host copies of its CSR and CSC, as the JAX package's
+        does. Runs on "cuda" unless `device` says otherwise. `steps`, when
+        given, is called with each step's name as the step ends
+        (utils.profiling.MemorySteps records the card's memory by step)."""
         dev = resolve_device(device)
+        steps = steps or (lambda name: None)
 
-        def put(a, np_dtype=None):
-            return torch.from_numpy(np.array(a, dtype=np_dtype)).to(dev)
+        def host(a, ids):
+            a = np.ascontiguousarray(a)
+            if ids and a.dtype not in (np.int32, np.int64):
+                a = a.astype(np.int64)
+            return a
 
-        M = Matrix.from_device_coo(put(rows, np.int64), put(cols, np.int64),
-                                   put(vals), nrows, ncols, dtype=dtype,
-                                   fmt=fmt, pad_to=pad_to)
+        rows, cols, vals = host(rows, True), host(cols, True), host(vals,
+                                                                    False)
+        nvals = len(rows)
+        _check_index_range(nrows, ncols, nvals)
+        nnz_pad = max(round_up(max(nvals, 1), pad_to), pad_to)
+        bufs = [_padded(rows, nnz_pad, INDEX_DTYPE, dev),
+                _padded(cols, nnz_pad, INDEX_DTYPE, dev),
+                _padded(vals, nnz_pad, torch.from_numpy(vals[:0]).dtype,
+                        dev)]
+        steps("copy")
+        M = Matrix._build(bufs, nvals, nrows, ncols, dtype, fmt, steps)
         M.host_csr()
         M.host_csc()
+        steps("host copies")
         return M
 
     @staticmethod
@@ -168,7 +253,8 @@ class Matrix:
         """Build from CSR tensors on their device, with no host copy of the
         edges (reference: sparse_matrix.hpp:418-435, a build from raw
         device pointers): the expanded row ids by a repeat of the row
-        lengths, the CSC as `from_device_coo` orients it (`_orient`).
+        lengths, the CSC by a stable counting sort of the CSR by column
+        (`_stable_by`), as `from_device_coo` builds its second orientation.
         `nvals` defaults to row_ptr[-1], the one value read on the host.
         The host copies are fetched at the first host_csr() / host_csc().
         Pads as `from_coo`: col_ind and csc_row_ind 0, row_ind nrows,
@@ -177,6 +263,7 @@ class Matrix:
         row_ptr = row_ptr.to(INDEX_DTYPE)
         if nvals is None:
             nvals = int(row_ptr[-1])
+        _check_index_range(nrows, ncols, nvals)
         nnz_pad = max(round_up(max(nvals, 1), pad_to), pad_to)
         live = torch.arange(nnz_pad, device=dev) < nvals
 
@@ -188,20 +275,19 @@ class Matrix:
 
         col_ind = pad_dev(col_ind.to(INDEX_DTYPE), 0)
         val = pad_dev(val, 0)
-        rows = torch.repeat_interleave(
+        row_ind = torch.full((nnz_pad,), nrows, dtype=INDEX_DTYPE,
+                             device=dev)
+        row_ind[:nvals] = torch.repeat_interleave(
             torch.arange(nrows, dtype=INDEX_DTYPE, device=dev),
             (row_ptr[1:] - row_ptr[:-1]).long(), output_size=nvals)
-        row_ind = _pad(rows, nnz_pad, nrows)
         csc = dict(col_ptr=None, csc_row_ind=None, csc_col_ind=None,
                    csc_val=None)
         fmt = SparseFormat.CSRONLY
         if build_csc:
-            col_ptr, csc_rows, csc_cols, csc_vals = _orient(
-                col_ind[:nvals], row_ind[:nvals], val[:nvals], ncols, nrows)
-            csc = dict(col_ptr=col_ptr,
-                       csc_row_ind=_pad(csc_rows, nnz_pad, 0),
-                       csc_col_ind=_pad(csc_cols, nnz_pad, ncols),
-                       csc_val=_pad(csc_vals, nnz_pad, 0, val.dtype))
+            col_ptr, csc_cols, (csc_rows, csc_vals) = _stable_by(
+                col_ind, ncols, nvals, (row_ind, val))
+            csc = dict(col_ptr=col_ptr, csc_row_ind=csc_rows,
+                       csc_col_ind=csc_cols, csc_val=csc_vals)
             fmt = SparseFormat.CSRCSC
         return Matrix(nrows, ncols, nvals, row_ptr=row_ptr, col_ind=col_ind,
                       row_ind=row_ind, val=val, **csc, format=fmt,
@@ -213,43 +299,101 @@ class Matrix:
                         dtype: torch.dtype = None, fmt: SparseFormat = None,
                         pad_to: int = TILE) -> "Matrix":
         """Build from COO triplets on their device, with no host copy of
-        the edges: each orientation by a stable sort of (major, minor) keys
-        (`_orient`), so duplicate triplets keep their order, as the JAX
-        package's stable lexsorts keep it; the same arrays, format and
-        symmetric flag as the JAX package's `from_coo`. One value is read
-        on the host, the symmetry test. The host copies are fetched at the
-        first host_csr() / host_csc()."""
-        if fmt is None:
-            fmt = default_sparse_format()
+        the edges: the same arrays, format and symmetric flag as the JAX
+        package's `from_coo`, duplicate triplets kept in their order, as
+        its stable lexsorts keep them. The triplets are copied into padded
+        buffers (ids int32) and built by `_build`. The host copies are
+        fetched at the first host_csr() / host_csc()."""
         dtype = dtype or vals.dtype
         nvals = int(rows.shape[0])
+        _check_index_range(nrows, ncols, nvals)
         nnz_pad = max(round_up(max(nvals, 1), pad_to), pad_to)
-        row_ptr, csr_cols, csr_rows, csr_vals = _orient(rows, cols, vals,
-                                                        nrows, ncols)
-        col_ptr, csc_rows, csc_cols, csc_vals = _orient(cols, rows, vals,
-                                                        ncols, nrows)
+        dev = rows.device
+        bufs = [_padded(rows, nnz_pad, INDEX_DTYPE, dev),
+                _padded(cols, nnz_pad, INDEX_DTYPE, dev),
+                _padded(vals, nnz_pad, vals.dtype, dev)]
+        return Matrix._build(bufs, nvals, nrows, ncols, dtype, fmt,
+                             lambda name: None)
+
+    @staticmethod
+    def _build(bufs: list, nvals: int, nrows: int, ncols: int,
+               dtype: torch.dtype, fmt: SparseFormat, steps) -> "Matrix":
+        """The Matrix of the triplets in `bufs` = [rows, cols, vals], each
+        a padded buffer on the device (ids int32, pads 0, the values in
+        their own dtype) with the triplets in its first nvals entries. The
+        list is emptied, so that each buffer is freed once no orientation
+        holds it.
+
+        One test, read on the host with the order test of the other
+        orientation, finds whether the triplets are already in (col, row)
+        order, as `io.mmio.canonicalize_coo` gives them, or in (row, col)
+        order: such an orientation takes the buffers as they are, since a
+        stable sort of a sorted sequence is the identity. Any other input
+        is put in CSC order by two stable counting sorts, by row and then
+        by column. The other orientation comes from the first by one
+        stable counting sort by its minor ids (`_stable_by`): equal keys
+        keep the first orientation's order, which is (major, minor, input)
+        order. The symmetry test (CSR and CSC arrays equal, values in
+        their own dtype; read on the host) runs with both orientations
+        built; a symmetric Matrix keeps one set and aliases the other. The
+        values are cast to `dtype` last. Peaks at about 24 B an edge for
+        float32 values, the two orientations' 12 B each, beside a chunk's
+        temporaries."""
+        if fmt is None:
+            fmt = default_sparse_format()
+        rows, cols, vals = bufs
+        m = nvals
+        csc_sorted, csr_sorted = torch.stack(
+            [_ascending(cols, rows, m), _ascending(rows, cols, m)]).tolist()
+        steps("order test")
+        bufs.clear()
+        if csc_sorted:
+            cols[m:] = ncols
+            csc = (_ptr(cols, m, ncols).to(INDEX_DTYPE), rows, cols, vals)
+        elif csr_sorted:
+            rows[m:] = nrows
+            csr = (_ptr(rows, m, nrows).to(INDEX_DTYPE), cols, rows, vals)
+        else:
+            _, rows, (cols, vals) = _stable_by(rows, nrows, m, (cols, vals))
+            col_ptr, cols, (rows, vals) = _stable_by(cols, ncols, m,
+                                                     (rows, vals))
+            csc = (col_ptr, rows, cols, vals)
+            steps("csc")
+        del rows, cols, vals   # the orientations alone hold the buffers
+        if csc_sorted or not csr_sorted:
+            row_ptr, row_ind, (col_ind, val) = _stable_by(
+                csc[1], nrows, m, (csc[2], csc[3]))
+            csr = (row_ptr, col_ind, row_ind, val)
+            steps("csr")
+        else:
+            col_ptr, csc_col_ind, (csc_row_ind, csc_val) = _stable_by(
+                csr[1], ncols, m, (csr[2], csr[3]))
+            csc = (col_ptr, csc_row_ind, csc_col_ind, csc_val)
+            steps("csc")
         symmetric = nrows == ncols and bool(
-            (row_ptr == col_ptr).all() & (csr_cols == csc_rows).all()
-            & (csr_vals == csc_vals).all())
-        t = dict(row_ptr=row_ptr, col_ind=_pad(csr_cols, nnz_pad, 0),
-                 row_ind=_pad(csr_rows, nnz_pad, nrows),
-                 val=_pad(csr_vals, nnz_pad, 0, dtype),
-                 col_ptr=None, csc_row_ind=None, csc_col_ind=None,
-                 csc_val=None)
+            (csr[0] == csc[0]).all() & _equal(csr[1], csc[1], m)
+            & _equal(csr[3], csc[3], m))
+        steps("symmetry test")
         if symmetric:
-            t.update(col_ptr=t["row_ptr"], csc_row_ind=t["col_ind"],
-                     csc_col_ind=t["row_ind"], csc_val=t["val"])
-        elif fmt != SparseFormat.CSRONLY:
-            t.update(col_ptr=col_ptr,
-                     csc_row_ind=_pad(csc_rows, nnz_pad, 0),
-                     csc_col_ind=_pad(csc_cols, nnz_pad, ncols),
-                     csc_val=_pad(csc_vals, nnz_pad, 0, dtype))
+            csc = csr
+        # the tuples hold (ptr, minor ids, major ids, values): the leaves'
+        # order within each orientation
+        t = dict(zip(LEAVES, csr + (None,) * 4))
+        if symmetric or fmt != SparseFormat.CSRONLY:
+            t.update(zip(LEAVES[4:], csc))
+        del csr, csc
         if fmt == SparseFormat.CSCONLY:
             t.update(row_ptr=None, col_ind=None, row_ind=None, val=None)
         elif symmetric:
             # the aliased CSC comes for free, so a symmetric CSRONLY request
             # keeps both orientations, as in the JAX package
             fmt = SparseFormat.CSRCSC
+        for side in ("val", "csc_val"):
+            if t[side] is not None:
+                t[side] = t[side].to(dtype)
+        if symmetric and t["val"] is not None:
+            t["csc_val"] = t["val"]
+        steps("cast")
         return Matrix(nrows, ncols, nvals, **t, format=fmt,
                       symmetric=symmetric)
 
@@ -399,10 +543,16 @@ class Matrix:
         return self._host_csr
 
     def host_csc(self):
-        """(col_ptr int64, csc_row_ind int32, csc_val), as host_csr."""
+        """(col_ptr int64, csc_row_ind int32, csc_val), as host_csr. A
+        symmetric Matrix with both orientations gives the host CSR's
+        arrays, which are equal to it, instead of fetching a second copy."""
         if self._host_csc is None:
-            self._host_csc = self._fetch(self.col_ptr, self.csc_row_ind,
-                                         self.csc_val)
+            if self.symmetric and self.col_ptr is not None \
+                    and self.row_ptr is not None:
+                self._host_csc = self.host_csr()
+            else:
+                self._host_csc = self._fetch(self.col_ptr, self.csc_row_ind,
+                                             self.csc_val)
         return self._host_csc
 
     def extract_tuples(self):

@@ -4,12 +4,14 @@ The reference's timing subsystem: GpuTimer (backend/cuda/util.hpp:92-120)
 is `TightTimer` in algorithms/common.py; the cudaProfilerStart/Stop hooks
 (example/gbfs.cu:98,106) are `trace()` below, a torch.profiler trace of the
 host and, on a card, the device, exported as a Chrome trace. The CLI
-drivers expose it as --profile <dir>.
+drivers expose it as --profile <dir>. `MemorySteps` records the card's
+memory by step of a Matrix build (the `steps=` of `Matrix.from_coo`).
 """
 from __future__ import annotations
 
 import contextlib
 import os
+import time
 
 
 @contextlib.contextmanager
@@ -41,3 +43,43 @@ def annotate(name: str):
     from torch.profiler import record_function
 
     return record_function(name)
+
+
+class MemorySteps:
+    """The card's memory and time by step of a piece of work, such as a
+    Matrix build (`Matrix.from_coo(..., steps=MemorySteps())`): call the
+    object with a step's name as the step ends. Each row of `rows` is
+    (name, the most allocated during the step above what was allocated
+    when the object was made, in bytes, and the step's seconds). Reads
+    torch.cuda's peak counter, which it resets at each step; needs a
+    card."""
+
+    def __init__(self, device="cuda"):
+        import torch
+
+        self.device = torch.device(device)
+        torch.cuda.synchronize(self.device)
+        self.base = torch.cuda.memory_allocated(self.device)
+        torch.cuda.reset_peak_memory_stats(self.device)
+        self.rows = []
+        self._t = time.perf_counter()
+
+    def __call__(self, name: str) -> None:
+        import torch
+
+        torch.cuda.synchronize(self.device)
+        now = time.perf_counter()
+        self.rows.append((name, torch.cuda.max_memory_allocated(self.device)
+                          - self.base, now - self._t))
+        torch.cuda.reset_peak_memory_stats(self.device)
+        self._t = now
+
+    def peak(self, names=None) -> int:
+        """The most allocated over the steps (those in `names`, if given)."""
+        return max(b for n, b, _ in self.rows if names is None or n in names)
+
+    def lines(self, label: str, nnz: int) -> list:
+        """One printable line a step: bytes, bytes an edge of `nnz`, s."""
+        return [f"{label} {name}: {b} B the most allocated above the start, "
+                f"{b / max(nnz, 1):.2f} B an edge, {s:.3f} s"
+                for name, b, s in self.rows]

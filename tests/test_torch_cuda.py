@@ -1195,3 +1195,35 @@ def test_driver_memory_flag_prints_the_cards_memory(cuda, capsys):
     nums = [int(w) for w in lines[0].split() if w.isdigit()]
     assert len(nums) == 3 and nums[0] > 0 and nums[2] > 0
     assert nums[0] <= nums[1]
+
+
+@pytest.mark.parametrize("order", ["canonical", "shuffled"])
+def test_matrix_build_on_the_card_equals_the_cpu_build(cuda, order):
+    """Matrix.from_coo on the card, over chunks of 4,096 entries, gives the
+    CPU build's tensors (held to the JAX package's in
+    test_torch_matrix_build.py), and MemorySteps hears every step."""
+    from graphblast_tpu_torch import matrix as tm
+    from graphblast_tpu_torch.io.mmio import canonicalize_coo
+    from graphblast_tpu_torch.io.rmat import rmat_edges
+    from graphblast_tpu_torch.utils.profiling import MemorySteps
+
+    r, c = rmat_edges(12, 16, 0)
+    r, c, v = canonicalize_coo(r, c, np.ones(len(r), np.float32),
+                               undirected=True, remove_self_loops=True)
+    if order == "shuffled":
+        perm = np.random.default_rng(0).permutation(len(r))
+        r, c, v = r[perm], c[perm], v[perm]
+    n = 1 << 12
+    old, tm._CHUNK = tm._CHUNK, 4096
+    try:
+        rec = MemorySteps()
+        G = tgb.Matrix.from_coo(r, c, v, n, n, device="cuda", steps=rec)
+        H = tgb.Matrix.from_coo(r, c, v, n, n, device="cpu")
+    finally:
+        tm._CHUNK = old
+    assert G.symmetric and H.symmetric
+    for leaf in tm.LEAVES:
+        assert torch.equal(getattr(G, leaf).cpu(), getattr(H, leaf)), leaf
+    assert [name for name, _, _ in rec.rows][-3:] == [
+        "symmetry test", "cast", "host copies"]
+    assert rec.peak() > 0

@@ -391,6 +391,7 @@ PORT_MODULES = [
     "graphblast_tpu_torch.parallel.partition2d",
     "graphblast_tpu_torch.parallel.ring",
     "graphblast_tpu_torch.tools",
+    "graphblast_tpu_torch.tools.build_memory",
     "graphblast_tpu_torch.tools.gen_rmat_cache",
     "graphblast_tpu_torch.tools.mtx_ingest_check",
     "chip_smoke",
