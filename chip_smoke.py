@@ -4145,27 +4145,30 @@ def _no_generation():
         rmat.rmat_edges = real
 
 
-def _cached_rmat(scale: int, cache_dir: str, steps=None):
+def _cached_rmat(scale: int, cache_dir: str, record: bool = False):
     """rmat_matrix(scale, 16, 42) on the card, read from its cache file
-    (generation refused); prints the file, the whole call and then the
-    cache load alone. `steps` goes to Matrix.from_coo, so its first step
-    starts with the call. Returns the Matrix."""
+    (generation refused); prints the file, the cache load alone and the
+    whole call. With `record`, a utils.profiling.MemorySteps made after
+    the cache load hears the build's steps. Returns the Matrix and the
+    recorder (None without `record`)."""
     import os
 
     import torch
 
     from graphblast_tpu_torch.io.rmat import cache_path, load_coo, rmat_matrix
+    from graphblast_tpu_torch.utils.profiling import MemorySteps
 
     path = cache_path(scale, 16, 42, cache_dir)
     t0 = time.perf_counter()
-    with _no_generation():
-        A = rmat_matrix(scale, 16, seed=42, device="cuda",
-                        cache_dir=cache_dir, steps=steps)
-    torch.cuda.synchronize()
-    total_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
     load_coo(path)
     load_s = time.perf_counter() - t0
+    rec = MemorySteps() if record else None
+    t0 = time.perf_counter()
+    with _no_generation():
+        A = rmat_matrix(scale, 16, seed=42, device="cuda",
+                        cache_dir=cache_dir, steps=rec)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
     if (A.nrows, A.nvals) != (1 << scale, RMAT_NNZ[scale]):
         raise AssertionError(f"rmat{scale}: n={A.nrows} nnz={A.nvals}, "
                              f"expected {1 << scale} and {RMAT_NNZ[scale]}")
@@ -4173,7 +4176,7 @@ def _cached_rmat(scale: int, cache_dir: str, steps=None):
           f"file ({os.path.getsize(path)} B) through rmat_matrix in "
           f"{total_s:.2f} s: the cache load alone {load_s:.2f} s, the "
           f"Matrix build on the card the rest, {total_s - load_s:.2f} s")
-    return A
+    return A, rec
 
 
 def phase_rmat_cache(cache_dir: str) -> None:
@@ -4222,10 +4225,7 @@ def phase_rmat22(cache_dir: str):
     from graphblast_tpu_torch.ops.kernels.value_pull import (plan_for,
                                                              spmv_value_pull)
 
-    from graphblast_tpu_torch.utils.profiling import MemorySteps
-
-    rec = MemorySteps()
-    A = _cached_rmat(22, cache_dir, steps=rec)
+    A, rec = _cached_rmat(22, cache_dir, record=True)
     for line in rec.lines("[build] rmat22", A.nvals):
         print(line)
     per_edge = rec.peak() / A.nvals
@@ -4343,7 +4343,7 @@ def phase_tc20(cache_dir: str, reps: int = 10):
     from graphblast_tpu_torch.ops.kernels.masked_intersect import (
         masked_intersect_count, masked_intersect_count_plain)
 
-    A = _cached_rmat(20, cache_dir)
+    A, _ = _cached_rmat(20, cache_dir)
     t0 = time.perf_counter()
     L = gt.tril(A)
     torch.cuda.synchronize()

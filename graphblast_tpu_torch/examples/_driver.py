@@ -45,7 +45,7 @@ def run_driver(name, description, run_fn, cpu_fn, verify_fn,
     if args.memory and A.device.type == "cuda":
         # the build's peak, told apart from the runs' below
         build_peak = torch.cuda.max_memory_allocated(A.device)
-        print(f"memory: {build_peak} B the most allocated by the build, "
+        print(f"build memory: {build_peak} B the most allocated, "
               f"{build_peak / max(A.nvals, 1):.2f} B an edge")
         torch.cuda.reset_peak_memory_stats(A.device)
 
@@ -84,7 +84,8 @@ def run_driver(name, description, run_fn, cpu_fn, verify_fn,
         # (cudaMemGetInfo, backend/cuda/util.hpp:26-33)
         free, total = torch.cuda.mem_get_info(A.device)
         runs_peak = torch.cuda.max_memory_allocated(A.device)
+        print(f"runs memory: {runs_peak} B the most allocated after the "
+              "build")
         print(f"memory: {total - free} B used of {total} B on the card, "
-              f"{max(build_peak, runs_peak)} B the most allocated "
-              f"({runs_peak} B after the build)")
+              f"{max(build_peak, runs_peak)} B the most allocated")
     return 0 if ok else 1

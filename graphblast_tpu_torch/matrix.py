@@ -52,16 +52,33 @@ def _check_index_range(nrows: int, ncols: int, nvals: int) -> None:
                          f"index arrays are int32, at most {_INDEX_MAX}")
 
 
-def _padded(a, nnz_pad: int, dtype: torch.dtype, device) -> torch.Tensor:
+def _padded(a, nnz_pad: int, dtype: torch.dtype, device,
+            bound: int = None):
     """A new (nnz_pad,) buffer of `dtype` on `device` holding the NumPy
-    array or tensor `a` and zeros after it, copied a chunk at a time."""
+    array or tensor `a` and zeros after it, copied a chunk at a time.
+
+    With `bound`, `a` holds ids. Where they are int64, which the copy into
+    int32 would wrap onto ids inside the shape, each chunk is held to [0,
+    bound) before its copy: a NumPy array raises here, and a tensor's
+    verdict comes back as a 0-d bool on its device, for `_build` to read
+    with its order test. Returns (the buffer, that verdict or None)."""
     out = torch.zeros(nnz_pad, dtype=dtype, device=device)
+    wide = bound is not None and (
+        a.dtype == np.int64 if isinstance(a, np.ndarray)
+        else a.dtype == torch.int64)
+    ok = None
+    if wide and isinstance(a, torch.Tensor):
+        ok = torch.ones((), dtype=torch.bool, device=a.device)
     for s, e in _chunks(a.shape[0]):
         piece = a[s:e]
         if isinstance(piece, np.ndarray):
+            if wide and (piece.min() < 0 or piece.max() >= bound):
+                raise ValueError(f"ids outside [0, {bound})")
             piece = torch.from_numpy(piece)
+        elif wide:
+            ok &= ((piece >= 0) & (piece < bound)).all()
         out[s:e].copy_(piece)
-    return out
+    return out, ok
 
 
 def _ascending(major: torch.Tensor, minor: torch.Tensor,
@@ -207,10 +224,10 @@ class Matrix:
         nvals = len(rows)
         _check_index_range(nrows, ncols, nvals)
         nnz_pad = max(round_up(max(nvals, 1), pad_to), pad_to)
-        bufs = [_padded(rows, nnz_pad, INDEX_DTYPE, dev),
-                _padded(cols, nnz_pad, INDEX_DTYPE, dev),
+        bufs = [_padded(rows, nnz_pad, INDEX_DTYPE, dev, nrows)[0],
+                _padded(cols, nnz_pad, INDEX_DTYPE, dev, ncols)[0],
                 _padded(vals, nnz_pad, torch.from_numpy(vals[:0]).dtype,
-                        dev)]
+                        dev)[0]]
         steps("copy")
         M = Matrix._build(bufs, nvals, nrows, ncols, dtype, fmt, steps)
         M.host_csr()
@@ -309,20 +326,24 @@ class Matrix:
         _check_index_range(nrows, ncols, nvals)
         nnz_pad = max(round_up(max(nvals, 1), pad_to), pad_to)
         dev = rows.device
-        bufs = [_padded(rows, nnz_pad, INDEX_DTYPE, dev),
-                _padded(cols, nnz_pad, INDEX_DTYPE, dev),
-                _padded(vals, nnz_pad, vals.dtype, dev)]
+        r, r_ok = _padded(rows, nnz_pad, INDEX_DTYPE, dev, nrows)
+        c, c_ok = _padded(cols, nnz_pad, INDEX_DTYPE, dev, ncols)
+        bufs = [r, c, _padded(vals, nnz_pad, vals.dtype, dev)[0]]
+        del r, c   # `_build` frees each buffer once no orientation holds it
         return Matrix._build(bufs, nvals, nrows, ncols, dtype, fmt,
-                             lambda name: None)
+                             lambda name: None, ids_ok=(r_ok, c_ok))
 
     @staticmethod
     def _build(bufs: list, nvals: int, nrows: int, ncols: int,
-               dtype: torch.dtype, fmt: SparseFormat, steps) -> "Matrix":
+               dtype: torch.dtype, fmt: SparseFormat, steps,
+               ids_ok: tuple = (None, None)) -> "Matrix":
         """The Matrix of the triplets in `bufs` = [rows, cols, vals], each
         a padded buffer on the device (ids int32, pads 0, the values in
         their own dtype) with the triplets in its first nvals entries. The
         list is emptied, so that each buffer is freed once no orientation
-        holds it.
+        holds it. `ids_ok` holds `_padded`'s verdicts on int64 row and
+        column ids (None where there was nothing to hold), read with the
+        order test.
 
         One test, read on the host with the order test of the other
         orientation, finds whether the triplets are already in (col, row)
@@ -343,8 +364,15 @@ class Matrix:
             fmt = default_sparse_format()
         rows, cols, vals = bufs
         m = nvals
-        csc_sorted, csr_sorted = torch.stack(
-            [_ascending(cols, rows, m), _ascending(rows, cols, m)]).tolist()
+        held = [(ok, bound) for ok, bound in zip(ids_ok, (nrows, ncols))
+                if ok is not None]
+        verdicts = torch.stack(
+            [_ascending(cols, rows, m), _ascending(rows, cols, m)]
+            + [ok for ok, _ in held]).tolist()
+        csc_sorted, csr_sorted = verdicts[:2]
+        for in_shape, (_, bound) in zip(verdicts[2:], held):
+            if not in_shape:
+                raise ValueError(f"ids outside [0, {bound})")
         steps("order test")
         bufs.clear()
         if csc_sorted:

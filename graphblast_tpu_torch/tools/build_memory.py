@@ -7,14 +7,11 @@ schedule and bitmap plan (`plan_for_bitmap`), and runs pull-only BFS from
 `--source` `--runs` times.
 
     GRB_RMAT_CACHE_DIR=d python -m graphblast_tpu_torch.tools.build_memory \\
-        24 --seed 0 [--earlier]
+        24 --seed 0
 
-`--earlier` first builds the same graph by the earlier route (int64 ids on
-the card, each orientation by a stable sort of int64 (major, minor) keys,
-then a padded copy of every array), prints its steps too, and checks that
-both builds give equal tensors. Prints the card's name, one line a step
-(the most allocated above the build's start, in bytes and bytes an edge,
-and seconds) and last one JSON object. Needs a card.
+Prints the card's name, one line a step (the most allocated above the
+build's start, in bytes and bytes an edge, and seconds) and last one JSON
+object. Needs a card.
 """
 from __future__ import annotations
 
@@ -25,61 +22,6 @@ import sys
 import time
 
 import numpy as np
-
-
-def earlier_build(rows, cols, vals, n: int, steps, device="cuda"):
-    """The earlier build of a square Matrix on `device`, step by step, kept
-    to be measured beside `Matrix.from_coo`: about 80 B an edge at its
-    peak on the card."""
-    import torch
-
-    from ..matrix import LEAVES, Matrix
-    from ..types import INDEX_DTYPE, TILE, round_up
-
-    def put(a, np_dtype=None):
-        return torch.from_numpy(np.array(a, dtype=np_dtype)).to(device)
-
-    r, c, v = put(rows, np.int64), put(cols, np.int64), put(vals)
-    nvals = int(r.shape[0])
-    nnz_pad = max(round_up(max(nvals, 1), TILE), TILE)
-    steps("copy")
-
-    def orient(major, minor, val):
-        order = torch.sort(major * n + minor, stable=True).indices
-        sorted_major = major[order]
-        ptr = torch.searchsorted(
-            sorted_major, torch.arange(n + 1, device=major.device),
-            out_int32=True)
-        return (ptr, minor[order].to(INDEX_DTYPE),
-                sorted_major.to(INDEX_DTYPE), val[order])
-
-    def pad(a, fill, dtype=INDEX_DTYPE):
-        out = torch.full((nnz_pad,), fill, dtype=dtype, device=a.device)
-        out[: a.shape[0]] = a
-        return out
-
-    csr = orient(r, c, v)
-    steps("csr")
-    csc = orient(c, r, v)
-    steps("csc")
-    symmetric = bool((csr[0] == csc[0]).all() & (csr[1] == csc[1]).all()
-                     & (csr[3] == csc[3]).all())
-    steps("symmetry test")
-    t = dict(row_ptr=csr[0], col_ind=pad(csr[1], 0), row_ind=pad(csr[2], n),
-             val=pad(csr[3], 0, torch.float32))
-    if symmetric:
-        t.update(col_ptr=t["row_ptr"], csc_row_ind=t["col_ind"],
-                 csc_col_ind=t["row_ind"], csc_val=t["val"])
-    else:
-        t.update(col_ptr=csc[0], csc_row_ind=pad(csc[1], 0),
-                 csc_col_ind=pad(csc[2], n),
-                 csc_val=pad(csc[3], 0, torch.float32))
-    steps("pads")
-    M = Matrix(n, n, nvals, **{k: t[k] for k in LEAVES}, symmetric=symmetric)
-    M._host_csr = M._fetch(M.row_ptr, M.col_ind, M.val)
-    M._host_csc = M._fetch(M.col_ptr, M.csc_row_ind, M.csc_val)
-    steps("host copies")
-    return M
 
 
 def _load(scale: int, edge_factor: int, seed: int):
@@ -106,7 +48,6 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--source", type=int, default=0)
     ap.add_argument("--runs", type=int, default=5)
-    ap.add_argument("--earlier", action="store_true")
     args = ap.parse_args(argv)
 
     import torch
@@ -126,27 +67,9 @@ def main(argv=None) -> int:
     print(f"{label}: n={n} nnz={nnz}, COO on the host in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     out = dict(scale=args.scale, seed=args.seed, n=n, nnz=nnz)
-    want = None
-    if args.earlier:
-        rec = MemorySteps()
-        E = earlier_build(rows, cols, vals, n, rec)
-        print("\n".join(rec.lines(f"{label} earlier", nnz)), flush=True)
-        out["earlier"] = dict(rec=[list(r) for r in rec.rows],
-                              peak=rec.peak())
-        want = {k: getattr(E, k).cpu() for k in gt.matrix.LEAVES}
-        want.update(symmetric=E.symmetric)
-        del E
-        torch.cuda.empty_cache()
     rec = MemorySteps()
     A = gt.Matrix.from_coo(rows, cols, vals, n, n, device="cuda", steps=rec)
     build_steps = [name for name, _, _ in rec.rows]
-    if want is not None:
-        same = A.symmetric == want["symmetric"] and all(
-            torch.equal(getattr(A, k).cpu(), want[k])
-            for k in gt.matrix.LEAVES)
-        out["same_tensors"] = same
-        print(f"{label}: both builds give equal tensors: {same}", flush=True)
-        rec("comparison")
     plan_for_bitmap(A, transpose=True)
     rec("schedule and plan")
     desc = gt.BFS_TUNED.replace(mxv_mode=gt.Direction.PULLONLY)
@@ -158,7 +81,7 @@ def main(argv=None) -> int:
     out.update(steps=[list(r) for r in rec.rows], reached=reached,
                build_peak=rec.peak(build_steps), peak=rec.peak())
     print(json.dumps(out), flush=True)
-    return 0 if out.get("same_tensors", True) else 1
+    return 0
 
 
 if __name__ == "__main__":

@@ -238,6 +238,26 @@ def test_index_range_and_ids_outside_shape_raise():
         tgb.Matrix.from_coo([0, 5], [1, 2], [1.0, 2.0], 4, 4, device="cpu")
 
 
+@pytest.mark.parametrize("source", ["numpy", "tensor"])
+@pytest.mark.parametrize("side", ["rows", "cols"])
+def test_int64_ids_past_int32_raise(source, side):
+    """An int64 id of 2^32 + 1 would wrap to 1 in the int32 buffers, inside
+    the shape: from_coo (NumPy ids) and from_device_coo (tensor ids) raise
+    instead."""
+    ids = {"rows": np.array([0, 2], np.int64),
+           "cols": np.array([1, 2], np.int64)}
+    ids[side][1] = 2 ** 32 + 1
+    vals = np.array([1.0, 2.0], np.float32)
+    with pytest.raises(ValueError, match="outside"):
+        if source == "numpy":
+            tgb.Matrix.from_coo(ids["rows"], ids["cols"], vals, 4, 4,
+                                device="cpu")
+        else:
+            tgb.Matrix.from_device_coo(torch.from_numpy(ids["rows"]),
+                                       torch.from_numpy(ids["cols"]),
+                                       torch.from_numpy(vals), 4, 4)
+
+
 @pytest.mark.parametrize("kind", ["asymmetric", "duplicates", "symmetric"])
 @pytest.mark.parametrize("shuffle_rows", [False, True])
 def test_from_device_csr_equals_jax(kind, shuffle_rows, chunk):
@@ -297,25 +317,6 @@ def test_fuzz_random_coo_equals_jax(seed, n, m, sym, order, chunk, fmt):
         tmatrix._CHUNK = old
     _same(jgb.Matrix.from_coo(r, c, v, n, n,
                               fmt=getattr(jgb.SparseFormat, fmt)), T)
-
-
-@pytest.mark.parametrize("scale", [5, 8])
-def test_earlier_build_equals_from_coo(scale):
-    """build_memory's earlier build, measured beside from_coo on the card,
-    gives the same tensors (so the tool's comparison can hold), step by
-    step."""
-    r, c = rmat_edges(scale, 16, 0)
-    r, c, v = canonicalize_coo(r, c, np.ones(len(r), np.float32),
-                               undirected=True, remove_self_loops=True)
-    n = 1 << scale
-    seen = []
-    E = build_memory.earlier_build(r, c, v, n, seen.append, device="cpu")
-    assert seen == ["copy", "csr", "csc", "symmetry test", "pads",
-                    "host copies"]
-    T = tgb.Matrix.from_coo(r, c, v, n, n, device="cpu")
-    assert E.symmetric and T.symmetric
-    for leaf in tmatrix.LEAVES:
-        assert torch.equal(getattr(E, leaf), getattr(T, leaf)), leaf
 
 
 def test_build_memory_needs_a_card(monkeypatch):
