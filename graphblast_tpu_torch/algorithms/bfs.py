@@ -31,6 +31,7 @@ from ..ops.dispatch import LAZY_SPARSE_CAP, DualFrontier, mxv_dual
 from ..ops.kernels.bitmap_pull import plan_for_bitmap
 from ..semiring import LogicalOrAndSemiring
 from ..types import INDEX_DTYPE, Direction
+from ..utils.profiling import annotate
 from ..vector import Vector
 from .common import (TightTimer, dense_result, edge_cap_for, print_dirinfo,
                      print_iter_row)
@@ -121,13 +122,15 @@ def bfs_pull_plan(A: Matrix, desc: Descriptor = BFS_TUNED):
 def _bfs_levels(A: Matrix, source: int, desc: Descriptor, plan,
                 stepped: bool) -> torch.Tensor:
     """The BFS loop from `source`: the (n,) float32 levels. The stepped
-    mode prints each iteration's row and direction switches as desc asks."""
+    mode prints each iteration's row and direction switches as desc asks.
+    Under a profiler each iteration is a "gb.bfs.iter" span holding its
+    host read of succ, "gb.bfs.read"."""
     lazy = _lazy_frontier(desc.mxv_mode)
     kw = dict(struconly=desc.structure_only, switchpoint=desc.switchpoint,
               mode=desc.mxv_mode, edge_cap=edge_cap_for(A, desc),
               sort_push=desc.sort_push, tiers=desc.push_tiers, lazy=lazy)
     n = A.nrows
-    timer = TightTimer()
+    timer = TightTimer() if stepped else None
     v = torch.zeros(n + 1, dtype=torch.float32, device=A.device)
     f = _initial_frontier(n, source, A.device,
                           with_values=not desc.structure_only, lazy=lazy)
@@ -135,16 +138,19 @@ def _bfs_levels(A: Matrix, source: int, desc: Descriptor, plan,
     prev_push = None
     it, succ = 1, 1
     while succ > 0 and it <= desc.max_niter:
-        timer.start()
-        v, f, succ_t, used_push = _bfs_step(A, v, f, it, plan=plan, **kw)
-        succ = int(succ_t)          # the loop's host read
-        if stepped:
-            ms = timer.stop(v, f.dense)
-            unvisited -= succ
-            print_dirinfo(succ, n, used_push, prev_push, desc.dirinfo)
-            prev_push = used_push
-            print_iter_row(it, succ, n, unvisited, used_push, ms,
-                           desc.timing)
+        with annotate("gb.bfs.iter"):
+            if stepped:
+                timer.start()
+            v, f, succ_t, used_push = _bfs_step(A, v, f, it, plan=plan, **kw)
+            with annotate("gb.bfs.read"):
+                succ = int(succ_t)          # the loop's host read
+            if stepped:
+                ms = timer.stop(v, f.dense)
+                unvisited -= succ
+                print_dirinfo(succ, n, used_push, prev_push, desc.dirinfo)
+                prev_push = used_push
+                print_iter_row(it, succ, n, unvisited, used_push, ms,
+                               desc.timing)
         it += 1
     return v[:n]
 

@@ -27,6 +27,7 @@ from ..operations import (eWiseMult_matrix_scalar, reduce_matrix_to_vector,
 from ..ops.kernels.value_pull import ValuePlan, plan_for, spmv_value_pull
 from ..semiring import (PlusDividesSemiring, PlusMonoid,
                         PlusMultipliesSemiring)
+from ..utils.profiling import annotate
 from ..vector import Vector
 from .common import TightTimer, dense_result, print_iter_row
 
@@ -71,18 +72,23 @@ def _pr_step(A: Matrix, p: torch.Tensor, alpha: float, plan: ValuePlan):
 
 def _pr_fused(A: Matrix, plan: ValuePlan, *, alpha: float, eps: float,
               max_niter: int, timing: int = 0):
-    """The convergence loop. Returns (p, iterations run, last err)."""
+    """The convergence loop. Returns (p, iterations run, last err). Under
+    a profiler each iteration is a "gb.pr.iter" span holding its host read
+    of err, "gb.pr.read"."""
     n = A.nrows
     p = torch.full((n,), 1.0 / n, dtype=torch.float32, device=A.device)
-    timer = TightTimer()
+    timer = TightTimer() if timing else None
     it, err = 1, 1.0
     while err > eps and it <= max_niter:
-        timer.start()
-        p, err_t = _pr_step(A, p, alpha, plan)
-        err = float(err_t)          # the one host sync of the iteration
-        if timing:
-            print_iter_row(it, f"{err:.3e}", n, n, False, timer.stop(p),
-                           timing)
+        with annotate("gb.pr.iter"):
+            if timing:
+                timer.start()
+            p, err_t = _pr_step(A, p, alpha, plan)
+            with annotate("gb.pr.read"):
+                err = float(err_t)      # the one host sync of the iteration
+            if timing:
+                print_iter_row(it, f"{err:.3e}", n, n, False, timer.stop(p),
+                               timing)
         it += 1
     return p, it - 1, err
 

@@ -42,6 +42,7 @@ import torch
 from ..matrix import Matrix
 from ..semiring import Semiring
 from ..types import INDEX_DTYPE, Direction, round_up
+from ..utils.profiling import annotate
 from ..vector import dense_from_sparse, sparse_from_dense
 from .kernels.bitmap_pull import BitmapPlan, pack_bitmap, spmv_bitmap_pull
 from .kernels.minmax_pull import minmax_supported
@@ -171,7 +172,9 @@ def _host_state(push_ptr: torch.Tensor, f: DualFrontier, identity,
     parts = [deg_total, f.snvals, f.use_sparse]
     flags = [flag for flag in (f.dense_ok, f.sparse_ok)
              if isinstance(flag, torch.Tensor)]
-    vals = torch.stack([t.to(torch.int64) for t in parts + flags]).tolist()
+    vals = torch.stack([t.to(torch.int64) for t in parts + flags])
+    with annotate("gb.dispatch.read"):
+        vals = vals.tolist()
     deg_total, snvals, use_sparse = vals[0], vals[1], bool(vals[2])
     read = iter(bool(x) for x in vals[3:])
     dense_ok, sparse_ok = (flag if isinstance(flag, bool) else next(read)
@@ -242,14 +245,14 @@ def _sparsify(f: DualFrontier, identity) -> tuple:
     return sind[:k], (sval[:k] if sval is not None else None), nv
 
 
-def _push(push_csr, fin, deg_total: int, snvals: int, tiers: list,
+def _push(push_csr, fin, deg_total: int, cap: int, whole: bool,
           semiring: Semiring, identity, n_out: int, *, mask_dense, mask_scmp,
           structure_only, sort_push, postprocess, postprocess_sparse, lazy,
           sp, stale_dense):
     """One push over push_csr, the (ptr, ind, val) of A's CSR for vxm and
     of its CSC for mxv, from the sparse image `fin` = (sind, sval, snvals),
-    in the smallest tier that holds the frontier. Returns (y, sind, sval,
-    nv, dense_ok, sparse_ok).
+    in a workspace of `cap` lanes (`pick_tier`'s; `whole` where that is the
+    last tier). Returns (y, sind, sval, nv, dense_ok, sparse_ok).
 
     Lazy: the sparse image compacts into sp slots and the dense image is
     the stale one carried in. A push whose degree total is at most sp
@@ -259,10 +262,9 @@ def _push(push_csr, fin, deg_total: int, snvals: int, tiers: list,
     device, and the flags are the tensors (nv > sp, nv <= sp)."""
     push_ptr, push_ind, push_val = push_csr
     f_sind, f_sval, f_snvals = fin
-    cap = pick_tier(tiers, deg_total, snvals)
     # a lower tier holds the whole frontier (snvals <= cap): every stage of
     # the expansion then scales with the tier, not with n
-    fs = f_sind[:cap] if cap < tiers[-1] else f_sind
+    fs = f_sind if whole else f_sind[:cap]
     fv = f_sval[:fs.shape[0]] if f_sval is not None else None
     with_vals = not structure_only
     if sort_push and (postprocess is None or postprocess_sparse is not None):
@@ -412,7 +414,11 @@ def mxv_dual(A: Matrix, f: DualFrontier, semiring: Semiring, identity, *,
     protocol, as the JAX loops ask for it.
 
     PUSHPULL and PUSHONLY read the frontier's state on the host once a
-    call (`_host_state`); PULLONLY reads nothing."""
+    call (`_host_state`); PULLONLY reads nothing. Under a profiler the
+    call records the spans "gb.dispatch.read" (that read), "gb.push" and
+    "gb.pull" (each direction's enqueue, the pull's re-sparsification
+    included); each push adds to the counters `mxv_dual.push_edges`,
+    `.push_lanes` and `.top_tier_pushes`."""
     mode = mode if mode is not None else Direction.PUSHPULL
     n_out, _, pull_ptr, pull_ind, pull_val = A.pull_csr(transpose)
     # push expands the input's adjacency: the other orientation
@@ -442,9 +448,10 @@ def mxv_dual(A: Matrix, f: DualFrontier, semiring: Semiring, identity, *,
     carry = (f.sind, f.sval, f.snvals)
     if mode == Direction.PULLONLY:
         # pull-only loops skip re-sparsifying: only push reads sind/sval
-        y, sind, sval, nv, _, _ = _finish_dense(
-            pull(_dense_image(f, identity, sp, f.dense_ok)), identity,
-            postprocess, with_vals, False, carry)
+        with annotate("gb.pull"):
+            y, sind, sval, nv, _, _ = _finish_dense(
+                pull(_dense_image(f, identity, sp, f.dense_ok)), identity,
+                postprocess, with_vals, False, carry)
         use_sparse, ratio = update_direction(nv, n_out, f.ratio, False,
                                              switchpoint, mode)
         return (DualFrontier(n_out, y, sind, sval, nv, ratio, use_sparse,
@@ -465,20 +472,37 @@ def mxv_dual(A: Matrix, f: DualFrontier, semiring: Semiring, identity, *,
             # the lazy carry (bigger frontiers are pull's regime)
             use_push = use_push and (sparse_ok or snvals <= sp)
     if use_push:
-        fin = carry if sparse_ok else _sparsify(f, identity)
-        y, sind, sval, nv, dense_ok, sparse_ok = _push(
-            push_csr, fin, deg_total, snvals, tiers, semiring, identity,
-            n_out, mask_dense=mask_dense, mask_scmp=mask_scmp,
-            structure_only=structure_only, sort_push=sort_push,
-            postprocess=postprocess, postprocess_sparse=postprocess_sparse,
-            lazy=lazy, sp=sp, stale_dense=f.dense)
+        cap = pick_tier(tiers, deg_total, snvals)
+        whole = cap == tiers[-1]
+        # host ints the read above brought: counting adds no sync
+        mxv_dual.push_edges += deg_total
+        mxv_dual.push_lanes += cap
+        mxv_dual.top_tier_pushes += whole
+        with annotate("gb.push"):
+            fin = carry if sparse_ok else _sparsify(f, identity)
+            y, sind, sval, nv, dense_ok, sparse_ok = _push(
+                push_csr, fin, deg_total, cap, whole, semiring, identity,
+                n_out, mask_dense=mask_dense, mask_scmp=mask_scmp,
+                structure_only=structure_only, sort_push=sort_push,
+                postprocess=postprocess,
+                postprocess_sparse=postprocess_sparse, lazy=lazy, sp=sp,
+                stale_dense=f.dense)
     else:
-        y, sind, sval, nv, dense_ok, sparse_ok = _finish_dense(
-            pull(_dense_image(f, identity, sp, dense_ok)), identity,
-            postprocess, with_vals, not lazy, carry)
+        with annotate("gb.pull"):
+            y, sind, sval, nv, dense_ok, sparse_ok = _finish_dense(
+                pull(_dense_image(f, identity, sp, dense_ok)), identity,
+                postprocess, with_vals, not lazy, carry)
     # hysteresis compares with the direction this call ran
     # (dispatch.py:448), not with the preference it was given
     use_sparse, ratio = update_direction(nv, n_out, f.ratio, use_push,
                                          switchpoint, mode)
     return (DualFrontier(n_out, y, sind, sval, nv, ratio, use_sparse,
                          dense_ok, sparse_ok), use_push)
+
+
+# the push's counters, read as the kernels' .launches are: the frontier's
+# degree total summed over the pushes, the workspace lanes of the tier each
+# took, and the pushes that took the last tier (edge_cap lanes)
+mxv_dual.push_edges = 0
+mxv_dual.push_lanes = 0
+mxv_dual.top_tier_pushes = 0

@@ -4,14 +4,26 @@ The reference's timing subsystem: GpuTimer (backend/cuda/util.hpp:92-120)
 is `TightTimer` in algorithms/common.py; the cudaProfilerStart/Stop hooks
 (example/gbfs.cu:98,106) are `trace()` below, a torch.profiler trace of the
 host and, on a card, the device, exported as a Chrome trace. The CLI
-drivers expose it as --profile <dir>. `MemorySteps` records the card's
-memory by step of a Matrix build (the `steps=` of `Matrix.from_coo`).
+drivers expose it as --profile <dir>. `annotate` names the program's own
+spans in such a trace (the BFS and PageRank loops, the dispatch's host
+read, the push and the pull); it costs one check when no profiler runs.
+`MemorySteps` records the card's memory by step of a Matrix build (the
+`steps=` of `Matrix.from_coo`).
 """
 from __future__ import annotations
 
 import contextlib
 import os
 import time
+
+from torch.autograd import _profiler_enabled
+
+try:
+    from torch._C._profiler import _RecordFunctionFast
+except ImportError:      # older torch: spans are no-ops
+    _RecordFunctionFast = None
+
+_NO_SPAN = contextlib.nullcontext()
 
 
 @contextlib.contextmanager
@@ -39,10 +51,19 @@ def trace(log_dir: str | None):
 
 
 def annotate(name: str):
-    """A named span inside a trace (torch.profiler.record_function)."""
-    from torch.profiler import record_function
+    """A named span on the calling thread: `with annotate("gb.push"): ...`.
 
-    return record_function(name)
+    With no profiler running it returns one shared no-op context manager,
+    which allocates and records nothing. Under a profiler (`trace()`, or
+    any torch.profiler.profile) it returns a `_RecordFunctionFast` range: a
+    host op on the profiler's clock, nested in the span that encloses it.
+    Unlike record_function it is no user annotation, so on a card the
+    profiler makes no device-side copy of it, and the device's busy time
+    in a trace holds kernels and copies only. Where the installed torch
+    lacks `_RecordFunctionFast`, every span is the no-op."""
+    if _RecordFunctionFast is None or not _profiler_enabled():
+        return _NO_SPAN
+    return _RecordFunctionFast(name)
 
 
 class MemorySteps:

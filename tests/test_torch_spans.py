@@ -1,0 +1,174 @@
+"""The port's own spans and counters (`utils/profiling.annotate`, the BFS
+and PageRank loops, `ops/dispatch.mxv_dual`) on the CPU, with no JAX.
+
+`annotate` is one shared no-op where no profiler runs; under one it records
+a host op ("cpu_op" in the Chrome trace, never a user annotation, of which
+the profiler makes a device-side copy on a card). The BFS loop records
+"gb.bfs.iter" an iteration, holding its "gb.bfs.read" and one "gb.push" or
+"gb.pull"; PageRank "gb.pr.iter" holding "gb.pr.read". The push's counters
+on `mxv_dual` equal a plain reckoning from the levels of the same run.
+"""
+import importlib
+import json
+import os
+
+import numpy as np
+import pytest
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+import graphblast_tpu_torch as gt
+from graphblast_tpu_torch.algorithms.pr import _pr_fused, prepare_pr_plan
+from graphblast_tpu_torch.io.rmat import rmat_matrix
+from graphblast_tpu_torch.ops import dispatch
+from graphblast_tpu_torch.utils import profiling
+
+DATA = os.path.join(os.path.dirname(__file__), "..", "data", "small")
+CHESAPEAKE = os.path.join(DATA, "chesapeake.mtx")
+COUNTERS = ("push_edges", "push_lanes", "top_tier_pushes")
+# the module: the package's name `bfs` is the function
+bfs_mod = importlib.import_module("graphblast_tpu_torch.algorithms.bfs")
+
+
+@pytest.fixture(scope="module")
+def rmat10():
+    return rmat_matrix(10, 16, seed=1, device="cpu")
+
+
+@pytest.fixture(scope="module")
+def chesapeake():
+    return gt.Matrix.from_mtx(CHESAPEAKE, device="cpu")
+
+
+def _profiled(fn):
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        out = fn()
+    return prof, out
+
+
+def _spans(prof, name):
+    return [e for e in prof.events() if e.name == name]
+
+
+def _children(ev, name):
+    return [c for c in ev.cpu_children if c.name == name]
+
+
+def test_annotate_is_one_shared_no_op_without_a_profiler():
+    assert not torch.autograd._profiler_enabled()
+    first = profiling.annotate("gb.a")
+    assert profiling.annotate("gb.b") is first
+    with first:
+        with profiling.annotate("gb.c"):     # nests and re-enters
+            pass
+
+
+def test_annotate_records_a_host_op_under_a_profiler(tmp_path):
+    prof, _ = _profiled(lambda: _nested_spans())
+    (outer,) = _spans(prof, "gb.outer")
+    assert [c.name for c in outer.cpu_children] == ["gb.inner"]
+    assert not outer.is_user_annotation
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    cats = {e["name"]: e.get("cat") for e in
+            json.loads(path.read_text())["traceEvents"]
+            if e.get("name", "").startswith("gb.")}
+    assert cats == {"gb.outer": "cpu_op", "gb.inner": "cpu_op"}
+
+
+def _nested_spans():
+    with profiling.annotate("gb.outer"):
+        with profiling.annotate("gb.inner"):
+            torch.ones(4).sum()
+
+
+def test_annotate_without_the_fast_range_is_the_no_op(monkeypatch):
+    monkeypatch.setattr(profiling, "_RecordFunctionFast", None)
+    prof, span = _profiled(lambda: profiling.annotate("gb.gone"))
+    assert span is profiling.annotate("gb.other")
+    assert not _spans(prof, "gb.gone")
+
+
+@pytest.mark.parametrize("graph,source", [("chesapeake", 0),
+                                          ("rmat10", 0), ("rmat10", 517)])
+@pytest.mark.parametrize("mode", ["fused", "stepped"])
+def test_bfs_spans_one_an_iteration(request, monkeypatch, graph, source,
+                                    mode):
+    """A PUSHPULL bfs(): one "gb.bfs.iter" an iteration, each holding one
+    "gb.bfs.read", one "gb.dispatch.read" and the "gb.push" or "gb.pull"
+    of its mxv_dual, in the direction that call ran."""
+    A = request.getfixturevalue(graph)
+    ran = []
+    inner = bfs_mod.mxv_dual
+
+    def recording(*args, **kw):
+        out = inner(*args, **kw)
+        ran.append("gb.push" if out[1] else "gb.pull")
+        return out
+
+    monkeypatch.setattr(bfs_mod, "mxv_dual", recording)
+    prof, v = _profiled(lambda: gt.algorithms.bfs(A, source, mode=mode))
+    iters = sorted(_spans(prof, "gb.bfs.iter"),
+                   key=lambda e: e.time_range.start)
+    assert len(iters) == int(v.to_numpy().max()) == len(ran)
+    assert "gb.push" in ran
+    for ev, direction in zip(iters, ran):
+        assert len(_children(ev, "gb.bfs.read")) == 1
+        assert len(_children(ev, "gb.dispatch.read")) == 1
+        assert [c.name for c in ev.cpu_children
+                if c.name in ("gb.push", "gb.pull")] == [direction]
+    for name in ("gb.bfs.iter", "gb.bfs.read", "gb.dispatch.read",
+                 "gb.push", "gb.pull"):
+        assert all(not e.is_user_annotation for e in _spans(prof, name))
+
+
+def test_pr_spans_one_an_iteration(chesapeake):
+    """pr(): one "gb.pr.iter" an iteration, each holding one
+    "gb.pr.read"; as many as the loop runs."""
+    prof, _ = _profiled(lambda: gt.algorithms.pr(chesapeake, eps=1e-6))
+    _, iters, _ = _pr_fused(chesapeake, prepare_pr_plan(chesapeake),
+                            alpha=0.85, eps=1e-6,
+                            max_niter=gt.DEFAULT.max_niter)
+    spans = _spans(prof, "gb.pr.iter")
+    assert 1 < len(spans) == iters
+    assert all(len(_children(e, "gb.pr.read")) == 1 and
+               not e.is_user_annotation for e in spans)
+    assert len(_spans(prof, "gb.pr.read")) == iters
+
+
+def test_push_counters_match_a_plain_reckoning(rmat10):
+    """PUSHONLY BFS from a few roots: every iteration pushes the frontier
+    of its level, so Σ frontier degree, Σ pick_tier lanes and the pushes
+    that took the last tier follow from the levels. The roots make every
+    tier fire."""
+    A = rmat10
+    desc = gt.BFS_TUNED.replace(mxv_mode=gt.Direction.PUSHONLY)
+    deg = np.diff(A.row_ptr.numpy().astype(np.int64))[:A.nrows]
+    tiers = dispatch.push_tiers(A.nnz_pad, desc.push_tiers)
+    assert len(tiers) == 3
+    before = [getattr(dispatch.mxv_dual, c) for c in COUNTERS]
+    want, caps = [0, 0, 0], set()
+    for source in range(0, A.nrows, 64):
+        levels = gt.algorithms.bfs(A, source, desc).to_numpy()
+        for it in range(1, int(levels.max()) + 1):
+            front = levels == it
+            total = int(deg[front].sum())
+            cap = dispatch.pick_tier(tiers, total, int(front.sum()))
+            caps.add(cap)
+            want[0] += total
+            want[1] += cap
+            want[2] += cap == tiers[-1]
+    got = [getattr(dispatch.mxv_dual, c) - b
+           for c, b in zip(COUNTERS, before)]
+    assert caps == set(tiers)
+    assert got == want
+
+
+def test_pulls_move_no_push_counter(chesapeake):
+    desc = gt.BFS_TUNED.replace(mxv_mode=gt.Direction.PULLONLY)
+    before = [getattr(dispatch.mxv_dual, c) for c in COUNTERS]
+    prof, v = _profiled(lambda: gt.algorithms.bfs(chesapeake, 0, desc))
+    assert [getattr(dispatch.mxv_dual, c) for c in COUNTERS] == before
+    assert len(_spans(prof, "gb.pull")) == int(v.to_numpy().max())
+    assert not _spans(prof, "gb.push") and not _spans(prof,
+                                                      "gb.dispatch.read")
