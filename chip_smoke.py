@@ -141,30 +141,32 @@ Phases, each of which fails the run on error (each prints its seconds):
      mxm (PlusMultiplies, MinimumPlus) and the trace (MinimumPlus) send
      every edge down the search route, one launch each, equal to their
      plain versions;
-  18. push BFS: PUSHONLY BFS (BFS_TUNED's structure-only MERGE push over
-     the CSR) at rmat18 from the 8 hubs: levels equal to the golden, K6
-     launched 8 times an iteration (2 degree gathers, 5 in the expansion,
-     1 of the mask; all at ascending indices) and no other kernel; ms/run
+  18. push BFS: PUSHONLY BFS (BFS_TUNED's structure-only push over the
+     CSR: the bitmap push P) at rmat18 from the 8 hubs: levels equal to
+     the golden, P launched once an iteration and no other kernel; ms/run
      (median and tail) and GTEPS beside phase 3's pull; the stepped trace
      of the first hub (each iteration's frontier, degree total, workspace
      tier, host reads counted by torch.cuda.set_sync_debug_mode and ms);
-     one push iteration at the hub's level-2 frontier split into the
-     expansion, the sort, the fill and the compaction, each timed alone
-     by CUDA events, beside mxv_dual whole; and K6 at the push's largest
-     gather (the adjacency ids at the expansion's edge ids) torch.equal
-     to its plain version, to a second launch and to torch.index_select,
-     timed beside both with its bound (the `gather_push` entry);
+     one push iteration at the hub's level-2 frontier: the sort push
+     split into the expansion, the sort, the fill and the compaction,
+     each timed alone by CUDA events, beside mxv_dual whole and P alone
+     (P and its plain version equal to mxv_dual; the `bitmap_push` entry,
+     with its bound and the sort push's steps); and K6 at the sort push's
+     largest gather (the adjacency ids at the expansion's edge ids)
+     torch.equal to its plain version, to a second launch and to
+     torch.index_select, timed beside both with its bound (the
+     `gather_push` entry, its launches the push SSSP's);
   19. push SSSP: PUSHONLY SSSP at rmat18 from the 8 hubs: distances equal
      to the golden, K6 launched 11 times an iteration (the expansion's 7
      with the two value gathers, 1 Min fill, 1 filter) and no K4; ms/run
      and GTEPS beside phase 7's pull;
   20. grid_matrix(512) (n = 262,144, diameter 1,022): BFS from vertex 0,
-     PUSHONLY (8 K6 an iteration) and PULLONLY (one K1 an iteration),
+     PUSHONLY (one P an iteration) and PULLONLY (one K1 an iteration),
      levels equal to the golden in both; ms/run and ms an iteration;
   21. PUSHPULL BFS: the default bfs(A, s) (BFS_TUNED, eager) at rmat18
      from the 8 hubs: levels equal to the golden; K1 once a pull iteration
-     and K6 8 times a push iteration (the directions from a stepped replay
-     of each source), no other kernel, and in the stepped mode K5 and K6
+     and P once a push iteration (the directions from a stepped replay of
+     each source), no other kernel, and in the stepped mode K5 and K6
      once a pull iteration; at most 2 host reads an iteration
      (torch.cuda.set_sync_debug_mode); ms/run (median and tail) and GTEPS
      beside phases 3 and 18; the top hub's stepped trace (direction,
@@ -487,6 +489,8 @@ def _window_text(w: dict) -> str:
 
 def _wrappers():
     from graphblast_tpu_torch.ops.kernels.bitmap_pull import spmv_bitmap_pull
+    from graphblast_tpu_torch.ops.kernels.bitmap_push import (
+        spmspv_push_bitmap)
     from graphblast_tpu_torch.ops.kernels.gather import gather_1d
     from graphblast_tpu_torch.ops.kernels.masked_intersect import (
         masked_intersect_count, masked_intersect_fold)
@@ -499,7 +503,8 @@ def _wrappers():
             "monoid_pull": spmv_monoid, "gather": gather_1d,
             "orpull_csum": orpull_bit_csum, "minmax_pull": spmv_minmax_pull,
             "masked_intersect_count": masked_intersect_count,
-            "masked_intersect_fold": masked_intersect_fold}
+            "masked_intersect_fold": masked_intersect_fold,
+            "bitmap_push": spmspv_push_bitmap}
 
 
 def _reset_counts():
@@ -2128,8 +2133,10 @@ def phase_tc_past_budget(n: int = 1 << 21, m: int = 3_000_000,
 
 
 # ---------------------------------------------------------------- the push
-BFS_PUSH_K6 = 8      # 2 degree gathers, 5 in the expansion, 1 of the mask
+BFS_PUSH_K6 = 8      # lazy: 2 degree gathers, 5 in the expansion, 1 mask
 SSSP_PUSH_K6 = 11    # 2, 5 + 2 value gathers, 1 Min fill, 1 filter
+# an eager BFS push (structure-only LogicalOr) is one bitmap push, no K6
+BITMAP = "bitmap_push"
 
 
 def _count_syncs(fn):
@@ -2279,12 +2286,18 @@ def _trace_text(rows) -> str:
 
 def _expected_launches(sums, pull_kernel, push_k6) -> dict:
     """The launches of the runs the trace summaries describe: the pull
-    kernel once a pull, push_k6 K6 a push and LAZY_DEG_K6 more wherever the
-    degree total read the sparse image (only under the lazy protocol)."""
-    return {pull_kernel: sum(x["pulls"] for x in sums),
-            "gather_boundary": sum(push_k6 * x["pushes"]
-                                   + LAZY_DEG_K6 * x["sparse_degs"]
-                                   for x in sums)}
+    kernel once a pull, push_k6 K6 a push (or, for push_k6 BITMAP, one
+    bitmap push) and LAZY_DEG_K6 more wherever the degree total read the
+    sparse image (only under the lazy protocol)."""
+    pushes = sum(x["pushes"] for x in sums)
+    out = {pull_kernel: sum(x["pulls"] for x in sums),
+           "gather_boundary": sum(LAZY_DEG_K6 * x["sparse_degs"]
+                                  for x in sums)}
+    if push_k6 == BITMAP:
+        out[BITMAP] = pushes
+    else:
+        out["gather_boundary"] += push_k6 * pushes
+    return out
 
 
 def _push_split(A, golden_hub, reps: int = 50):
@@ -2301,6 +2314,8 @@ def _push_split(A, golden_hub, reps: int = 50):
     from graphblast_tpu_torch.ops.dispatch import (
         DualFrontier, _frontier_degree_total, mxv_dual, pick_tier,
         push_tiers)
+    from graphblast_tpu_torch.ops.kernels.bitmap_push import (
+        spmspv_push_bitmap, spmspv_push_bitmap_plain)
     from graphblast_tpu_torch.ops.gather_dispatch import take
     from graphblast_tpu_torch.ops.spmv import mask_pass
 
@@ -2344,18 +2359,38 @@ def _push_split(A, golden_hub, reps: int = 50):
                         mask_scmp=True, structure_only=True,
                         mode=gt.Direction.PUSHONLY)
 
+    snv = int(f.snvals)
+
+    def bitmap():
+        return spmspv_push_bitmap(ptr, ind, f.sind, snv, deg_total, v, True,
+                                  n)
+
     want = whole()[0]
     got = compaction()
-    if not (torch.equal(got[0], want.dense)
-            and torch.equal(got[1], want.sind)):
-        raise AssertionError("the push's steps, run one by one, differ "
-                             "from mxv_dual")
+    mine = bitmap()
+    plain = spmspv_push_bitmap_plain(ptr, ind, f.sind, snv, deg_total, v,
+                                     True, n)
+    for name, out in (("the sort push's steps, run one by one,", got),
+                      ("the bitmap push", mine),
+                      ("the bitmap push's plain version", plain)):
+        if not (torch.equal(out[0], want.dense)
+                and torch.equal(out[1], want.sind)):
+            raise AssertionError(f"{name} differ from mxv_dual")
     split = {name: _event_ms(fn, reps) for name, fn in (
         ("expansion", expansion), ("sort", sort), ("fill", fill),
-        ("compaction", compaction), ("mxv_dual", whole))}
+        ("compaction", compaction), ("mxv_dual", whole),
+        ("bitmap_push", bitmap))}
+    # P's least bytes: the column ids of the frontier's edges, the mask
+    # read, y and sind written
+    bound_ms = 4 * (deg_total + 3 * n) / HBM_BYTES_PER_S * 1e3
+    p_row = dict(ms=split["bitmap_push"], bound_ms=bound_ms,
+                 plain_ms=_event_ms(lambda: spmspv_push_bitmap_plain(
+                     ptr, ind, f.sind, snv, deg_total, v, True, n), 10),
+                 sort_push_ms=split["expansion"] + split["sort"]
+                 + split["fill"] + split["compaction"])
     edge_idx = spmspv.expand_lanes(ptr, ind.shape[0], fs, f.snvals, cap)[1]
     return split, dict(frontier=int(f.snvals), deg_total=deg_total, cap=cap,
-                       new=int(want.snvals)), edge_idx
+                       new=int(want.snvals)), edge_idx, p_row
 
 
 def _gather_push(A, edge_idx):
@@ -2408,11 +2443,11 @@ def _check_levels(path, levels, goldens, sources):
 
 def phase_push_bfs(A, sources, goldens, reps: int = 10):
     """PUSHONLY BFS at rmat18 through the entry point from the hub sources:
-    levels equal to the golden, K6 BFS_PUSH_K6 times an iteration (all at
-    ascending indices) and no other kernel; ms/run and GTEPS; the stepped
-    trace of the first source (degree total, tier, host reads); one push
-    iteration's split at the hub's level-2 frontier; K6 at the push's
-    largest gather."""
+    levels equal to the golden, one bitmap push an iteration and no other
+    kernel; ms/run and GTEPS; the stepped trace of the first source
+    (degree total, tier, host reads); one push iteration at the hub's
+    level-2 frontier, the sort push split into its steps beside the bitmap
+    push (P's kernels entry); K6 at the sort push's largest gather."""
     import numpy as np
 
     import graphblast_tpu_torch as gt
@@ -2425,11 +2460,10 @@ def phase_push_bfs(A, sources, goldens, reps: int = 10):
     _reset_counts()
     levels = [bfs(A, int(s), desc).to_numpy() for s in sources]
     iters = [int(v.max()) for v in levels]
-    counts = _expect_launches("push BFS",
-                              {"gather_boundary": BFS_PUSH_K6 * sum(iters)})
+    counts = _expect_launches("push BFS", {BITMAP: sum(iters)})
     _check_levels("push BFS", levels, goldens, sources)
     print(f"[push bfs] {len(sources)} sources: levels == NumPy golden; "
-          f"iterations {iters}; launches {counts} ({BFS_PUSH_K6} K6 an "
+          f"iterations {iters}; launches {counts} (one bitmap push an "
           "iteration)")
     srcs = iter([int(s) for s in sources] * reps)
     per_s, tail = _timed_runs(lambda: bfs(A, next(srcs), desc),
@@ -2443,13 +2477,16 @@ def phase_push_bfs(A, sources, goldens, reps: int = 10):
     tiers = push_tiers(edge_cap_for(A, desc), desc.push_tiers)
     print(f"[push bfs] stepped trace from {int(sources[0])} (tiers {tiers}): "
           + _trace_text(_direction_trace(A, int(sources[0]), desc, "bfs")))
-    split, at, edge_idx = _push_split(A, goldens[0])
+    split, at, edge_idx, p_row = _push_split(A, goldens[0])
     print(f"[push bfs] one push iteration at the hub's level-2 frontier "
           f"({at['frontier']} vertices, deg_total {at['deg_total']}, tier "
           f"{at['cap']}, {at['new']} new): "
           + ", ".join(f"{k} {v:.6f} ms" for k, v in split.items())
-          + " (each step alone, CUDA events)")
-    return counts["gather_boundary"], per_s, _gather_push(A, edge_idx)
+          + " (each step alone, CUDA events; mxv_dual takes the bitmap "
+          f"push); P bound {p_row['bound_ms']:.6f} ms, plain "
+          f"{p_row['plain_ms']:.6f} ms, the sort push's steps "
+          f"{p_row['sort_push_ms']:.6f} ms")
+    return counts[BITMAP], per_s, _gather_push(A, edge_idx), p_row
 
 
 def phase_push_sssp(A, sources, goldens, reps: int = 10):
@@ -2471,6 +2508,7 @@ def phase_push_sssp(A, sources, goldens, reps: int = 10):
              for s in sources]
     counts = _expect_launches(
         "push SSSP", {"gather_boundary": SSSP_PUSH_K6 * sum(iters)}, counts)
+    phase_push_sssp.k6 = counts["gather_boundary"]
     for s, d, want in zip(sources, dists, goldens):
         if d.shape != (A.nrows,) or not np.isfinite(d).all():
             raise AssertionError(f"push SSSP from {s}: bad distance array")
@@ -2496,9 +2534,8 @@ def phase_push_sssp(A, sources, goldens, reps: int = 10):
 
 def phase_push_grid(side: int = 512, reps: int = 3):
     """BFS from vertex 0 on grid_matrix(side) (diameter 2·(side − 1)),
-    PUSHONLY and PULLONLY: levels equal to the golden in both, BFS_PUSH_K6
-    K6 launches an iteration for push and one K1 launch an iteration for
-    pull; ms/run and ms an iteration of each. Returns the two ms/run, the
+    PUSHONLY and PULLONLY: levels equal to the golden in both, one bitmap
+    push an iteration for push and one K1 launch an iteration for pull; ms/run and ms an iteration of each. Returns the two ms/run, the
     grid and its golden."""
     import graphblast_tpu_torch as gt
     from graphblast_tpu_torch.algorithms.reference import bfs_cpu
@@ -2513,8 +2550,7 @@ def phase_push_grid(side: int = 512, reps: int = 3):
           f"{iters} iterations from vertex 0")
     out = {}
     for name, mode, expected in (
-            ("push", gt.Direction.PUSHONLY,
-             {"gather_boundary": BFS_PUSH_K6 * iters}),
+            ("push", gt.Direction.PUSHONLY, {BITMAP: iters}),
             ("pull", gt.Direction.PULLONLY, {"bitmap_pull": iters})):
         desc = gt.BFS_TUNED.replace(mxv_mode=mode)
         _reset_counts()
@@ -2534,7 +2570,7 @@ def phase_push_grid(side: int = 512, reps: int = 3):
 def phase_pushpull_bfs(A, sources, goldens, pull_s, push_s, reps: int = 10):
     """The default bfs(A, s) (BFS_TUNED: PUSHPULL, eager) at rmat18 from
     the hub sources: levels equal to the golden; K1 launched once a pull
-    iteration and K6 BFS_PUSH_K6 times a push iteration (the directions
+    iteration and the bitmap push once a push iteration (the directions
     from a stepped replay of each source) and no other kernel; at most 2
     host reads an iteration; ms/run and GTEPS beside the pull-only (phase
     3) and push-only (phase 18) runs; the top hub's stepped trace."""
@@ -2553,11 +2589,11 @@ def phase_pushpull_bfs(A, sources, goldens, pull_s, push_s, reps: int = 10):
         raise AssertionError("the eager PUSHPULL BFS read a degree total "
                              "from the sparse image")
     counts = _expect_launches("PUSHPULL BFS", _expected_launches(
-        sums, "bitmap_pull", BFS_PUSH_K6))
+        sums, "bitmap_pull", BITMAP))
     _check_levels("PUSHPULL BFS", levels, goldens, sources)
     print(f"[pushpull bfs] {len(sources)} sources: levels == NumPy golden; "
           f"directions {[x['dirs'] for x in sums]} (P push, l pull); "
-          f"launches {counts} (one K1 a pull, {BFS_PUSH_K6} K6 a push); "
+          f"launches {counts} (one K1 a pull, one bitmap push a push); "
           f"at most {max(x['max_reads'] for x in sums)} host reads an "
           "iteration")
     # the stepped mode pulls with no plan (K5, then K6 at the boundaries);
@@ -2567,13 +2603,12 @@ def phase_pushpull_bfs(A, sources, goldens, pull_s, push_s, reps: int = 10):
                for s in sources]
     pulls = sum(x["pulls"] for x in sums)
     stepped_counts = _expect_launches("stepped PUSHPULL BFS", {
-        "orpull_csum": pulls,
-        "gather_boundary": pulls + BFS_PUSH_K6 * sum(x["pushes"]
-                                                     for x in sums)})
+        "orpull_csum": pulls, "gather_boundary": pulls,
+        BITMAP: sum(x["pushes"] for x in sums)})
     _check_levels("stepped PUSHPULL BFS", stepped, goldens, sources)
     print(f"[pushpull bfs] stepped, {len(sources)} sources: levels == "
-          f"golden; launches {stepped_counts} (K5 and K6 a pull, "
-          f"{BFS_PUSH_K6} K6 a push)")
+          f"golden; launches {stepped_counts} (K5 and K6 a pull, one "
+          "bitmap push a push)")
     srcs = iter([int(s) for s in sources] * reps)
     per_s, tail = _timed_runs(lambda: gt.algorithms.bfs(A, next(srcs)),
                               len(sources) * reps)
@@ -2655,7 +2690,8 @@ def phase_pushpull_grid(G, golden, one_way_s, reps: int = 3):
             levels = gt.algorithms.bfs(G, 0).to_numpy()
             counts = _expect_launches(
                 f"grid PUSHPULL {name}",
-                _expected_launches([x], "bitmap_pull", BFS_PUSH_K6))
+                _expected_launches([x], "bitmap_pull",
+                                   BFS_PUSH_K6 if lazy else BITMAP))
             _check_levels(f"grid PUSHPULL {name}", [levels], [golden], [0])
             per_s, tail = _timed_runs(lambda: gt.algorithms.bfs(G, 0), reps)
         reads = [r["host_reads"] for r in rows]
@@ -4617,8 +4653,8 @@ def main() -> int:
     print(f"[phase] TC past the shared-memory budget "
           f"{time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
-    push_launches, push_per_s, gather_push = phase_push_bfs(A, sources,
-                                                            goldens)
+    bitmap_launches, push_per_s, gather_push, p_row = phase_push_bfs(
+        A, sources, goldens)
     print(f"[push bfs] median ms/run push-only {push_per_s * 1e3:.6f}, "
           f"pull-only (phase 3) {per_s * 1e3:.6f}")
     print(f"[phase] push BFS {time.perf_counter() - t0:.2f} s")
@@ -4758,13 +4794,22 @@ def main() -> int:
             "source": "graphblast_tpu_torch/csrc/gather.cu",
             "replaces": "graphblast_tpu/ops/pallas/gather.py:45",
             "launches": launches, "bound_by": "bytes", **k6[name]})
-    # K6 at the push's largest gather (ind at the expansion's edge ids);
-    # launches: every K6 launch of the push BFS, all at ascending indices
+    # K6 at the sort push's largest gather (ind at the expansion's edge
+    # ids); launches: every K6 launch of the push SSSP, all at ascending
+    # indices (a BFS push launches none)
     kernels.append({
         "name": "gather_push", "route": "cuda",
         "source": "graphblast_tpu_torch/csrc/gather.cu",
         "replaces": "graphblast_tpu/ops/pallas/gather.py:45",
-        "launches": push_launches, "bound_by": "bytes", **gather_push})
+        "launches": phase_push_sssp.k6, "bound_by": "bytes", **gather_push})
+    # P, the bitmap push, at the hub's level-2 frontier; launches: the push
+    # BFS's, one an iteration. No PyTorch call computes the push: the sort
+    # push it replaces on this route is timed beside it
+    kernels.append({
+        "name": "bitmap_push", "route": "cuda",
+        "source": "graphblast_tpu_torch/csrc/bitmap_push.cu",
+        "replaces": "none (the jnp push of graphblast_tpu/ops/spmspv.py)",
+        "launches": bitmap_launches, "bound_by": "bytes", **p_row})
     # T1 and T2: one kernel file in place of plain jnp, no Pallas
     for name, replaces, launches, row in (
             ("masked_intersect_count", "graphblast_tpu/ops/spgemm.py:159",

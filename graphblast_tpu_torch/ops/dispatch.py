@@ -10,8 +10,11 @@ and the direction heuristic, backend/cuda/vector.hpp:292-323).
     plan (K4, SSSP); with no plan, `spmv_pull` over the pull orientation
     (K5 and K6 for stepped BFS, the row fold S for a min/max semiring, with
     the orientation's cached row schedule); and the `postprocess` epilogue;
-  - PUSHONLY (dispatch.py:432-436): the push of `ops/spmspv.py` over the
-    push orientation, with every gather on K6;
+  - PUSHONLY (dispatch.py:432-436): over the push orientation, the
+    bitmap push P (`ops/kernels/bitmap_push.py`) where the push is
+    structure-only under a duplicate-insensitive ⊕ (LogicalOr, Max) in the
+    eager protocol with no postprocess, as BFS's is; else the push of
+    `ops/spmspv.py`, with every gather on K6;
   - PUSHPULL (dispatch.py:437-450), the default: the density heuristic's
     preference, gated on the push workspace, picks one of the two each
     call.
@@ -24,8 +27,9 @@ dual-frontier protocol: each direction keeps only its own image, the
 sparse one bounded by LAZY_SPARSE_CAP, and the other is rebuilt at a
 switch.
 
-The push's workspace is one of a few fixed sizes (tiers: edge_cap/64,
-edge_cap/8, edge_cap, each rounded up to 1,024), as in the JAX package. JAX
+The push of `ops/spmspv.py` takes a workspace of one of a few fixed sizes
+(tiers: edge_cap/64, edge_cap/8, edge_cap, each rounded up to 1,024), as in
+the JAX package; the bitmap push needs none. JAX
 picks the direction and the tier on the device with conds; here the
 frontier's degree total, its count, the direction preference and the lazy
 flags come to the host in one read a call, and the host picks. Where JAX's
@@ -45,11 +49,13 @@ from ..types import INDEX_DTYPE, Direction, round_up
 from ..utils.profiling import annotate
 from ..vector import dense_from_sparse, sparse_from_dense
 from .kernels.bitmap_pull import BitmapPlan, pack_bitmap, spmv_bitmap_pull
+from .kernels.bitmap_push import push_lanes, spmspv_push_bitmap
 from .kernels.minmax_pull import minmax_supported
 from .kernels.monoid_pull import MonoidPlan, monoid_supported, spmv_monoid
 from .kernels.row_schedule import schedule_for
 from .kernels.value_pull import ValuePlan, spmv_value_pull
-from .spmspv import frontier_degrees, spmspv_push, spmspv_push_sparse
+from .spmspv import (DUP_INSENSITIVE, frontier_degrees, spmspv_push,
+                     spmspv_push_sparse)
 from .spmv import mask_pass, spmv_pull
 
 # the bound on the sparse image a lazy push leaves behind: lazy consumers
@@ -245,6 +251,17 @@ def _sparsify(f: DualFrontier, identity) -> tuple:
     return sind[:k], (sval[:k] if sval is not None else None), nv
 
 
+def _takes_bitmap_push(semiring: Semiring, structure_only: bool, lazy: bool,
+                       postprocess, postprocess_sparse) -> bool:
+    """Whether a push is the bitmap push: structure-only under a ⊕ that
+    ignores duplicates (every edge carries a 1, which marks its destination
+    once), in the eager protocol, with no postprocess to run on the
+    result."""
+    return (structure_only and semiring.add.name in DUP_INSENSITIVE
+            and not lazy and postprocess is None
+            and postprocess_sparse is None)
+
+
 def _push(push_csr, fin, deg_total: int, cap: int, whole: bool,
           semiring: Semiring, identity, n_out: int, *, mask_dense, mask_scmp,
           structure_only, sort_push, postprocess, postprocess_sparse, lazy,
@@ -399,12 +416,17 @@ def mxv_dual(A: Matrix, f: DualFrontier, semiring: Semiring, identity, *,
 
     Push reads the frontier's sparse image (which must hold no
     identity-valued entry, see DualFrontier.from_sparse) and ignores
-    `pull_plan`. Its workspace is the smallest of `push_tiers(edge_cap,
-    tier_divisors)` that holds the frontier (edge_cap defaults to A's
-    nnz_pad). `sort_push` picks the MERGE sort push, which builds the
-    sparse image from its own sort, over the SIMPLE scatter push; a
-    `postprocess` without its sparse twin `postprocess_sparse(keys, vals)`
-    sends the push to the dense route and the full-n re-sparsification.
+    `pull_plan`. A structure-only push under LogicalOr or Max ⊕, eager and
+    with neither postprocess, is the bitmap push (`_takes_bitmap_push`),
+    whatever `sort_push` says: both lowerings give it the same images.
+    Every other push takes a workspace, the smallest of
+    `push_tiers(edge_cap, tier_divisors)` that holds the frontier (edge_cap
+    defaults to A's nnz_pad). `sort_push` picks the MERGE sort push, which
+    builds the sparse image from its own sort, over the SIMPLE scatter
+    push; a `postprocess` without its sparse twin `postprocess_sparse(keys,
+    vals)` sends the push to the dense route and the full-n
+    re-sparsification. A degree total past edge_cap pulls under PUSHPULL
+    and raises under PUSHONLY, on either push.
 
     `lazy=True` is the lazy dual-frontier protocol (see DualFrontier): a
     push keeps the sparse image only (LAZY_SPARSE_CAP slots) and a pull
@@ -418,7 +440,7 @@ def mxv_dual(A: Matrix, f: DualFrontier, semiring: Semiring, identity, *,
     call records the spans "gb.dispatch.read" (that read), "gb.push" and
     "gb.pull" (each direction's enqueue, the pull's re-sparsification
     included); each push adds to the counters `mxv_dual.push_edges`,
-    `.push_lanes` and `.top_tier_pushes`."""
+    `.push_lanes`, `.top_tier_pushes` and `.bitmap_pushes`."""
     mode = mode if mode is not None else Direction.PUSHPULL
     n_out, _, pull_ptr, pull_ind, pull_val = A.pull_csr(transpose)
     # push expands the input's adjacency: the other orientation
@@ -473,20 +495,30 @@ def mxv_dual(A: Matrix, f: DualFrontier, semiring: Semiring, identity, *,
             use_push = use_push and (sparse_ok or snvals <= sp)
     if use_push:
         cap = pick_tier(tiers, deg_total, snvals)
-        whole = cap == tiers[-1]
+        bitmap = _takes_bitmap_push(semiring, structure_only, lazy,
+                                    postprocess, postprocess_sparse)
+        lanes = push_lanes(deg_total) if bitmap else cap
         # host ints the read above brought: counting adds no sync
         mxv_dual.push_edges += deg_total
-        mxv_dual.push_lanes += cap
-        mxv_dual.top_tier_pushes += whole
+        mxv_dual.push_lanes += lanes
+        mxv_dual.top_tier_pushes += lanes >= tiers[-1]
+        mxv_dual.bitmap_pushes += bitmap
         with annotate("gb.push"):
             fin = carry if sparse_ok else _sparsify(f, identity)
-            y, sind, sval, nv, dense_ok, sparse_ok = _push(
-                push_csr, fin, deg_total, cap, whole, semiring, identity,
-                n_out, mask_dense=mask_dense, mask_scmp=mask_scmp,
-                structure_only=structure_only, sort_push=sort_push,
-                postprocess=postprocess,
-                postprocess_sparse=postprocess_sparse, lazy=lazy, sp=sp,
-                stale_dense=f.dense)
+            if bitmap:
+                y, sind, sval, nv = spmspv_push_bitmap(
+                    push_csr[0], push_csr[1], fin[0], snvals, deg_total,
+                    mask_dense, mask_scmp, n_out,
+                    torch.float32 if fin[1] is None else fin[1].dtype)
+                dense_ok = sparse_ok = True
+            else:
+                y, sind, sval, nv, dense_ok, sparse_ok = _push(
+                    push_csr, fin, deg_total, cap, cap == tiers[-1],
+                    semiring, identity, n_out, mask_dense=mask_dense,
+                    mask_scmp=mask_scmp, structure_only=structure_only,
+                    sort_push=sort_push, postprocess=postprocess,
+                    postprocess_sparse=postprocess_sparse, lazy=lazy, sp=sp,
+                    stale_dense=f.dense)
     else:
         with annotate("gb.pull"):
             y, sind, sval, nv, dense_ok, sparse_ok = _finish_dense(
@@ -501,8 +533,10 @@ def mxv_dual(A: Matrix, f: DualFrontier, semiring: Semiring, identity, *,
 
 
 # the push's counters, read as the kernels' .launches are: the frontier's
-# degree total summed over the pushes, the workspace lanes of the tier each
-# took, and the pushes that took the last tier (edge_cap lanes)
+# degree total summed over the pushes, the lanes each covered (its tier's
+# workspace, or the bitmap push's blocks), the pushes whose lanes reached
+# edge_cap, and the pushes that took the bitmap push
 mxv_dual.push_edges = 0
 mxv_dual.push_lanes = 0
 mxv_dual.top_tier_pushes = 0
+mxv_dual.bitmap_pushes = 0

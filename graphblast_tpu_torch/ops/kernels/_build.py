@@ -32,7 +32,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 SOURCES = {"bitmap_pull": "bitmap_pull.cu", "value_pull": "value_pull.cu",
            "monoid_pull": "monoid_pull.cu", "gather": "gather.cu",
            "orpull_csum": "orpull_csum.cu", "minmax_pull": "minmax_pull.cu",
-           "masked_intersect": "masked_intersect.cu"}
+           "masked_intersect": "masked_intersect.cu",
+           "bitmap_push": "bitmap_push.cu"}
 
 _loaded: dict = {}
 

@@ -30,7 +30,10 @@ Where the port departs from the JAX lowering:
     or fault on an out-of-range id;
   - the structure-only bitmap push has one lowering, a scatter of ones:
     `GRB_PUSH_BITMAP_SORT` picks between two TPU lowerings and is not
-    ported.
+    ported. `mxv_dual` sends an eager structure-only LogicalOr or Max push
+    to the hand kernel P instead (`ops/kernels/bitmap_push.py`), which
+    marks a bitmap and needs neither a workspace nor a sort; the push here
+    serves every other push and the operations API.
 
 ⊗ is applied as mul(matrix_entry, frontier_entry) for mxv and vxm alike;
 swap_mul=True flips it. The frontier is padded (ind, val, nvals) tensors;
@@ -49,6 +52,9 @@ from .gather_dispatch import take
 from .segops import segmented_scan
 from .spmv import mask_pass
 
+# ⊕ under which a structure-only push marks each destination once: the
+# duplicates' 1s need no reduce (the bitmap pushes)
+DUP_INSENSITIVE = ("LogicalOrMonoid", "MaximumMonoid")
 # ⊕ whose MERGE reduce is the two-key sort's head (Min) or tail (Max)
 _ORDERED = ("MinimumMonoid", "MaximumMonoid")
 # ⊕ of the SIMPLE scatter-combine push (load_balance SIMPLE)
@@ -185,7 +191,7 @@ def spmspv_push(ptr: torch.Tensor, ind: torch.Tensor,
     tgt = torch.where(valid, dst, n_out)
     add_name = semiring.add.name
     y = torch.full((n_out + 1,), ident, dtype=out_dtype, device=dst.device)
-    if structure_only and add_name in ("LogicalOrMonoid", "MaximumMonoid"):
+    if structure_only and add_name in DUP_INSENSITIVE:
         # both identities are 0, so max(identity, 1) is the 1 written
         y.index_fill_(0, tgt.long(), 1)
     elif not sort_push and add_name in _SCATTER:
@@ -333,8 +339,7 @@ def spmspv_push_sparse(ptr: torch.Tensor, ind: torch.Tensor,
         ptr, ind, mat_val, f_ind, f_val, f_nvals, edge_cap, structure_only,
         semiring, out_dtype, swap_mul)
     tgt = torch.where(valid, dst, n_out)
-    dup_ok = structure_only and semiring.add.name in ("LogicalOrMonoid",
-                                                      "MaximumMonoid")
+    dup_ok = structure_only and semiring.add.name in DUP_INSENSITIVE
     keys, seg_val, heads = _merge_reduce(tgt, mv, semiring, edge_cap, dup_ok)
     key_ids = keys.clamp(max=n_out - 1)
     if postprocess_sparse is not None:

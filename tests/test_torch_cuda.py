@@ -12,6 +12,7 @@ import torch
 
 import graphblast_tpu_torch as tgb
 from graphblast_tpu_torch.ops.kernels import bitmap_pull as bp
+from graphblast_tpu_torch.ops.kernels import bitmap_push as bpush
 from graphblast_tpu_torch.ops import spgemm as sg
 from graphblast_tpu_torch.ops.kernels import gather as kg
 from graphblast_tpu_torch.ops.kernels import intersect_schedule as isch
@@ -885,11 +886,13 @@ def test_masked_fold_refuses_on_the_card(cuda):
 
 # ------------------------------------------------------------- the push
 def _hand_kernel_launches():
-    """Launch counts of every hand kernel but the gather K6."""
+    """Launch counts of every hand kernel but the gather K6; the bitmap
+    push P last."""
     return (bp.spmv_bitmap_pull.launches, vp.spmv_value_pull.launches,
             mp.spmv_monoid.launches, ko.orpull_bit_csum.launches,
             mm.spmv_minmax_pull.launches, mx.masked_intersect_count.launches,
-            mx.masked_intersect_fold.launches)
+            mx.masked_intersect_fold.launches,
+            bpush.spmspv_push_bitmap.launches)
 
 
 PUSH_CARD_CASES = [
@@ -940,13 +943,19 @@ def test_push_on_the_card_matches_the_cpu(cuda, sr_name, struc, sort_push,
                                           masked, values, transpose):
     """The push on the card equals the CPU's plain run: exact, but for the
     Plus sums (rtol 1e-5, atol 1e-5: another order within a segment, and
-    the SIMPLE push's atomics); the MERGE push is bitwise equal across two
-    runs on the card."""
+    the SIMPLE push's atomics); the MERGE push and the bitmap push are
+    bitwise equal across two runs on the card. The structure-only
+    LogicalOr push launches the bitmap push once and no K6, whatever
+    sort_push says; every other push launches K6 and no other kernel."""
     args = (sr_name, struc, sort_push, masked, values, transpose)
     k6 = kg.gather_1d.launches
     others = _hand_kernel_launches()
     card = _push_on(cuda, *args)
-    assert kg.gather_1d.launches > k6 and _hand_kernel_launches() == others
+    bitmap = struc and sr_name == "LogicalOrAndSemiring"
+    after = _hand_kernel_launches()
+    assert after[:-1] == others[:-1]
+    assert after[-1] - others[-1] == int(bitmap)
+    assert (kg.gather_1d.launches > k6) != bitmap
     cpu = _push_on("cpu", *args)
     k = int(cpu[3])
     assert int(card[3]) == k
@@ -960,7 +969,7 @@ def test_push_on_the_card_matches_the_cpu(cuda, sr_name, struc, sort_push,
                                        atol=1e-5)
         else:
             assert torch.equal(got, want)
-    if sort_push:
+    if sort_push or bitmap:
         again = _push_on(cuda, *args)
         for a, b in zip(card, again):
             assert (a is None and b is None) or torch.equal(a, b)
@@ -968,10 +977,10 @@ def test_push_on_the_card_matches_the_cpu(cuda, sr_name, struc, sort_push,
 
 def test_push_bfs_and_sssp_on_the_card_launch_k6_per_iteration(cuda):
     """PUSHONLY BFS and SSSP from the hub at RMAT scale 12 equal the
-    goldens; a BFS push iteration launches K6 8 times (2 degree gathers, 5
-    in the expansion, 1 of the mask), an SSSP one 11 (2, 7 with the value
-    gathers, 1 for the Min fill, 1 for the filter), all at ascending
-    indices, and no other hand kernel runs."""
+    goldens; a BFS push iteration (structure-only) launches the bitmap
+    push once and no K6; an SSSP one launches K6 11 times (2 degree
+    gathers, 7 with the value gathers, 1 for the Min fill, 1 for the
+    filter), all at ascending indices, and no other hand kernel runs."""
     from graphblast_tpu_torch.algorithms.sssp import _sssp_fused
     from graphblast_tpu_torch.io.rmat import rmat_matrix
 
@@ -982,17 +991,94 @@ def test_push_bfs_and_sssp_on_the_card_launch_k6_per_iteration(cuda):
     levels = tgb.algorithms.bfs(A, s, tgb.BFS_TUNED.replace(
         mxv_mode=tgb.Direction.PUSHONLY)).to_numpy()
     np.testing.assert_array_equal(levels, tgb.algorithms.bfs_cpu(A, s))
-    assert kg.gather_1d.launches - k6 == 8 * int(levels.max())
-    assert kg.gather_1d.sorted_launches - k6_sorted == 8 * int(levels.max())
+    assert kg.gather_1d.launches == k6
+    assert kg.gather_1d.sorted_launches == k6_sorted
     push = tgb.DEFAULT.replace(mxv_mode=tgb.Direction.PUSHONLY)
-    k6 = kg.gather_1d.launches
     dist = tgb.algorithms.sssp(A, s, push).to_numpy()
     np.testing.assert_array_equal(dist, tgb.algorithms.sssp_cpu(A, s))
     ran = kg.gather_1d.launches - k6
+    assert kg.gather_1d.sorted_launches - k6_sorted == ran
     _, it = _sssp_fused(A, s, None, switchpoint=0.01,
                         mode=tgb.Direction.PUSHONLY, max_niter=1000)
     assert ran == 11 * it > 0
-    assert _hand_kernel_launches() == others
+    after = _hand_kernel_launches()
+    assert after[:-1] == others[:-1]
+    assert after[-1] - others[-1] == int(levels.max())
+
+
+# the bitmap push's cases: (name, what it exercises)
+BITMAP_PUSH_CARD_CASES = [
+    "random",      # rows of Poisson(12) edges, a 5% frontier, n = 50,001
+    "rmat12", "rmat14",   # a 1/30 frontier and the hub
+    "hub",         # a row of 200,000 edges over 49 blocks, two small rows
+    "deg4095", "deg4096", "deg4097",   # degree totals E - 1, E, E + 1
+    "many_slots",  # 20,000 slots of 0 and 1 edges: 8,192 slots a block
+]
+
+
+def _bitmap_push_inputs(case, rng):
+    """(ptr, ind, the frontier's ids, n) on the host."""
+    from graphblast_tpu_torch.io.rmat import rmat_matrix
+
+    if case.startswith("rmat"):
+        A = rmat_matrix(int(case[4:]), 16, seed=42, device="cpu")
+        deg = np.diff(A.host_csr()[0])
+        ids = np.append(rng.choice(A.nrows, A.nrows // 30, replace=False),
+                        np.argmax(deg))
+        return A.row_ptr, A.col_ind, np.unique(ids), A.nrows
+    n = 50_001
+    lens = rng.integers(0, 4, n)
+    if case == "random":
+        lens = rng.poisson(12, n)
+        ids = rng.choice(n, n // 20, replace=False)
+    elif case == "hub":
+        lens[7] = 200_000
+        ids = np.array([3, 7, 40_000])
+    elif case.startswith("deg"):
+        # slots of total - 5, 2, 0 and 3 edges
+        lens[[10, 20, 25, 30]] = [int(case[3:]) - 5, 2, 0, 3]
+        ids = np.array([10, 20, 25, 30])
+    else:
+        lens[:20_000] = np.arange(20_000) % 2
+        ids = np.arange(20_000)
+    ptr = np.concatenate([[0], np.cumsum(lens)]).astype(np.int32)
+    ind = rng.integers(0, n, int(ptr[-1])).astype(np.int32)
+    return torch.from_numpy(ptr), torch.from_numpy(ind), np.unique(ids), n
+
+
+@pytest.mark.parametrize("mask_kind", ["none", "scmp", "mask"])
+@pytest.mark.parametrize("case", BITMAP_PUSH_CARD_CASES)
+def test_bitmap_push_kernel_matches_plain_on_the_card(cuda, case,
+                                                      mask_kind):
+    """The bitmap push P on the card equals its plain version on the CPU
+    and a second launch, bit for bit: y, sind, nv and no values."""
+    rng = np.random.default_rng(len(case) * 7 + len(mask_kind))
+    ptr, ind, ids, n = _bitmap_push_inputs(case, rng)
+    f_ind = np.full(n, n, np.int32)
+    f_ind[:len(ids)] = ids
+    p = ptr.numpy().astype(np.int64)
+    deg_total = int((p[ids + 1] - p[ids]).sum())
+    if case.startswith("deg"):
+        assert deg_total == int(case[3:])
+    v = torch.from_numpy(((rng.random(n) < 0.4)
+                          * rng.random(n)).astype(np.float32))
+    mask = None if mask_kind == "none" else v
+    args = (torch.from_numpy(f_ind), len(ids), deg_total, mask,
+            mask_kind == "scmp", n)
+    want = bpush.spmspv_push_bitmap_plain(ptr, ind, *args)
+    card = (ptr.to(cuda), ind.to(cuda), args[0].to(cuda), *args[1:3],
+            None if mask is None else mask.to(cuda), *args[4:])
+    launches = bpush.spmspv_push_bitmap.launches
+    got = bpush.spmspv_push_bitmap(*card)
+    again = bpush.spmspv_push_bitmap(*card)
+    torch.cuda.synchronize()
+    assert bpush.spmspv_push_bitmap.launches == launches + 2
+    assert int(want[3]) > 0
+    for out in (got, again):
+        assert out[2] is None
+        assert torch.equal(out[0].cpu(), want[0])
+        assert torch.equal(out[1].cpu(), want[1])
+        assert out[3].dtype == torch.int32 and int(out[3]) == int(want[3])
 
 
 # (graph, switchpoint): RMAT 12 from its hub under the default switchpoint,

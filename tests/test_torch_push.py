@@ -30,6 +30,7 @@ from graphblast_tpu.ops import spmspv as jpush
 from graphblast_tpu_torch.ops import dispatch as tdisp
 from graphblast_tpu_torch.ops import segops as tseg
 from graphblast_tpu_torch.ops import spmspv as tpush
+from graphblast_tpu_torch.ops.kernels import bitmap_push as tbit
 
 DATA = os.path.join(os.path.dirname(__file__), "..", "data", "small")
 MAXF = float(np.finfo(np.float32).max)
@@ -689,6 +690,93 @@ def test_mxv_dual_push_is_the_same_in_every_tier(graphs):
                        transpose=True, structure_only=True,
                        edge_cap=deg_total - 1, tier_divisors=(),
                        mode=tgb.Direction.PUSHONLY)
+
+
+# ------------------------------------------------------- the bitmap push
+def _bitmap_frontier(T, kind, rng):
+    """Frontier ids of a kind: the hub with a few others, a fifth of the
+    vertices, none, or only vertices of degree 0."""
+    deg = np.diff(T.host_csr()[0])[:T.nrows]
+    n = T.nrows
+    return {"hub": np.unique(np.append(rng.choice(n, 5), np.argmax(deg))),
+            "random": rng.choice(n, n // 5, replace=False),
+            "empty": np.zeros(0, np.int64),
+            "deg0": np.flatnonzero(deg == 0)[:40]}[kind]
+
+
+# chesapeake has no vertex of degree 0, and 39 vertices: not a multiple of
+# the bitmap's 32-bit words
+BITMAP_CASES = [(g, k) for g in ("rmat10", "chesapeake")
+                for k in ("hub", "random", "empty", "deg0")
+                if (g, k) != ("chesapeake", "deg0")]
+
+
+@pytest.mark.parametrize("sr_name", ["LogicalOrAndSemiring",
+                                     "MaximumMultipliesSemiring"])
+@pytest.mark.parametrize("mask_kind", ["none", "scmp", "mask"])
+@pytest.mark.parametrize("name,kind", BITMAP_CASES,
+                         ids=[f"{g}-{k}" for g, k in BITMAP_CASES])
+def test_bitmap_push_equals_the_sort_push(graphs, name, kind, mask_kind,
+                                          sr_name):
+    """The bitmap push (its plain version: the CPU route of mxv_dual's
+    structure-only LogicalOr and Max push) equals the sort-and-segment
+    push `spmspv_push_sparse` and the SIMPLE scatter with the full-n
+    re-sparsification, bit for bit: y, sind and nv, and no values."""
+    _, T = graphs[name]
+    rng = np.random.default_rng(len(name) + len(kind) + len(mask_kind))
+    n = T.nrows
+    ids = _bitmap_frontier(T, kind, rng)
+    f_ind, _, snv = _frontier(n, ids)
+    f_ind = _t(f_ind)
+    deg_total = int(np.diff(T.host_csr()[0])[ids].sum())
+    assert (deg_total == 0) == (kind in ("empty", "deg0"))
+    v = ((rng.random(n) < 0.5) * rng.random(n)).astype(np.float32)
+    mask = None if mask_kind == "none" else _t(v)
+    scmp = mask_kind == "scmp"
+    sr = getattr(tgb.semiring, sr_name)
+    ptr, ind = T.row_ptr, T.col_ind
+    got = tbit.spmspv_push_bitmap(ptr, ind, f_ind, snv, deg_total, mask,
+                                  scmp, n)
+    merge = tpush.spmspv_push_sparse(
+        ptr, ind, T.val, f_ind, None, torch.tensor(snv), sr, n, T.nnz_pad,
+        mask, scmp, structure_only=True, with_values=False)
+    y = tpush.spmspv_push(ptr, ind, T.val, f_ind, None, torch.tensor(snv),
+                          sr, n, T.nnz_pad, mask, scmp, structure_only=True,
+                          sort_push=False)
+    simple = (y, *tgb.vector.sparse_from_dense(y, 0.0, with_values=False))
+    for want in (merge, simple):
+        assert got[0].dtype == want[0].dtype == torch.float32
+        assert torch.equal(got[0], want[0])
+        assert torch.equal(got[1], want[1])
+        assert got[2] is None and want[2] is None
+        assert got[3].dtype == torch.int32 and int(got[3]) == int(want[3])
+    if kind in ("hub", "random"):
+        assert int(got[3]) > 0
+
+
+@pytest.mark.parametrize("tiers", [(64, 8), (4096, 512, 64, 8)],
+                         ids=["tiers3", "tiers5"])
+@pytest.mark.parametrize("mode", ["PUSHONLY", "PUSHPULL"])
+@pytest.mark.parametrize("name", ["chesapeake", "rmat10"])
+def test_bfs_on_the_bitmap_push_matches_jax_under_tier_sets(graphs, name,
+                                                            mode, tiers):
+    """PUSHONLY and PUSHPULL structure-only BFS, whose pushes are bitmap
+    pushes, equal the JAX bfs (its tier-sized sort push) under the same
+    tier divisors and bfs_cpu, from the hub and from vertex 0."""
+    from graphblast_tpu.algorithms import bfs as jbfs
+    from graphblast_tpu_torch.algorithms import bfs, bfs_cpu
+
+    J, T = graphs[name]
+    jdesc = jgb.BFS_TUNED.replace(mxv_mode=getattr(jgb.Direction, mode),
+                                  push_tiers=tiers)
+    tdesc = tgb.BFS_TUNED.replace(mxv_mode=getattr(tgb.Direction, mode),
+                                  push_tiers=tiers)
+    before = tdisp.mxv_dual.bitmap_pushes
+    for s in (_hub(T), 0):
+        want = np.asarray(jbfs(J, s, jdesc).to_numpy())
+        np.testing.assert_array_equal(want, bfs_cpu(T, s))
+        np.testing.assert_array_equal(bfs(T, s, tdesc).to_numpy(), want)
+    assert tdisp.mxv_dual.bitmap_pushes > before
 
 
 def test_one_sided_matrix_pushes_and_pushpull_takes_its_direction(graphs):

@@ -6,7 +6,9 @@ a host op ("cpu_op" in the Chrome trace, never a user annotation, of which
 the profiler makes a device-side copy on a card). The BFS loop records
 "gb.bfs.iter" an iteration, holding its "gb.bfs.read" and one "gb.push" or
 "gb.pull"; PageRank "gb.pr.iter" holding "gb.pr.read". The push's counters
-on `mxv_dual` equal a plain reckoning from the levels of the same run.
+on `mxv_dual` equal a plain reckoning from the levels of the same run (the
+bitmap push's lanes) or from each call's frontier (the tiers of a valued
+push).
 """
 import importlib
 import json
@@ -21,13 +23,15 @@ import graphblast_tpu_torch as gt
 from graphblast_tpu_torch.algorithms.pr import _pr_fused, prepare_pr_plan
 from graphblast_tpu_torch.io.rmat import rmat_matrix
 from graphblast_tpu_torch.ops import dispatch
+from graphblast_tpu_torch.ops.kernels.bitmap_push import EDGES_PER_BLOCK
 from graphblast_tpu_torch.utils import profiling
 
 DATA = os.path.join(os.path.dirname(__file__), "..", "data", "small")
 CHESAPEAKE = os.path.join(DATA, "chesapeake.mtx")
-COUNTERS = ("push_edges", "push_lanes", "top_tier_pushes")
-# the module: the package's name `bfs` is the function
+COUNTERS = ("push_edges", "push_lanes", "top_tier_pushes", "bitmap_pushes")
+# the modules: the package's names `bfs` and `sssp` are the functions
 bfs_mod = importlib.import_module("graphblast_tpu_torch.algorithms.bfs")
+sssp_mod = importlib.import_module("graphblast_tpu_torch.algorithms.sssp")
 
 
 @pytest.fixture(scope="module")
@@ -138,30 +142,107 @@ def test_pr_spans_one_an_iteration(chesapeake):
 
 def test_push_counters_match_a_plain_reckoning(rmat10):
     """PUSHONLY BFS from a few roots: every iteration pushes the frontier
-    of its level, so Σ frontier degree, Σ pick_tier lanes and the pushes
-    that took the last tier follow from the levels. The roots make every
-    tier fire."""
+    of its level on the bitmap push, so Σ frontier degree, Σ lanes (the
+    degree total in whole blocks of EDGES_PER_BLOCK edges), the pushes
+    whose lanes reached edge_cap and the bitmap pushes follow from the
+    levels. The roots give pushes of several block counts."""
     A = rmat10
     desc = gt.BFS_TUNED.replace(mxv_mode=gt.Direction.PUSHONLY)
     deg = np.diff(A.row_ptr.numpy().astype(np.int64))[:A.nrows]
     tiers = dispatch.push_tiers(A.nnz_pad, desc.push_tiers)
-    assert len(tiers) == 3
     before = [getattr(dispatch.mxv_dual, c) for c in COUNTERS]
-    want, caps = [0, 0, 0], set()
+    want, blocks = [0, 0, 0, 0], set()
     for source in range(0, A.nrows, 64):
         levels = gt.algorithms.bfs(A, source, desc).to_numpy()
         for it in range(1, int(levels.max()) + 1):
-            front = levels == it
-            total = int(deg[front].sum())
-            cap = dispatch.pick_tier(tiers, total, int(front.sum()))
-            caps.add(cap)
+            total = int(deg[levels == it].sum())
+            lanes = -(-total // EDGES_PER_BLOCK) * EDGES_PER_BLOCK
+            blocks.add(lanes // EDGES_PER_BLOCK)
             want[0] += total
-            want[1] += cap
-            want[2] += cap == tiers[-1]
+            want[1] += lanes
+            want[2] += lanes >= tiers[-1]
+            want[3] += 1
+    got = [getattr(dispatch.mxv_dual, c) - b
+           for c, b in zip(COUNTERS, before)]
+    assert len(blocks) > 2
+    assert got == want
+
+
+def test_push_counters_reckon_the_tiers_of_a_valued_push(monkeypatch,
+                                                         rmat10):
+    """PUSHONLY SSSP pushes values under MinimumPlus, so its pushes keep
+    the workspace tiers: Σ frontier degree, Σ pick_tier lanes and the
+    pushes that took the last tier, reckoned from each call's frontier,
+    and no bitmap push. The roots make every tier fire."""
+    A = rmat10
+    desc = gt.DEFAULT.replace(mxv_mode=gt.Direction.PUSHONLY)
+    deg = np.diff(A.row_ptr.numpy().astype(np.int64))[:A.nrows]
+    tiers = dispatch.push_tiers(A.nnz_pad, desc.push_tiers)
+    assert len(tiers) == 3
+    want, caps = [0, 0, 0, 0], set()
+    inner = sssp_mod.mxv_dual
+
+    def recording(M, f, *args, **kw):
+        front = f.dense.numpy() != kw["identity"]
+        total = int(deg[front].sum())
+        cap = dispatch.pick_tier(tiers, total, int(front.sum()))
+        caps.add(cap)
+        want[0] += total
+        want[1] += cap
+        want[2] += cap == tiers[-1]
+        return inner(M, f, *args, **kw)
+
+    monkeypatch.setattr(sssp_mod, "mxv_dual", recording)
+    before = [getattr(dispatch.mxv_dual, c) for c in COUNTERS]
+    hub = int(np.argmax(deg))
+    for source in [hub] + list(range(0, A.nrows, 128)):
+        gt.algorithms.sssp(A, source, desc)
     got = [getattr(dispatch.mxv_dual, c) - b
            for c, b in zip(COUNTERS, before)]
     assert caps == set(tiers)
     assert got == want
+
+
+@pytest.mark.parametrize("case", ["bfs", "bfs_values", "bfs_lazy", "sssp"])
+def test_bitmap_pushes_count_the_structure_only_pushes(monkeypatch, rmat10,
+                                                       case):
+    """mxv_dual.bitmap_pushes counts every push of a structure-only BFS,
+    PUSHONLY and PUSHPULL, and no push of BFS over the frontier's values,
+    of the lazy protocol (GRB_LAZY_FRONTIER=1) or of SSSP."""
+    A = rmat10
+    hub = int(np.argmax(np.diff(A.row_ptr.numpy())[:A.nrows]))
+    mod = sssp_mod if case == "sssp" else bfs_mod
+    pushes = []
+    inner = mod.mxv_dual
+
+    def recording(*args, **kw):
+        out = inner(*args, **kw)
+        pushes.append(out[1])
+        return out
+
+    monkeypatch.setattr(mod, "mxv_dual", recording)
+    if case == "bfs_lazy":
+        monkeypatch.setenv("GRB_LAZY_FRONTIER", "1")
+    before = dispatch.mxv_dual.bitmap_pushes
+    if case == "sssp":
+        gt.algorithms.sssp(A, hub)
+        gt.algorithms.sssp(A, hub, gt.DEFAULT.replace(
+            mxv_mode=gt.Direction.PUSHONLY))
+        want = 0
+    else:
+        desc = gt.BFS_TUNED.replace(structure_only=case != "bfs_values")
+        levels = gt.algorithms.bfs(A, hub, desc)
+        np.testing.assert_array_equal(levels.to_numpy(),
+                                      gt.algorithms.bfs_cpu(A, hub))
+        pushpull = sum(pushes)
+        assert 0 < pushpull < len(pushes)
+        gt.algorithms.bfs(A, hub, desc.replace(
+            mxv_mode=gt.Direction.PUSHONLY))
+        # PUSHONLY runs the eager protocol, GRB_LAZY_FRONTIER or not
+        want = {"bfs": sum(pushes), "bfs_values": 0,
+                "bfs_lazy": sum(pushes) - pushpull}[case]
+    assert sum(pushes) > 0
+    assert dispatch.mxv_dual.bitmap_pushes - before == want
 
 
 def test_pulls_move_no_push_counter(chesapeake):
