@@ -157,9 +157,11 @@ Phases, each of which fails the run on error (each prints its seconds):
      torch.index_select, timed beside both with its bound (the
      `gather_push` entry, its launches the push SSSP's);
   19. push SSSP: PUSHONLY SSSP at rmat18 from the 8 hubs: distances equal
-     to the golden, K6 launched 11 times an iteration (the expansion's 7
-     with the two value gathers, 1 Min fill, 1 filter) and no K4; ms/run
-     and GTEPS beside phase 7's pull;
+     to the golden, K6 launched 6 times an iteration (the scatter push of
+     one lane an edge: 2 row-pointer gathers, the lanes' edge bases, the
+     adjacency and the two value gathers), or, in an iteration whose
+     frontier passes the second tier and so is cut into slices, 2 and 6 a
+     slice, and no K4; ms/run and GTEPS beside phase 7's pull;
   20. grid_matrix(512) (n = 262,144, diameter 1,022): BFS from vertex 0,
      PUSHONLY (one P an iteration) and PULLONLY (one K1 an iteration),
      levels equal to the golden in both; ms/run and ms an iteration;
@@ -172,7 +174,7 @@ Phases, each of which fails the run on error (each prints its seconds):
      beside phases 3 and 18; the top hub's stepped trace (direction,
      frontier, degree total, tier, host reads, ms);
   22. PUSHPULL SSSP: the default sssp(A, s) (DEFAULT) the same way: K4 once
-     a pull iteration and K6 11 times a push iteration; ms/run beside
+     a pull iteration and K6 6 times a push iteration; ms/run beside
      phases 7 and 19;
   23. PUSHPULL BFS from vertex 0 on phase 20's grid, eager and then with
      GRB_LAZY_FRONTIER=1 (set and restored inside the phase): levels equal
@@ -2134,7 +2136,15 @@ def phase_tc_past_budget(n: int = 1 << 21, m: int = 3_000_000,
 
 # ---------------------------------------------------------------- the push
 BFS_PUSH_K6 = 8      # lazy: 2 degree gathers, 5 in the expansion, 1 mask
-SSSP_PUSH_K6 = 11    # 2, 5 + 2 value gathers, 1 Min fill, 1 filter
+# an eager SSSP push (valued Min): scatter pushes of one lane an edge over
+# slices of the frontier, each 2 row-pointer gathers, the lanes' edge
+# bases, the adjacency and the 2 value gathers (no fill: it scatters; no
+# sparse filter: the filter is dense); a frontier past the second tier
+# adds 2 degree gathers for the cut
+SSSP_PUSH_K6 = 6
+# a lazy SSSP push: the sort push, 2, 5 + 2 value gathers, 1 Min fill, 1
+# filter
+SSSP_LAZY_PUSH_K6 = 11
 # an eager BFS push (structure-only LogicalOr) is one bitmap push, no K6
 BITMAP = "bitmap_push"
 
@@ -2489,10 +2499,40 @@ def phase_push_bfs(A, sources, goldens, reps: int = 10):
     return counts[BITMAP], per_s, _gather_push(A, edge_idx), p_row
 
 
+@contextlib.contextmanager
+def _recording_slices():
+    """Yields a list that gains, for each push inside the block whose
+    frontier passes the second tier and so is cut into slices, its number
+    of slices."""
+    from graphblast_tpu_torch.ops import dispatch
+
+    sliced, inner = [], dispatch.slice_bounds
+
+    def recording(ptr, sind, snvals, lanes, deg_total):
+        out = inner(ptr, sind, snvals, lanes, deg_total)
+        if deg_total > lanes:
+            sliced.append(len(out))
+        return out
+
+    dispatch.slice_bounds = recording
+    try:
+        yield sliced
+    finally:
+        dispatch.slice_bounds = inner
+
+
+def _sssp_push_k6(iters: int, sliced) -> int:
+    """K6 launches of `iters` eager SSSP push iterations, of which those in
+    `sliced` were cut into slices (their slice counts)."""
+    return (SSSP_PUSH_K6 * (iters - len(sliced))
+            + sum(2 + SSSP_PUSH_K6 * k for k in sliced))
+
+
 def phase_push_sssp(A, sources, goldens, reps: int = 10):
     """PUSHONLY SSSP at rmat18 through the entry point from the hub
     sources: distances equal to the golden, K6 SSSP_PUSH_K6 times an
-    iteration and no K4 or other kernel; ms/run and GTEPS."""
+    iteration (2 + SSSP_PUSH_K6 a slice in an iteration cut into slices)
+    and no K4 or other kernel; ms/run and GTEPS."""
     import numpy as np
 
     import graphblast_tpu_torch as gt
@@ -2500,14 +2540,16 @@ def phase_push_sssp(A, sources, goldens, reps: int = 10):
     from graphblast_tpu_torch.ops.kernels.monoid_pull import FLT_MAX
 
     desc = gt.DEFAULT.replace(mxv_mode=gt.Direction.PUSHONLY)
-    _reset_counts()
-    dists = [gt.algorithms.sssp(A, int(s), desc).to_numpy() for s in sources]
-    counts = _read_counts()
+    with _recording_slices() as sliced:
+        _reset_counts()
+        dists = [gt.algorithms.sssp(A, int(s), desc).to_numpy()
+                 for s in sources]
+        counts = _read_counts()
     iters = [_sssp_fused(A, int(s), None, switchpoint=desc.switchpoint,
                          mode=desc.mxv_mode, max_niter=desc.max_niter)[1]
              for s in sources]
-    counts = _expect_launches(
-        "push SSSP", {"gather_boundary": SSSP_PUSH_K6 * sum(iters)}, counts)
+    counts = _expect_launches("push SSSP", {"gather_boundary": _sssp_push_k6(
+        sum(iters), sliced)}, counts)
     phase_push_sssp.k6 = counts["gather_boundary"]
     for s, d, want in zip(sources, dists, goldens):
         if d.shape != (A.nrows,) or not np.isfinite(d).all():
@@ -2517,8 +2559,9 @@ def phase_push_sssp(A, sources, goldens, reps: int = 10):
             raise AssertionError(f"push SSSP from {s}: {bad} distances != "
                                  "golden")
     print(f"[push sssp] {len(sources)} sources: distances == NumPy golden; "
-          f"iterations {iters}; launches {counts} ({SSSP_PUSH_K6} K6 an "
-          "iteration, no K4)")
+          f"iterations {iters}; pushes in slices {len(sliced)} (slices "
+          f"{sliced}); launches {counts} ({SSSP_PUSH_K6} K6 an iteration, "
+          f"2 + {SSSP_PUSH_K6} a slice in a push cut into slices, no K4)")
     srcs = iter([int(s) for s in sources] * reps)
     per_s, tail = _timed_runs(
         lambda: gt.algorithms.sssp(A, next(srcs), desc),
@@ -2724,7 +2767,7 @@ def phase_lazy_rmat18(A, source: int, bfs_golden, sssp_golden,
                 ("bfs", gt.algorithms.bfs, bfs_golden, "bitmap_pull",
                  BFS_PUSH_K6),
                 ("sssp", gt.algorithms.sssp, sssp_golden, "monoid_pull",
-                 SSSP_PUSH_K6)):
+                 SSSP_LAZY_PUSH_K6)):
             rows = _direction_trace(A, source, gt.BFS_TUNED if algo == "bfs"
                                     else gt.DEFAULT, algo)
             x = _trace_summary(rows)

@@ -16,9 +16,10 @@ density. The vxm pull runs the monoid pull (K4) over A's CSC plan
 (`plan_for_monoid`), on the CPU and CUDA alike; the push (`ops/spmspv.py`)
 runs over A's CSR and gathers through K6. GRB_LAZY_FRONTIER=1 opts into
 the lazy dual-frontier protocol, as in BFS. Both modes are a Python loop
-over device work with one host read of `succ` per iteration (and one more
-where `mxv_dual` chooses a direction or a push workspace; the JAX fused
-mode is one device loop); "stepped" also prints the reference's
+over device work with one host read per iteration: `succ`, read with what
+the next `mxv_dual` needs to choose a direction or a push workspace (the
+first iteration's dispatch, and the lazy protocol's, read apart; the JAX
+fused mode is one device loop); "stepped" also prints the reference's
 per-iteration row when desc.timing is set.
 """
 from __future__ import annotations
@@ -27,12 +28,14 @@ import torch
 
 from ..descriptor import DEFAULT, Descriptor
 from ..matrix import Matrix
-from ..ops.dispatch import LAZY_SPARSE_CAP, DualFrontier, mxv_dual
+from ..ops.dispatch import (LAZY_SPARSE_CAP, DualFrontier, frontier_state,
+                            mxv_dual)
 from ..ops.gather_dispatch import take
 from ..ops.kernels.monoid_pull import FLT_MAX as MAXF
 from ..ops.kernels.monoid_pull import MonoidPlan, plan_for_monoid
 from ..semiring import MinimumPlusSemiring
 from ..types import INDEX_DTYPE, Direction
+from ..utils.profiling import annotate
 from ..vector import Vector
 from .bfs import _lazy_frontier, _sparse_targets
 from .common import (TightTimer, dense_result, edge_cap_for, print_dirinfo,
@@ -74,9 +77,9 @@ def _relax(v: torch.Tensor, f2: DualFrontier):
 
 def _sssp_step(A: Matrix, v: torch.Tensor, f: DualFrontier,
                plan: MonoidPlan, *, switchpoint, mode, edge_cap=None,
-               sort_push=True, tiers=(64, 8), lazy=False):
+               sort_push=True, tiers=(64, 8), lazy=False, state=None):
     """One relaxation; `v` is the (n + 1,) distance buffer, updated in
-    place."""
+    place; `state`, f's `frontier_state` where the caller read it."""
     vn = v[:A.nrows]
 
     def filter_unproductive(y):
@@ -94,7 +97,7 @@ def _sssp_step(A: Matrix, v: torch.Tensor, f: DualFrontier,
         edge_cap=edge_cap, sort_push=sort_push, switchpoint=switchpoint,
         mode=mode, tier_divisors=tiers, pull_plan=plan,
         postprocess=filter_unproductive, postprocess_sparse=filter_sparse,
-        lazy=lazy)
+        lazy=lazy, state=state)
     # filtered entries are FLT_MAX and cannot lower v
     _relax(v, f2)
     return v, f2, f2.snvals, used_push
@@ -105,7 +108,11 @@ def _sssp_fused(A: Matrix, source: int, plan: MonoidPlan, *, switchpoint,
                 dirinfo: bool = False, edge_cap=None, sort_push=True,
                 tiers=(64, 8)):
     """The relaxation loop from `source`: `it` starts at 1 and the loop runs
-    while succ > 0 and it <= max_niter. Returns (v, iterations run)."""
+    while succ > 0 and it <= max_niter. Returns (v, iterations run). Under
+    a profiler each relaxation is a "gb.sssp.iter" span holding its host
+    read of succ, "gb.sssp.read". An eager loop that may push reads succ
+    with the next dispatch's state of the new frontier
+    (`frontier_state`), one host read a relaxation but for the first."""
     n = A.nrows
     lazy = _lazy_frontier(mode)
     f = _initial_frontier(n, source, A.device, lazy=lazy)
@@ -113,21 +120,32 @@ def _sssp_fused(A: Matrix, source: int, plan: MonoidPlan, *, switchpoint,
     v = torch.cat([f.dense, f.dense.new_full((1,), MAXF)])
     timer = TightTimer()
     prev_push = None
-    it, succ = 1, 1
+    # the lazy protocol's state read gathers the degrees (K6): it stays in
+    # the dispatch, read where it is needed
+    merged = (not lazy and mode != Direction.PULLONLY
+              and A.pull_csr(False)[2] is not None)
+    it, succ, state = 1, 1, None
     while succ > 0 and it <= max_niter:
-        timer.start()
-        v, f, succ_t, used_push = _sssp_step(
-            A, v, f, plan, switchpoint=switchpoint, mode=mode,
-            edge_cap=edge_cap, sort_push=sort_push, tiers=tiers, lazy=lazy)
-        succ = int(succ_t)          # the loop's host read
-        if timing or dirinfo:
-            ms = timer.stop(v, f.dense)
-            print_dirinfo(succ, n, used_push, prev_push, dirinfo)
-            prev_push = used_push
-            # unvisited: still at the FLT_MAX sentinel (the reference's CSV
-            # column, bfs.hpp:54-60)
-            unvisited = int((v[:n] >= MAXF).sum()) if timing else n
-            print_iter_row(it, succ, n, unvisited, used_push, ms, timing)
+        with annotate("gb.sssp.iter"):
+            timer.start()
+            v, f, succ_t, used_push = _sssp_step(
+                A, v, f, plan, switchpoint=switchpoint, mode=mode,
+                edge_cap=edge_cap, sort_push=sort_push, tiers=tiers,
+                lazy=lazy, state=state)
+            with annotate("gb.sssp.read"):       # the loop's host read
+                if merged:
+                    state = frontier_state(A, f, MAXF, transpose=True)
+                    succ = state[1]
+                else:
+                    succ = int(succ_t)
+            if timing or dirinfo:
+                ms = timer.stop(v, f.dense)
+                print_dirinfo(succ, n, used_push, prev_push, dirinfo)
+                prev_push = used_push
+                # unvisited: still at the FLT_MAX sentinel (the reference's
+                # CSV column, bfs.hpp:54-60)
+                unvisited = int((v[:n] >= MAXF).sum()) if timing else n
+                print_iter_row(it, succ, n, unvisited, used_push, ms, timing)
         it += 1
     return v[:n], it - 1
 

@@ -29,7 +29,9 @@ switch.
 
 The push of `ops/spmspv.py` takes a workspace of one of a few fixed sizes
 (tiers: edge_cap/64, edge_cap/8, edge_cap, each rounded up to 1,024), as in
-the JAX package; the bitmap push needs none. JAX
+the JAX package; the bitmap push needs none, and an eager valued Min or Max
+push runs as scatter pushes of one lane an edge over slices of the
+frontier, none past the second tier, into one dense result. JAX
 picks the direction and the tier on the device with conds; here the
 frontier's degree total, its count, the direction preference and the lazy
 flags come to the host in one read a call, and the host picks. Where JAX's
@@ -54,8 +56,8 @@ from .kernels.minmax_pull import minmax_supported
 from .kernels.monoid_pull import MonoidPlan, monoid_supported, spmv_monoid
 from .kernels.row_schedule import schedule_for
 from .kernels.value_pull import ValuePlan, spmv_value_pull
-from .spmspv import (DUP_INSENSITIVE, frontier_degrees, spmspv_push,
-                     spmspv_push_sparse)
+from .spmspv import (_ORDERED, DUP_INSENSITIVE, frontier_degrees,
+                     spmspv_push, spmspv_push_exact, spmspv_push_sparse)
 from .spmv import mask_pass, spmv_pull
 
 # the bound on the sparse image a lazy push leaves behind: lazy consumers
@@ -188,6 +190,17 @@ def _host_state(push_ptr: torch.Tensor, f: DualFrontier, identity,
     return deg_total, snvals, use_sparse, dense_ok, sparse_ok
 
 
+def frontier_state(A: Matrix, f: DualFrontier, identity,
+                   transpose: bool = False) -> tuple:
+    """What `mxv_dual(A, f, ..., transpose=transpose)` reads of f before it
+    picks a direction (`_host_state`: the degree total, snvals, the
+    direction preference and the images' flags), in one host read, for a
+    loop that reads f's count anyway: it hands the tuple to mxv_dual as
+    `state`, and the dispatch reads nothing more."""
+    return _host_state(A.pull_csr(not transpose)[2], f, identity,
+                       min(LAZY_SPARSE_CAP, f.sind.shape[0]))
+
+
 def push_tiers(edge_cap: int, tier_divisors: tuple = (64, 8)) -> list:
     """The push workspace sizes, smallest first: edge_cap // div rounded up
     to 1,024 for each divisor, then edge_cap itself."""
@@ -305,6 +318,76 @@ def _push(push_csr, fin, deg_total: int, cap: int, whole: bool,
     return _finish_dense(y, identity, postprocess, with_vals, not lazy, fin)
 
 
+def _takes_slices(semiring: Semiring, structure_only: bool,
+                  lazy: bool) -> bool:
+    """Whether a push runs as scatter pushes over slices of the frontier
+    (`_push_sliced`): an eager valued push under Min or Max ⊕ (SSSP's
+    MinimumPlus; `_ORDERED`, whose total ignores the order and grouping of
+    its operands). Its lanes then stay within the second tier, where
+    the sort push's last tier would hold some 50 B a lane, at a billion
+    edges more than the card; below the second tier one scatter slice
+    also beats the sort push (SSSP on kron25w on an H100: 210 ms a call
+    against 271), and one lane an edge (`spmspv_push_exact`) enqueues a
+    third of the workspace push's ops."""
+    return not structure_only and not lazy and semiring.add.name in _ORDERED
+
+
+def slice_bounds(push_ptr: torch.Tensor, f_sind: torch.Tensor, snvals: int,
+                 lanes: int, deg_total: int) -> list:
+    """[(start, end, edges)]: the frontier slots sind[:snvals], whose
+    degree total is deg_total, cut in order into runs whose degree total is
+    at most `lanes` (a run of one vertex holds that vertex's edges,
+    whatever their number), each as long as that allows. Any two runs in a
+    row hold more than `lanes` edges, so 2·⌈deg_total / lanes⌉ greedy steps
+    on the device cut them all, and one host read brings them; a frontier
+    within `lanes` is one slice, with no read."""
+    if deg_total <= lanes:
+        return [(0, snvals, deg_total)]
+    deg = frontier_degrees(push_ptr, f_sind[:snvals], snvals)
+    # incl[i]: the degree total of slots [0, i)
+    incl = torch.cumsum(torch.cat([deg.new_zeros(1), deg]), 0,
+                        dtype=torch.int64)
+    at, ends = incl.new_zeros(1), []
+    for _ in range(2 * -(-deg_total // lanes)):
+        # the last slot boundary within `lanes` of the run's start
+        reach = torch.searchsorted(incl, incl[at] + lanes, right=True)
+        at = torch.maximum(reach - 1, at + 1).clamp(max=snvals)
+        ends.append(at)
+    ends = torch.cat(ends)
+    out, start, done = [], 0, 0
+    for end, total in zip(*torch.stack([ends, incl[ends]]).tolist()):
+        if end > start:
+            out.append((start, end, total - done))
+            start, done = end, total
+    if start != snvals:
+        raise RuntimeError(f"the frontier's degree total is not {deg_total}")
+    return out
+
+
+def _push_sliced(push_csr, fin, lanes: int, snvals: int, deg_total: int,
+                 semiring: Semiring, identity, n_out: int, *, mask_dense,
+                 mask_scmp, postprocess) -> tuple:
+    """A push in slices of the frontier (`slice_bounds`), each of at most
+    `lanes` (the second tier's) edges but where one vertex has more, each
+    scattered with one lane an edge into one dense result
+    (`spmspv_push_exact`; exact: Min and Max ignore the order), then
+    `postprocess` and one re-sparsification. Returns (y, sind, sval, nv,
+    the lanes the slices took: the frontier's edges)."""
+    push_ptr, push_ind, push_val = push_csr
+    f_sind, f_sval, _ = fin
+    y, taken = None, 0
+    for start, end, edges in slice_bounds(push_ptr, f_sind, snvals, lanes,
+                                          deg_total):
+        fv = f_sval[start:end] if f_sval is not None else None
+        y = spmspv_push_exact(push_ptr, push_ind, push_val,
+                              f_sind[start:end], fv, edges, semiring, n_out,
+                              mask_dense, mask_scmp, out=y)
+        taken += edges
+    y, sind, sval, nv, _, _ = _finish_dense(y, identity, postprocess, True,
+                                            True, fin)
+    return y, sind, sval, nv, taken
+
+
 def _finish_dense(y: torch.Tensor, identity, postprocess, with_vals: bool,
                   resparsify: bool, carry) -> tuple:
     """The epilogue of a dense-only producer (a pull, the SIMPLE push):
@@ -392,7 +475,7 @@ def mxv_dual(A: Matrix, f: DualFrontier, semiring: Semiring, identity, *,
              postprocess: Optional[Callable] = None,
              postprocess_sparse: Optional[Callable] = None,
              tier_divisors: tuple = (64, 8), pull_plan=None,
-             lazy: bool = False):
+             lazy: bool = False, state: Optional[tuple] = None):
     """One y = A ⊗ f (or fᵀ ⊗ A when transpose), returning a new
     DualFrontier and whether push ran, a Python bool (reference:
     operations.hpp:108-199 vxm + convert()).
@@ -419,14 +502,20 @@ def mxv_dual(A: Matrix, f: DualFrontier, semiring: Semiring, identity, *,
     `pull_plan`. A structure-only push under LogicalOr or Max ⊕, eager and
     with neither postprocess, is the bitmap push (`_takes_bitmap_push`),
     whatever `sort_push` says: both lowerings give it the same images.
-    Every other push takes a workspace, the smallest of
+    Every other push but the one below takes a workspace, the smallest of
     `push_tiers(edge_cap, tier_divisors)` that holds the frontier (edge_cap
     defaults to A's nnz_pad). `sort_push` picks the MERGE sort push, which
     builds the sparse image from its own sort, over the SIMPLE scatter
     push; a `postprocess` without its sparse twin `postprocess_sparse(keys,
     vals)` sends the push to the dense route and the full-n
-    re-sparsification. A degree total past edge_cap pulls under PUSHPULL
-    and raises under PUSHONLY, on either push.
+    re-sparsification. An eager valued push under Min or Max ⊕ takes
+    neither, whatever `sort_push` says (`_takes_slices`, `_push_sliced`):
+    the frontier cut into slices of at most the second tier's lanes in
+    degree total (one slice where it fits), each scattered with one lane an
+    edge into one dense result (exact, as the order does not count), then
+    `postprocess` and one re-sparsification.
+    A degree total past edge_cap pulls under PUSHPULL and raises under
+    PUSHONLY, on either push.
 
     `lazy=True` is the lazy dual-frontier protocol (see DualFrontier): a
     push keeps the sparse image only (LAZY_SPARSE_CAP slots) and a pull
@@ -436,11 +525,13 @@ def mxv_dual(A: Matrix, f: DualFrontier, semiring: Semiring, identity, *,
     protocol, as the JAX loops ask for it.
 
     PUSHPULL and PUSHONLY read the frontier's state on the host once a
-    call (`_host_state`); PULLONLY reads nothing. Under a profiler the
+    call (`_host_state`), or take it as `state` from a caller that read it
+    with `frontier_state`; PULLONLY reads nothing. Under a profiler the
     call records the spans "gb.dispatch.read" (that read), "gb.push" and
     "gb.pull" (each direction's enqueue, the pull's re-sparsification
     included); each push adds to the counters `mxv_dual.push_edges`,
-    `.push_lanes`, `.top_tier_pushes` and `.bitmap_pushes`."""
+    `.push_lanes`, `.top_tier_pushes`, `.bitmap_pushes` and
+    `.sliced_pushes`."""
     mode = mode if mode is not None else Direction.PUSHPULL
     n_out, _, pull_ptr, pull_ind, pull_val = A.pull_csr(transpose)
     # push expands the input's adjacency: the other orientation
@@ -479,8 +570,9 @@ def mxv_dual(A: Matrix, f: DualFrontier, semiring: Semiring, identity, *,
         return (DualFrontier(n_out, y, sind, sval, nv, ratio, use_sparse,
                              True, not lazy), False)
 
-    deg_total, snvals, use_sparse, dense_ok, sparse_ok = _host_state(
-        push_csr[0], f, identity, sp)
+    deg_total, snvals, use_sparse, dense_ok, sparse_ok = (
+        _host_state(push_csr[0], f, identity, sp) if state is None
+        else state)
     tiers = push_tiers(A.nnz_pad if edge_cap is None else edge_cap,
                        tier_divisors)
     if mode == Direction.PUSHONLY:
@@ -497,12 +589,14 @@ def mxv_dual(A: Matrix, f: DualFrontier, semiring: Semiring, identity, *,
         cap = pick_tier(tiers, deg_total, snvals)
         bitmap = _takes_bitmap_push(semiring, structure_only, lazy,
                                     postprocess, postprocess_sparse)
-        lanes = push_lanes(deg_total) if bitmap else cap
+        sliced = not bitmap and _takes_slices(semiring, structure_only, lazy)
         # host ints the read above brought: counting adds no sync
         mxv_dual.push_edges += deg_total
-        mxv_dual.push_lanes += lanes
-        mxv_dual.top_tier_pushes += lanes >= tiers[-1]
         mxv_dual.bitmap_pushes += bitmap
+        if not sliced:      # the slices count their own lanes below
+            lanes = push_lanes(deg_total) if bitmap else cap
+            mxv_dual.push_lanes += lanes
+            mxv_dual.top_tier_pushes += lanes >= tiers[-1]
         with annotate("gb.push"):
             fin = carry if sparse_ok else _sparsify(f, identity)
             if bitmap:
@@ -510,6 +604,15 @@ def mxv_dual(A: Matrix, f: DualFrontier, semiring: Semiring, identity, *,
                     push_csr[0], push_csr[1], fin[0], snvals, deg_total,
                     mask_dense, mask_scmp, n_out,
                     torch.float32 if fin[1] is None else fin[1].dtype)
+                dense_ok = sparse_ok = True
+            elif sliced:
+                most = tiers[-2] if len(tiers) > 1 else cap
+                y, sind, sval, nv, taken = _push_sliced(
+                    push_csr, fin, most, snvals, deg_total, semiring,
+                    identity, n_out, mask_dense=mask_dense,
+                    mask_scmp=mask_scmp, postprocess=postprocess)
+                mxv_dual.push_lanes += taken
+                mxv_dual.sliced_pushes += deg_total > most
                 dense_ok = sparse_ok = True
             else:
                 y, sind, sval, nv, dense_ok, sparse_ok = _push(
@@ -534,9 +637,12 @@ def mxv_dual(A: Matrix, f: DualFrontier, semiring: Semiring, identity, *,
 
 # the push's counters, read as the kernels' .launches are: the frontier's
 # degree total summed over the pushes, the lanes each covered (its tier's
-# workspace, or the bitmap push's blocks), the pushes whose lanes reached
-# edge_cap, and the pushes that took the bitmap push
+# workspace, the bitmap push's blocks, or a push in slices' edges, one
+# lane each), the pushes whose one workspace reached edge_cap, the pushes
+# that took the bitmap push, and the pushes in slices whose degree total
+# passed the second tier (cut into more than one slice, but for a lone hub)
 mxv_dual.push_edges = 0
 mxv_dual.push_lanes = 0
 mxv_dual.top_tier_pushes = 0
 mxv_dual.bitmap_pushes = 0
+mxv_dual.sliced_pushes = 0

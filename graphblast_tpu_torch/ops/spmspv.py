@@ -32,8 +32,11 @@ Where the port departs from the JAX lowering:
     `GRB_PUSH_BITMAP_SORT` picks between two TPU lowerings and is not
     ported. `mxv_dual` sends an eager structure-only LogicalOr or Max push
     to the hand kernel P instead (`ops/kernels/bitmap_push.py`), which
-    marks a bitmap and needs neither a workspace nor a sort; the push here
-    serves every other push and the operations API.
+    marks a bitmap and needs neither a workspace nor a sort, and an eager
+    valued Min or Max push to `spmspv_push_exact` here, a SIMPLE push of
+    one lane an edge, over slices of the frontier
+    (`dispatch._push_sliced`); `spmspv_push` serves every other push and
+    the operations API.
 
 ⊗ is applied as mul(matrix_entry, frontier_entry) for mxv and vxm alike;
 swap_mul=True flips it. The frontier is padded (ind, val, nvals) tensors;
@@ -206,6 +209,52 @@ def spmspv_push(ptr: torch.Tensor, ind: torch.Tensor,
         # every lane writes its segment's total: the duplicates agree
         y[keys.long()] = seg_val
     y = y[:n_out]
+    if mask_dense is not None:
+        y = torch.where(mask_pass(mask_dense, mask_scmp), y, ident)
+    return y
+
+
+def spmspv_push_exact(ptr: torch.Tensor, ind: torch.Tensor,
+                      mat_val: torch.Tensor, f_ind: torch.Tensor,
+                      f_val: Optional[torch.Tensor], edges: int,
+                      semiring: Semiring, n_out: int,
+                      mask_dense: Optional[torch.Tensor] = None,
+                      mask_scmp: bool = False,
+                      out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The SIMPLE scatter push of a valued Min or Max ⊕ (`_SCATTER`) over
+    a frontier without pads, f_ind ascending, whose degree total `edges`
+    the host knows: one lane an edge, so no lane is cut or idle and no
+    workspace rounding, lane validity or clamp is needed. Each lane finds
+    its frontier slot by a repeat of the slot ids (`output_size` given, so
+    the stream does not wait), its edge from its row's start; six gathers
+    through `take` (two of the row pointers, the lanes' edge bases, the
+    adjacency, the edge and frontier values). ⊗ is mul(matrix_entry,
+    frontier_entry); the result equals `spmspv_push`'s for the same ⊕,
+    which ignores the order of its operands. `out`, a dense result of an
+    earlier push, takes this push's lanes too (⊕ into it, in place).
+    Fewer, larger ops than the workspace push, so a small frontier's push
+    keeps the card busier."""
+    out_dtype = f_val.dtype if f_val is not None else torch.float32
+    ident = semiring.identity(out_dtype).item()
+    dev = f_ind.device
+    y = (torch.full((n_out,), ident, dtype=out_dtype, device=dev)
+         if out is None else out)
+    if edges:
+        row0 = take(ptr, f_ind, sorted=True)
+        deg = take(ptr, f_ind + 1, sorted=True) - row0
+        slots = torch.arange(f_ind.shape[0], dtype=INDEX_DTYPE, device=dev)
+        slot = torch.repeat_interleave(slots, deg, output_size=edges)
+        # each slot's first edge id less its first lane: + the lane is the
+        # lane's edge
+        base = row0 - (torch.cumsum(deg, 0, dtype=INDEX_DTYPE) - deg)
+        edge = take(base, slot, sorted=True) + torch.arange(
+            edges, dtype=INDEX_DTYPE, device=dev)
+        a = take(mat_val, edge, sorted=True).to(out_dtype)
+        b = (take(f_val, slot, sorted=True).to(out_dtype)
+             if f_val is not None else torch.ones_like(a))
+        y.scatter_reduce_(0, take(ind, edge, sorted=True).long(),
+                          semiring.mul(a, b).to(out_dtype),
+                          _SCATTER[semiring.add.name])
     if mask_dense is not None:
         y = torch.where(mask_pass(mask_dense, mask_scmp), y, ident)
     return y

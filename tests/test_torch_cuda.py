@@ -944,9 +944,11 @@ def test_push_on_the_card_matches_the_cpu(cuda, sr_name, struc, sort_push,
     """The push on the card equals the CPU's plain run: exact, but for the
     Plus sums (rtol 1e-5, atol 1e-5: another order within a segment, and
     the SIMPLE push's atomics); the MERGE push and the bitmap push are
-    bitwise equal across two runs on the card. The structure-only
-    LogicalOr push launches the bitmap push once and no K6, whatever
-    sort_push says; every other push launches K6 and no other kernel."""
+    bitwise equal across two runs on the card, as is the scatter push in
+    slices that every Min and Max valued push takes, whatever sort_push
+    says. The structure-only LogicalOr push launches the bitmap push once
+    and no K6, whatever sort_push says; every other push launches K6 and
+    no other kernel."""
     args = (sr_name, struc, sort_push, masked, values, transpose)
     k6 = kg.gather_1d.launches
     others = _hand_kernel_launches()
@@ -969,21 +971,37 @@ def test_push_on_the_card_matches_the_cpu(cuda, sr_name, struc, sort_push,
                                        atol=1e-5)
         else:
             assert torch.equal(got, want)
-    if sort_push or bitmap:
+    if sort_push or bitmap or sr_name in ("MinimumPlusSemiring",
+                                          "MaximumMultipliesSemiring"):
         again = _push_on(cuda, *args)
         for a, b in zip(card, again):
             assert (a is None and b is None) or torch.equal(a, b)
 
 
-def test_push_bfs_and_sssp_on_the_card_launch_k6_per_iteration(cuda):
+def test_push_bfs_and_sssp_on_the_card_launch_k6_per_iteration(
+        cuda, monkeypatch):
     """PUSHONLY BFS and SSSP from the hub at RMAT scale 12 equal the
     goldens; a BFS push iteration (structure-only) launches the bitmap
-    push once and no K6; an SSSP one launches K6 11 times (2 degree
-    gathers, 7 with the value gathers, 1 for the Min fill, 1 for the
-    filter), all at ascending indices, and no other hand kernel runs."""
+    push once and no K6; an SSSP one, a scatter push of one lane an edge
+    over slices of the frontier, launches K6 6 times a slice (2 row-pointer
+    gathers, the lanes' edge bases, the adjacency and the 2 value gathers;
+    no fill and a dense filter), and 2 more for the cut's
+    degree gathers where its frontier passes the second tier, all at
+    ascending indices, and no other hand kernel runs."""
     from graphblast_tpu_torch.algorithms.sssp import _sssp_fused
     from graphblast_tpu_torch.io.rmat import rmat_matrix
+    from graphblast_tpu_torch.ops import dispatch
 
+    slices = []
+    inner = dispatch.slice_bounds
+
+    def recording(ptr, sind, snvals, lanes, deg_total):
+        out = inner(ptr, sind, snvals, lanes, deg_total)
+        if deg_total > lanes:
+            slices.append(len(out))
+        return out
+
+    monkeypatch.setattr(dispatch, "slice_bounds", recording)
     A = rmat_matrix(12, 16, seed=42, device=cuda)
     s = int(np.argmax(np.diff(A.host_csr()[0])))
     others = _hand_kernel_launches()
@@ -998,9 +1016,11 @@ def test_push_bfs_and_sssp_on_the_card_launch_k6_per_iteration(cuda):
     np.testing.assert_array_equal(dist, tgb.algorithms.sssp_cpu(A, s))
     ran = kg.gather_1d.launches - k6
     assert kg.gather_1d.sorted_launches - k6_sorted == ran
+    sliced = list(slices)
     _, it = _sssp_fused(A, s, None, switchpoint=0.01,
                         mode=tgb.Direction.PUSHONLY, max_niter=1000)
-    assert ran == 11 * it > 0
+    assert sliced and len(sliced) < it
+    assert ran == 6 * (it - len(sliced)) + sum(2 + 6 * k for k in sliced)
     after = _hand_kernel_launches()
     assert after[:-1] == others[:-1]
     assert after[-1] - others[-1] == int(levels.max())

@@ -170,30 +170,32 @@ def test_push_counters_match_a_plain_reckoning(rmat10):
 
 def test_push_counters_reckon_the_tiers_of_a_valued_push(monkeypatch,
                                                          rmat10):
-    """PUSHONLY SSSP pushes values under MinimumPlus, so its pushes keep
-    the workspace tiers: Σ frontier degree, Σ pick_tier lanes and the
-    pushes that took the last tier, reckoned from each call's frontier,
-    and no bitmap push. The roots make every tier fire."""
+    """PUSHONLY SSSP pushes values under MinimumPlus, so its pushes run as
+    scatter pushes of one lane an edge over slices of at most the second
+    tier's lanes: Σ frontier degree, and as many lanes, reckoned from each
+    call's frontier; a push counts as sliced where its degree total passes
+    the second tier, none as a last-tier push, and none as a bitmap push.
+    The roots give frontiers of every tier's size."""
     A = rmat10
     desc = gt.DEFAULT.replace(mxv_mode=gt.Direction.PUSHONLY)
     deg = np.diff(A.row_ptr.numpy().astype(np.int64))[:A.nrows]
     tiers = dispatch.push_tiers(A.nnz_pad, desc.push_tiers)
     assert len(tiers) == 3
-    want, caps = [0, 0, 0, 0], set()
+    want, caps, sliced = [0, 0, 0, 0], set(), [0]
     inner = sssp_mod.mxv_dual
 
     def recording(M, f, *args, **kw):
         front = f.dense.numpy() != kw["identity"]
         total = int(deg[front].sum())
-        cap = dispatch.pick_tier(tiers, total, int(front.sum()))
-        caps.add(cap)
+        caps.add(dispatch.pick_tier(tiers, total, int(front.sum())))
         want[0] += total
-        want[1] += cap
-        want[2] += cap == tiers[-1]
+        want[1] += total
+        sliced[0] += total > tiers[-2]
         return inner(M, f, *args, **kw)
 
     monkeypatch.setattr(sssp_mod, "mxv_dual", recording)
     before = [getattr(dispatch.mxv_dual, c) for c in COUNTERS]
+    sliced_before = dispatch.mxv_dual.sliced_pushes
     hub = int(np.argmax(deg))
     for source in [hub] + list(range(0, A.nrows, 128)):
         gt.algorithms.sssp(A, source, desc)
@@ -201,6 +203,7 @@ def test_push_counters_reckon_the_tiers_of_a_valued_push(monkeypatch,
            for c, b in zip(COUNTERS, before)]
     assert caps == set(tiers)
     assert got == want
+    assert dispatch.mxv_dual.sliced_pushes - sliced_before == sliced[0] > 0
 
 
 @pytest.mark.parametrize("case", ["bfs", "bfs_values", "bfs_lazy", "sssp"])
