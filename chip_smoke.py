@@ -16,7 +16,14 @@ Phases, each of which fails the run on error (each prints its seconds):
      schedule in the same kernel), to the plain version. Prints the plan's
      row schedule (the CSC's, shared); times the kernel, one warp a row, the
      plain version and torch.sparse (a yardstick only; the package never
-     calls it) with CUDA events, and computes the kernel's bound;
+     calls it) with CUDA events, and computes the kernel's bound. Beside
+     each frontier runs K1's masked entry under BFS's visited mask at that
+     frontier's iteration, taken from the hub's golden levels (levels 1 .. it
+     for the hub's level `it`; levels 1 .. 2 for the 20% frontier),
+     complemented: it must equal (count > 0) & the mask's pass bitwise, its
+     plain version and a second launch, and is timed beside the count and
+     its plain version with its least bytes (the open rows' ids up to their
+     first frontier id, their row pointers, three n/8 B bitmaps);
   3. BFS main path: pull-only BFS through graphblast_tpu_torch.algorithms.bfs
      from the 8 highest-degree sources; levels must equal the NumPy golden,
      K1 must have launched once per BFS iteration and BFS's plan must read
@@ -605,6 +612,8 @@ def phase_kernel_vs_plain(A, golden_hub, hub, tag: str = "K1"):
         "random20": (np.random.RandomState(42).rand(n) < 0.2).astype(
             np.float32),
     }
+    # the BFS iteration whose visited mask goes with each frontier
+    visited_through = {"hub": 1, "hub_level2": 2, "random20": 2}
     lib_mat = torch.sparse_csr_tensor(
         plan.ptr, plan.ind[:nnz],
         torch.ones(nnz, dtype=torch.float32, device="cuda"),
@@ -649,7 +658,84 @@ def phase_kernel_vs_plain(A, golden_hub, hub, tag: str = "K1"):
               f"schedule, this kernel) {old_ms:.6f} ms ({old_ms / ms:.2f}x), "
               f"plain {plain_ms:.6f} ms, torch.sparse {lib_ms:.6f} ms, bound "
               f"{bound_ms:.6f} ms")
+        rows[name]["masked"] = _masked_vs_count(
+            tag, name, plan, words, y, golden_hub, visited_through[name],
+            f_np, ms)
     return rows, bound_ms
+
+
+def _masked_vs_count(tag, name, plan, words, count, golden, it, f_np,
+                     count_ms):
+    """K1's masked entry under BFS's visited mask of iteration `it` (the
+    golden levels 1 .. it, complemented) beside K1's count: equal to
+    (count > 0) & the mask's pass, to its plain version and to a second
+    launch, bitwise; timed with its plain version and its least bytes."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from graphblast_tpu_torch.ops.kernels.bitmap_pull import (
+        spmv_bitmap_pull, spmv_bitmap_pull_plain)
+
+    level = np.where((golden >= 1) & (golden <= it), golden, 0)
+    mask = torch.from_numpy(level.astype(np.float32)).cuda()
+    masked = dataclasses.replace(plan, mask=mask, mask_scmp=True)
+    launches = spmv_bitmap_pull.masked_launches
+    y = spmv_bitmap_pull(masked, words)
+    y_again = spmv_bitmap_pull(masked, words)
+    y_plain = spmv_bitmap_pull_plain(masked, words)
+    torch.cuda.synchronize()
+    if spmv_bitmap_pull.masked_launches != launches + 2:
+        raise AssertionError(f"{tag} masked on {name}: "
+                             f"{spmv_bitmap_pull.masked_launches - launches}"
+                             " masked launches, not 2")
+    want = ((count > 0) & (mask == 0)).to(torch.int32)
+    if not (torch.equal(y, want) and torch.equal(y, y_plain)
+            and torch.equal(y, y_again)):
+        raise AssertionError(f"{tag} masked on {name}: differs from (count "
+                             "> 0) & pass, its plain version or a second "
+                             "launch")
+    ms = _event_ms(lambda: spmv_bitmap_pull(masked, words), 200)
+    plain_ms = _event_ms(lambda: spmv_bitmap_pull_plain(masked, words), 20)
+    least = _orpull_least_bytes(plan, torch.from_numpy(level).cuda(),
+                                torch.from_numpy(f_np).cuda() != 0)
+    least_ms = least / HBM_BYTES_PER_S * 1e3
+    print(f"[{tag}] {name} masked (visited = levels 1..{it}, "
+          f"{int((level > 0).sum())} rows closed): sum(y)={int(y.sum())} "
+          f"equal to (count > 0) & pass, its plain version and a second "
+          f"launch; masked {ms:.6f} ms, count {count_ms:.6f} ms "
+          f"({count_ms / ms:.2f}x), plain {plain_ms:.6f} ms; least bytes "
+          f"{least} -> {least_ms:.6f} ms ({100 * least_ms / ms:.2f}% of its "
+          "roofline)")
+    return dict(ms=ms, plain_ms=plain_ms, least_bytes=least,
+                least_ms=least_ms)
+
+
+def _orpull_least_bytes(plan, level, frontier) -> int:
+    """The least bytes of the masked or-pull over `plan` (the benchmark's
+    model): 4 B an id of each open row (level 0) up to and including its
+    first frontier id (all of the row where none is), 4 B each row pointer
+    that bounds an open row, and n/8 B for each of the frontier's, the
+    mask's and the result's bitmaps."""
+    import torch
+
+    ptr = plan.ptr.long()
+    length = ptr[1:] - ptr[:-1]
+    nnz = int(ptr[-1])
+    rows = torch.repeat_interleave(torch.arange(plan.n_out, device="cuda"),
+                                   length, output_size=nnz)
+    opened = level == 0
+    hit = frontier[plan.ind[:nnz].long()] & opened[rows]
+    first = length.clone()
+    pos = torch.arange(nnz, device="cuda") - ptr[rows]
+    first.scatter_reduce_(0, rows[hit], pos[hit], reduce="amin")
+    scanned = torch.where(first < length, first + 1, length)
+    bounds = torch.zeros(plan.n_out + 1, dtype=torch.bool, device="cuda")
+    bounds[:-1] |= opened
+    bounds[1:] |= opened
+    return (4 * int(scanned[opened].sum()) + 4 * int(bounds.sum())
+            + 3 * ((plan.n_out + 7) // 8))
 
 
 def phase_main_path(A, sources, goldens, reps: int = 10,

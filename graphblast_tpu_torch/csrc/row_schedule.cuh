@@ -51,9 +51,30 @@
 // and, optionally,
 //   Acc empty_row()                 a row with no edges, where that is not
 //                                   the fold's identity
-// all __device__ and const where they are members. A policy without
-// empty_row() compiles to the walk it had before the hook: the test sits
-// behind `if constexpr`. `launch<P>` runs the two grids on a stream.
+//   bool row_open(int row)          whether row `row` is folded at all
+//                                   (a mask): a row that is not is written
+//                                   identity(), and none of its ptr or ind
+//                                   is read
+//   bool saturated(Acc acc)         whether no further edge can change acc:
+//                                   a long row's block stops its chunk
+//                                   once a lane of it holds a saturated
+//                                   acc after a step (an edge a lane;
+//                                   its other warps at their next step),
+//                                   and with row_open() a
+//                                   medium row's warp after its first
+//                                   such step, a row of 9 to 32 edges
+//                                   after its first such 8-id sub-step, so
+//                                   combine() must give a saturated result
+//                                   from a saturated part, whatever the
+//                                   other
+// all __device__ and const where they are members. With row_open() a long
+// row's cluster reads the row's entry first and leaves together when it
+// is closed, and the other bins are taken up to kWarpRows rows a warp
+// (open_rows): the warp reads its rows' entries at once, writes the closed
+// ones, and folds only the open ones, packed; `launch` sizes that grid
+// from the bins' rows. A policy without a hook compiles to the walk it had
+// before the hooks: each test sits behind `if constexpr`. `launch<P>` runs
+// the two grids on a stream.
 //
 // Needs sm_90 (clusters, distributed shared memory, griddepcontrol).
 #pragma once
@@ -74,6 +95,22 @@ struct has_empty_row : std::false_type {};
 template <class P>
 struct has_empty_row<P, std::void_t<decltype(std::declval<const P&>()
                                                  .empty_row())>>
+    : std::true_type {};
+
+// whether policy P gives row_open(row)
+template <class P, class = void>
+struct has_row_open : std::false_type {};
+template <class P>
+struct has_row_open<P, std::void_t<decltype(std::declval<const P&>()
+                                                .row_open(0))>>
+    : std::true_type {};
+
+// whether policy P gives saturated(acc)
+template <class P, class = void>
+struct has_saturated : std::false_type {};
+template <class P>
+struct has_saturated<P, std::void_t<decltype(std::declval<const P&>().saturated(
+                            std::declval<typename P::Acc>()))>>
     : std::true_type {};
 
 constexpr int kCluster = 8;   // blocks (chunks) of a long row
@@ -121,6 +158,30 @@ __device__ __forceinline__ typename P::Acc strided_fold(
   return acc;
 }
 
+// The strided fold of a policy with saturated(): thread t of the kStep
+// threads that share edges [beg, end) folds edges beg + t, beg + t +
+// kStep, ..., one a step, and the warp stops after the first step at which
+// any of its lanes holds a saturated acc or *stop is set; a warp that
+// stops sets *stop (where stop is given), so that the other warps of its
+// block stop too. Every lane runs the same steps, so that each vote has
+// the whole warp: the warp's threads must have consecutive t. One edge a
+// lane a step took 4-6% less than strided_fold's four in K1's masked BFS
+// pulls at Kronecker and uniform scale 25 on an H100 (PERF.md).
+template <class P, int kStep>
+__device__ __forceinline__ typename P::Acc stopping_fold(
+    const P& p, const int32_t* __restrict__ ind, long long beg, long long end,
+    int t, typename P::Acc acc, volatile int* stop) {
+  for (long long e = beg + t; e - t < end; e += kStep) {
+    if (e < end) acc = p.add(acc, p.fetch(__ldg(ind + e), e));
+    const bool done = p.saturated(acc) || (stop != nullptr && *stop);
+    if (__any_sync(0xffffffffu, done)) {
+      if (stop != nullptr) *stop = 1;
+      break;
+    }
+  }
+  return acc;
+}
+
 // the fold over lanes [0, width) of each group of `width` lanes, in lane 0
 template <class P, int kWidth>
 __device__ __forceinline__ typename P::Acc group_fold(typename P::Acc acc) {
@@ -145,11 +206,28 @@ __device__ void long_chunk(const P& p, const int32_t* __restrict__ ptr,
   cg::cluster_group cluster = cg::this_cluster();
   const int j = b % kCluster;
   const int row = __ldg(perm + b / kCluster);
+  if constexpr (has_row_open<P>::value) {
+    // every block of the cluster reads the one entry and leaves, so that
+    // none waits at a cluster barrier
+    if (!p.row_open(row)) {
+      if (j == 0 && threadIdx.x == 0) y[row] = p.identity();
+      return;
+    }
+  }
   const long long beg = __ldg(chunk_beg + b);
   const long long end = j + 1 < kCluster ? __ldg(chunk_beg + b + 1)
                                          : __ldg(ptr + row + 1);
-  Acc acc = strided_fold<P, kThreads>(p, ind, beg + threadIdx.x, end,
-                                      p.identity());
+  Acc acc;
+  if constexpr (has_saturated<P>::value) {
+    __shared__ int stop;   // set by the first of the block's warps to stop
+    if (threadIdx.x == 0) stop = 0;
+    __syncthreads();
+    acc = stopping_fold<P, kThreads>(p, ind, beg, end, threadIdx.x,
+                                     p.identity(), &stop);
+  } else {
+    acc = strided_fold<P, kThreads>(p, ind, beg + threadIdx.x, end,
+                                    p.identity());
+  }
   acc = group_fold<P, 32>(acc);
   if ((threadIdx.x & 31) == 0) warp_part[threadIdx.x >> 5] = acc;
   __syncthreads();
@@ -216,6 +294,132 @@ __device__ void group_rows(const P& p, const int32_t* __restrict__ ptr,
   }
 }
 
+// The bins of short and medium rows under a policy with row_open(): a
+// warp takes n_rows consecutive rows of bin `bin` (from perm[first]), a
+// lane a row, reads their entries at once and writes identity() to the
+// closed ones; then it folds the open ones, packed by their rank among
+// the open rows so that a step has no closed row while open ones remain: a
+// warp a row in the medium bin (the stopping fold, with saturated()), 8
+// lanes a row in the bins of 9 to 32 edges (8 ids a sub-step, stopping
+// with saturated()), 32/G rows a step in the bins of G = 8 and 4 lanes. A
+// closed row costs a lane's reads of perm and the mask and its write of y,
+// whatever its bin.
+constexpr int kWarpRows = 32;
+// Since a warp folds its open rows one after another, a warp takes fewer
+// rows where the bins have too few rows to keep kMinWarps warps, about 4
+// waves of 64 warps on 132 SMs. On an H100 a pull-only BFS's five pulls
+// from the hub of RMAT scale 18 (262,144 rows, 8 a warp) took 0.172 ms,
+// against 0.190 for K1's count, 0.211 with 32 rows a warp at any size and
+// 0.245 with kMinWarps 2^17 (2 a warp); at scale 25 the four gave the same
+// (PERF.md)
+constexpr int kMinWarps = 1 << 15;
+
+// the rows a warp of bin `bin` (1 .. 5) takes under a policy with
+// row_open(): as many as keep kMinWarps warps on bins 1 .. 5, up to
+// kWarpRows, and at least a step's (open_rows): 4 in the bins of 9 to 32
+// edges, 32/G in those of G = 8 and 4 lanes
+__host__ __device__ inline int open_warp_rows(const Sched& s, int bin) {
+  const int rows = s.row_begin[kBins] - s.row_begin[1];
+  int r = kWarpRows;
+  while (r > 1 && rows / r < kMinWarps) r >>= 1;
+  const int step = bin == 1 ? 1 : bin <= 3 ? 4 : 1 << (bin - 2);
+  return r > step ? r : step;
+}
+
+template <class P>
+__device__ void open_rows(const P& p, const int32_t* __restrict__ ptr,
+                          const int32_t* __restrict__ ind,
+                          typename P::Acc* __restrict__ y,
+                          const int32_t* __restrict__ perm, int bin,
+                          int n_rows, long long first, int row_end) {
+  static_assert(!has_empty_row<P>::value,
+                "a closed row and an empty one are both written identity()");
+  // the warp's open rows and their edges, by rank
+  __shared__ int open_row[kWarps][kWarpRows];
+  __shared__ int open_beg[kWarps][kWarpRows];
+  __shared__ int open_end[kWarps][kWarpRows];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  if (first >= row_end) return;   // whole warps leave together
+  const long long k = first + lane;
+  bool open = false;
+  int row = 0;
+  if (lane < n_rows && k < row_end) {
+    row = __ldg(perm + k);
+    open = p.row_open(row);
+    if (!open) y[row] = p.identity();
+  }
+  const unsigned opened = __ballot_sync(0xffffffffu, open);
+  if (open) {
+    const int rank = __popc(opened & ((1u << lane) - 1u));
+    open_row[warp][rank] = row;
+    open_beg[warp][rank] = __ldg(ptr + row);
+    open_end[warp][rank] = __ldg(ptr + row + 1);
+  }
+  __syncwarp();
+  const int n_open = __popc(opened);
+  using Acc = typename P::Acc;
+  if (bin == 1) {
+    for (int i = 0; i < n_open; ++i) {
+      const long long beg = open_beg[warp][i];
+      const long long end = open_end[warp][i];
+      Acc acc;
+      if constexpr (has_saturated<P>::value)
+        acc = stopping_fold<P, 32>(p, ind, beg, end, lane, p.identity(),
+                                   nullptr);
+      else
+        acc = strided_fold<P, 32>(p, ind, beg + lane, end, p.identity());
+      acc = group_fold<P, 32>(acc);
+      if (lane == 0) y[open_row[warp][i]] = acc;
+    }
+    return;
+  }
+  if (bin == 2 || bin == 3) {
+    // rows of 9 to 32 edges: 8 lanes a row, 4 rows a step, 8 ids a
+    // sub-step, a row's group stopping after the sub-step that saturates
+    // it (saturated()); on an H100 K1's masked BFS pulls at uniform scale
+    // 25 took 17% less than with a row's every edge read at once (PERF.md)
+    const int sub = lane & 7;
+    const unsigned group = 0xffu << (lane & ~7);
+    const int top = bin == 2 ? 32 : 16;
+    for (int i0 = 0; i0 < n_open; i0 += 4) {
+      const int i = i0 + (lane >> 3);
+      const bool has = i < n_open;
+      const long long beg = has ? open_beg[warp][i] : 0;
+      const long long end = has ? open_end[warp][i] : 0;
+      Acc acc = p.identity();
+      bool done = false;
+      for (int off = 0; off < top; off += 8) {
+        const long long e = beg + off + sub;
+        if (!done && e < end) acc = p.add(acc, p.fetch(__ldg(ind + e), e));
+        if constexpr (has_saturated<P>::value)
+          done = (__ballot_sync(0xffffffffu, p.saturated(acc)) & group) != 0;
+        if (!__any_sync(0xffffffffu, !done && beg + off + 8 < end)) break;
+      }
+      acc = group_fold<P, 8>(acc);
+      if (has && sub == 0) y[open_row[warp][i]] = acc;
+    }
+    return;
+  }
+  // rows of at most 8 edges: bin 2 + j has groups of 32 >> j lanes
+  const int g_log = 7 - bin;   // log2 of the group's lanes
+  for (int i0 = 0; i0 < n_open; i0 += 32 >> g_log) {
+    const int i = i0 + (lane >> g_log);
+    Acc acc = p.identity();
+    if (i < n_open) {
+      const long long e = open_beg[warp][i] + (lane & ((1 << g_log) - 1));
+      if (e < open_end[warp][i])
+        acc = p.add(acc, p.fetch(__ldg(ind + e), e));
+    }
+    if (bin == 4)
+      acc = group_fold<P, 8>(acc);
+    else
+      acc = group_fold<P, 4>(acc);
+    if (i < n_open && (lane & ((1 << g_log) - 1)) == 0)
+      y[open_row[warp][i]] = acc;
+  }
+}
+
 // the long rows: a cluster of kCluster blocks a row
 template <class P>
 __global__ void __launch_bounds__(kThreads)
@@ -237,6 +441,17 @@ __device__ void other_rows(const P& p, const int32_t* __restrict__ ptr,
                            const int32_t* __restrict__ perm, const Sched& s,
                            int b) {
   const int warp = threadIdx.x >> 5;
+  if constexpr (has_row_open<P>::value) {   // open_warp_rows rows a warp
+    int bin = 1;
+    while (bin < kBins - 1 && b >= s.block_begin[bin + 1]) ++bin;
+    const int n_rows = open_warp_rows(s, bin);
+    const long long first =
+        s.row_begin[bin] +
+        ((long long)(b - s.block_begin[bin]) * kWarps + warp) * n_rows;
+    open_rows<P>(p, ptr, ind, y, perm, bin, n_rows, first,
+                 s.row_begin[bin + 1]);
+    return;
+  }
   if (b < s.block_begin[2]) {
     const long long k =
         s.row_begin[1] + (long long)(b - s.block_begin[1]) * kWarps + warp;
@@ -289,7 +504,19 @@ cudaError_t launch(const P& p, const int32_t* ptr, const int32_t* ind,
                    const int32_t* chunk_beg, const Sched& s,
                    cudaStream_t stream) {
   const int long_blocks = s.block_begin[1];
-  const int other_blocks = s.block_begin[kBins] - long_blocks;
+  Sched run = s;
+  if constexpr (has_row_open<P>::value) {
+    // open_warp_rows rows a warp in bins 1 .. 5, whatever the schedule's
+    // rows a block
+    for (int b = 1; b < kBins; ++b) {
+      const int rows_a_block = kWarps * open_warp_rows(s, b);
+      run.block_begin[b + 1] =
+          run.block_begin[b] +
+          (s.row_begin[b + 1] - s.row_begin[b] + rows_a_block - 1) /
+              rows_a_block;
+    }
+  }
+  const int other_blocks = run.block_begin[kBins] - long_blocks;
   cudaLaunchConfig_t cfg = {};
   cfg.blockDim = dim3(kThreads);
   cfg.stream = stream;
@@ -313,8 +540,8 @@ cudaError_t launch(const P& p, const int32_t* ptr, const int32_t* ind,
   attr[0].val.programmaticStreamSerializationAllowed = 1;
   cfg.numAttrs = long_blocks > 0 ? 1 : 0;
   cfg.gridDim = dim3((unsigned)other_blocks);
-  return cudaLaunchKernelEx(&cfg, other_rows_kernel<P>, ptr, ind, y, perm, s,
-                            p);
+  return cudaLaunchKernelEx(&cfg, other_rows_kernel<P>, ptr, ind, y, perm,
+                            run, p);
 }
 
 }  // namespace row_schedule

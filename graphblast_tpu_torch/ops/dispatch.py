@@ -441,7 +441,9 @@ def _pull(A: Matrix, fd: torch.Tensor, semiring: Semiring, n_out: int,
           structure_only, pull_plan) -> torch.Tensor:
     """y = the pull of the dense frontier `fd` over pull_csr, the (ptr, ind,
     val) of A's CSR for mxv and of its CSC for vxm, under the mask: through
-    `pull_plan`'s kernel, or `spmv_pull` without a plan."""
+    `pull_plan`'s kernel, or `spmv_pull` without a plan. A BitmapPlan
+    under a float32 mask takes K1's masked entry, which applies the mask
+    itself and stops each open row at its first frontier neighbour."""
     pull_ptr, pull_ind, pull_val = pull_csr
     if pull_plan is None:   # the mask is applied below, for every route
         # only the min/max row fold reads a schedule
@@ -454,6 +456,10 @@ def _pull(A: Matrix, fd: torch.Tensor, semiring: Semiring, n_out: int,
     else:
         if isinstance(pull_plan, BitmapPlan):
             # the bitmap plan ignores edge values
+            if mask_dense is not None and mask_dense.dtype == torch.float32:
+                pull_plan = dataclasses.replace(pull_plan, mask=mask_dense,
+                                                mask_scmp=mask_scmp)
+                mask_dense = None     # the kernel applied it
             cnt = spmv_bitmap_pull(pull_plan, pack_bitmap(fd))
         else:   # the kernel computes in float32, as the JAX kernel does
             cnt = spmv_value_pull(pull_plan, fd.to(torch.float32))

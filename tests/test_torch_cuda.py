@@ -23,6 +23,7 @@ from graphblast_tpu_torch.ops.kernels import orpull as ko
 from graphblast_tpu_torch.ops.kernels import row_schedule as rs
 from graphblast_tpu_torch.ops.kernels import value_pull as vp
 
+import test_torch_masked_pull as masked_cases
 from test_torch_intersect_replay import (ORDERED_DTYPES, ROUTINGS,
                                          SEMIRING_DTYPES, _ids_bound,
                                          _long_lists_coo, _sr,
@@ -339,6 +340,154 @@ def test_bitmap_pull_on_long_rows_matches_plain_on_the_card(
     assert bool((y[torch.from_numpy(length == 0).to(cuda)] == 0).all())
     if density == 1.0:
         assert torch.equal(y.cpu(), torch.from_numpy(length.astype(np.int32)))
+
+
+def _masked_launch(plan, words, mask, scmp):
+    """K1's masked entry over `plan`, checked to count one launch and one
+    masked launch."""
+    launches = bp.spmv_bitmap_pull.launches
+    masked = bp.spmv_bitmap_pull.masked_launches
+    y = bp.spmv_bitmap_pull(dataclasses.replace(plan, mask=mask,
+                                                mask_scmp=scmp), words)
+    torch.cuda.synchronize()
+    assert bp.spmv_bitmap_pull.launches == launches + 1
+    assert bp.spmv_bitmap_pull.masked_launches == masked + 1
+    return y
+
+
+@pytest.mark.parametrize("csr", list(masked_cases.CSRS))
+@pytest.mark.parametrize("frontier", ["hub", "level", "random20"])
+@pytest.mark.parametrize("density", [0.0, 0.5, 1.0])
+@pytest.mark.parametrize("scmp", [False, True])
+def test_masked_bitmap_pull_matches_plain_on_the_card(cuda, csr, frontier,
+                                                      density, scmp):
+    """K1's masked entry over every bin of the row schedule (a row past
+    LONG_ROW included): torch.equal to its plain version, to (K1's count >
+    0) & the mask's pass, and to a second launch; an unmasked launch keeps
+    K1's count and adds no masked launch."""
+    n, ptr, cols = masked_cases._csr(csr)
+    plan = bp.build_plan_bitmap(
+        torch.from_numpy(ptr.astype(np.int32)).to(cuda),
+        torch.from_numpy(cols.astype(np.int32)).to(cuda), n, n)
+    f = masked_cases._frontier(frontier, n, ptr, cols)
+    words = bp.pack_bitmap(torch.from_numpy(f).to(cuda))
+    mask = torch.from_numpy(masked_cases._mask(density, n)).to(cuda)
+    y = _masked_launch(plan, words, mask, scmp)
+    masked = bp.spmv_bitmap_pull.masked_launches
+    cnt = bp.spmv_bitmap_pull(plan, words)
+    torch.cuda.synchronize()
+    assert bp.spmv_bitmap_pull.masked_launches == masked
+    assert torch.equal(cnt, bp.spmv_bitmap_pull_plain(plan, words))
+    plain = bp.spmv_bitmap_pull_plain(
+        dataclasses.replace(plan, mask=mask, mask_scmp=scmp), words)
+    assert y.dtype == torch.int32 and torch.equal(y, plain)
+    assert torch.equal(y, ((cnt > 0) & masked_cases.mask_pass(mask, scmp))
+                       .to(torch.int32))
+    assert torch.equal(y, _masked_launch(plan, words, mask, scmp))
+
+
+@pytest.mark.parametrize("n", [(1 << 22) + 999, (1 << 17) + 5])
+@pytest.mark.parametrize("density", [0.0, 0.5, 0.97])
+def test_masked_bitmap_pull_at_full_warps_on_the_card(cuda, n, density):
+    """CSRs of 2^22 + 999 and 2^17 + 5 rows, which give a warp 32 and 4
+    rows of each bin but the short ones' minimum (row_schedule.cuh
+    open_warp_rows), with short rows of each bin and medium ones: the
+    masked entry equal to (K1's count > 0) & the mask's pass."""
+    rng = np.random.default_rng(31)
+    lengths = np.where(rng.random(n) < 0.02, rng.integers(33, 300, n),
+                       rng.integers(0, 33, n))
+    ptr = np.r_[0, np.cumsum(lengths)]
+    cols = rng.integers(0, n, int(ptr[-1]), dtype=np.int32)
+    plan = bp.build_plan_bitmap(
+        torch.from_numpy(ptr.astype(np.int32)).to(cuda),
+        torch.from_numpy(cols).to(cuda), n, n)
+    assert all(r > 0 for r in plan.sched.bin_rows[1:])
+    f = torch.rand(n, device=cuda) < 0.03
+    words = bp.pack_bitmap(f.float())
+    mask = torch.where(torch.rand(n, device=cuda) < density, 2.0, 0.0)
+    y = _masked_launch(plan, words, mask, True)
+    cnt = bp.spmv_bitmap_pull(plan, words)
+    assert torch.equal(y, ((cnt > 0) & (mask == 0)).to(torch.int32))
+    assert torch.equal(y, _masked_launch(plan, words, mask, True))
+
+def _rows_with_one_hit(rng, lengths_and_hits, n, hit):
+    """A CSR of rows of the given lengths whose ids avoid vertex `hit`,
+    but for one at the given position of each row (None: nowhere)."""
+    rows = []
+    for length, pos in lengths_and_hits:
+        ids = rng.integers(0, n - 1, length)
+        ids[ids >= hit] += 1
+        if pos is not None:
+            ids[pos] = hit
+        rows.append(ids)
+    ptr = np.r_[0, np.cumsum([len(r) for r in rows])]
+    return ptr, np.concatenate(rows)
+
+
+T = rs.LONG_ROW
+# (row length, position of its one frontier id): the medium rows' 32- and
+# 128-edge steps on both sides, a long row's chunks (3T + 1 edges, chunks
+# of 3,073) at their first and last edges, the 8-id sub-steps of rows of
+# 9 to 32 edges on both sides, and rows with no hit
+HIT_ROWS = [(33, 0), (33, 32), (100, 31), (128, 127), (129, 128),
+            (257, 200), (5000, 4999), (T, T - 1), (3 * T + 1, 0),
+            (3 * T + 1, 3 * T), (3 * T + 1, 7 * ((3 * T + 8) // 8)),
+            (3 * T + 1, 3073 - 1), (3 * T + 1, 3073), (40, None),
+            (3 * T + 1, None), (2, 1), (17, 16), (0, None), (20, 7),
+            (20, 8), (32, 24), (32, 31), (9, 0), (12, 8), (16, 15),
+            (25, None), (13, None)]
+
+
+@pytest.mark.parametrize("closed_long", [False, True])
+def test_masked_bitmap_pull_stops_only_at_a_hit_on_the_card(cuda,
+                                                            closed_long):
+    """Rows whose one frontier id sits at a step's or a chunk's edge: an
+    open row reads 1 wherever it is (a long row's only one in its last
+    chunk included), a row with none 0. With closed_long every long row is
+    closed: all 8 blocks of its cluster leave at the mask, and it reads
+    0."""
+    rng = np.random.default_rng(23)
+    n = 50000
+    hit = 777
+    ptr, cols = _rows_with_one_hit(rng, HIT_ROWS, n, hit)
+    n_out = len(HIT_ROWS)
+    length = np.diff(ptr)
+    plan = bp.build_plan_bitmap(
+        torch.from_numpy(ptr.astype(np.int32)).to(cuda),
+        torch.from_numpy(cols.astype(np.int32)).to(cuda), n_out, n)
+    assert plan.sched.bin_rows[0] == int((length > T).sum()) == 6
+    f = torch.zeros(n, device=cuda)
+    f[hit] = 1
+    closed = (length > T) if closed_long else np.zeros(n_out, bool)
+    mask = torch.from_numpy(closed.astype(np.float32)).to(cuda)
+    y = _masked_launch(plan, bp.pack_bitmap(f), mask, True).cpu().numpy()
+    want = np.array([pos is not None for _, pos in HIT_ROWS]) & ~closed
+    np.testing.assert_array_equal(y, want.astype(np.int32))
+
+
+def test_masked_bitmap_pull_mixes_closed_and_open_short_rows(cuda):
+    """Warps of short rows (of 3, 7, 12 and 25 edges: every short bin)
+    whose rows alternate closed and open, each row with a frontier id: the
+    closed lanes join their warp's shuffles and read 0, the open ones 1."""
+    rng = np.random.default_rng(29)
+    n = 4096
+    hit = 5
+    lengths = np.repeat([3, 7, 12, 25], 64)
+    ptr, cols = _rows_with_one_hit(
+        rng, [(int(L), int(rng.integers(0, L))) for L in lengths], n, hit)
+    n_out = len(lengths)
+    plan = bp.build_plan_bitmap(
+        torch.from_numpy(ptr.astype(np.int32)).to(cuda),
+        torch.from_numpy(cols.astype(np.int32)).to(cuda), n_out, n)
+    assert plan.sched.bin_rows == (0, 0, 64, 64, 64, 64)
+    f = torch.zeros(n, device=cuda)
+    f[hit] = 1
+    levels = np.where(np.arange(n_out) % 2 == 0, 0.0, 3.0)
+    mask = torch.from_numpy(levels.astype(np.float32)).to(cuda)
+    for scmp in (False, True):
+        y = _masked_launch(plan, bp.pack_bitmap(f), mask, scmp).cpu()
+        want = (levels == 0) if scmp else (levels != 0)
+        np.testing.assert_array_equal(y.numpy(), want.astype(np.int32))
 
 
 @pytest.mark.parametrize("build", ["monoid", "bitmap"])
