@@ -152,8 +152,9 @@ Phases, each of which fails the run on error (each prints its seconds):
      CSR: the bitmap push P) at rmat18 from the 8 hubs: levels equal to
      the golden, P launched once an iteration and no other kernel; ms/run
      (median and tail) and GTEPS beside phase 3's pull; the stepped trace
-     of the first hub (each iteration's frontier, degree total, workspace
-     tier, host reads counted by torch.cuda.set_sync_debug_mode and ms);
+     of the first hub (each iteration's frontier, degree total, push route
+     and lanes, host reads counted by torch.cuda.set_sync_debug_mode and
+     ms);
      one push iteration at the hub's level-2 frontier: the sort push
      split into the expansion, the sort, the fill and the compaction,
      each timed alone by CUDA events, beside mxv_dual whole and P alone
@@ -167,32 +168,35 @@ Phases, each of which fails the run on error (each prints its seconds):
      to the golden, K6 launched 6 times an iteration (the scatter push of
      one lane an edge: 2 row-pointer gathers, the lanes' edge bases, the
      adjacency and the two value gathers), or, in an iteration whose
-     frontier passes the second tier and so is cut into slices, 2 and 6 a
+     frontier passes `slice_lanes` and so is cut into slices, 2 and 6 a
      slice, and no K4; ms/run and GTEPS beside phase 7's pull;
   20. grid_matrix(512) (n = 262,144, diameter 1,022): BFS from vertex 0,
      PUSHONLY (one P an iteration) and PULLONLY (one K1 an iteration),
      levels equal to the golden in both; ms/run and ms an iteration;
-  21. PUSHPULL BFS: the default bfs(A, s) (BFS_TUNED, eager) at rmat18
+  21. PUSHPULL BFS: the default bfs(A, s) (BFS_TUNED) at rmat18
      from the 8 hubs: levels equal to the golden; K1 once a pull iteration
      and P once a push iteration (the directions from a stepped replay of
      each source), no other kernel, and in the stepped mode K5 and K6
      once a pull iteration; at most 2 host reads an iteration
      (torch.cuda.set_sync_debug_mode); ms/run (median and tail) and GTEPS
      beside phases 3 and 18; the top hub's stepped trace (direction,
-     frontier, degree total, tier, host reads, ms);
+     frontier, degree total, push route and lanes, host reads, ms);
   22. PUSHPULL SSSP: the default sssp(A, s) (DEFAULT) the same way: K4 once
      a pull iteration and K6 6 times a push iteration; ms/run beside
      phases 7 and 19;
-  23. PUSHPULL BFS from vertex 0 on phase 20's grid, eager and then with
-     GRB_LAZY_FRONTIER=1 (set and restored inside the phase): levels equal
-     to the golden; push and pull iterations, switches, image rebuilds and
-     host reads an iteration; the launches they give (lazy: 2 more K6
-     wherever the degree total reads the sparse image); ms/run and ms an
-     iteration beside phase 20's two directions;
-  24. lazy at rmat18: BFS and SSSP from the top hub with
-     GRB_LAZY_FRONTIER=1, equal to the goldens, with their launches,
-     directions and push→pull (dense) and pull→push (sparse) image
-     rebuilds, and ms/run;
+  23. PUSHPULL BFS from vertex 0 on phase 20's grid: levels equal to the
+     golden; push and pull iterations, switches and host reads an
+     iteration; the launches they give; ms/run and ms an iteration beside
+     phase 20's two directions;
+  24. valued BFS at rmat18 (BFS_TUNED with structure_only off, so each
+     push takes mxv_dual's workspace route, the sort push of
+     ops/spmspv.py) from the top hub, PUSHONLY and PUSHPULL through
+     bfs(A, s, desc): levels equal to the golden; 11 K6 a push iteration
+     (2 degree gathers, 5 in the expansion, 2 value gathers, 1 fill, 1
+     mask), K6 once at the column ids and once at the row boundaries a
+     pull iteration (no plan), and no other kernel; each push's lanes
+     from mxv_dual's counters, at least its degree total and a multiple of
+     1,024 or edge_cap; ms/run;
   25. diameter over sources [0, 8) at rmat18: equal to the largest golden
      eccentricity and its first source; ms a source;
   26. the gbfs driver as a subprocess with run_bfs.sh's flags on
@@ -2221,18 +2225,20 @@ def phase_tc_past_budget(n: int = 1 << 21, m: int = 3_000_000,
 
 
 # ---------------------------------------------------------------- the push
-BFS_PUSH_K6 = 8      # lazy: 2 degree gathers, 5 in the expansion, 1 mask
-# an eager SSSP push (valued Min): scatter pushes of one lane an edge over
+# an SSSP push (valued Min): scatter pushes of one lane an edge over
 # slices of the frontier, each 2 row-pointer gathers, the lanes' edge
 # bases, the adjacency and the 2 value gathers (no fill: it scatters; no
-# sparse filter: the filter is dense); a frontier past the second tier
-# adds 2 degree gathers for the cut
+# sparse filter: the filter is dense); a frontier past `slice_lanes` adds
+# 2 degree gathers for the cut
 SSSP_PUSH_K6 = 6
-# a lazy SSSP push: the sort push, 2, 5 + 2 value gathers, 1 Min fill, 1
-# filter
-SSSP_LAZY_PUSH_K6 = 11
-# an eager BFS push (structure-only LogicalOr) is one bitmap push, no K6
+# a BFS push (structure-only LogicalOr) is one bitmap push, no K6
 BITMAP = "bitmap_push"
+# a valued BFS push (LogicalOr over the frontier's values) takes the
+# workspace route, the sort push: 2 degree gathers, 5 in the expansion, 2
+# value gathers, 1 fill and 1 mask gather
+VALUED_BFS_PUSH_K6 = 11
+# its pull has no plan: K6 at the column ids, then at the row boundaries
+VALUED_BFS_PULL_K6 = {"gather_x": 1, "gather_boundary": 1}
 
 
 def _count_syncs(fn):
@@ -2245,53 +2251,31 @@ def _count_syncs(fn):
     import torch
 
     torch.cuda.synchronize()
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
+    # switched on outside the record: the switch may warn itself
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
             out = fn()
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
     return out, [f"{w.filename.rsplit('/', 1)[-1]}:{w.lineno}"
                  for w in caught if "synchroniz" in str(w.message)]
-
-
-LAZY_DEG_K6 = 2      # the lazy degree total's two gathers of the pointers
-
-
-@contextlib.contextmanager
-def _lazy_protocol(on: bool):
-    """GRB_LAZY_FRONTIER set to 1 (or unset) for the body, then restored."""
-    import os
-
-    was = os.environ.pop("GRB_LAZY_FRONTIER", None)
-    if on:
-        os.environ["GRB_LAZY_FRONTIER"] = "1"
-    try:
-        yield
-    finally:
-        os.environ.pop("GRB_LAZY_FRONTIER", None)
-        if was is not None:
-            os.environ["GRB_LAZY_FRONTIER"] = was
 
 
 def _direction_trace(A, source: int, desc, algo: str):
     """Stepped replay of `algo` ("bfs" or "sssp") from `source` under desc,
     through the step the fused loop runs (BFS with its bitmap plan, SSSP
-    with its monoid plan), with the lazy protocol as GRB_LAZY_FRONTIER
-    says. Each iteration: its direction, the frontier's count and degree
-    total, the push tier, whether an image was rebuilt (the dense one at a
-    push→pull switch, the sparse one at pull→push), whether the degree
-    total came from the dense image, the host reads it made (the loop's
-    succ read included) and its host ms."""
+    with its monoid plan). Each iteration: its direction, the frontier's
+    count and degree total, the push's route and lanes as mxv_dual's
+    counters recorded them (`_counted_route`), the host reads it made (the
+    loop's succ read included) and its host ms."""
     import torch
 
     from graphblast_tpu_torch.algorithms.bfs import (
-        _bfs_step, _initial_frontier, _lazy_frontier, bfs_pull_plan)
+        _bfs_step, _initial_frontier, bfs_pull_plan)
     from graphblast_tpu_torch.algorithms.common import edge_cap_for
-    from graphblast_tpu_torch.ops.dispatch import (LAZY_SPARSE_CAP,
-                                                   _host_state, pick_tier,
-                                                   push_tiers)
+    from graphblast_tpu_torch.ops.dispatch import _host_state
     from graphblast_tpu_torch.algorithms.sssp import (
         _initial_frontier as _sssp_initial_frontier)
     from graphblast_tpu_torch.algorithms.sssp import _sssp_step
@@ -2299,16 +2283,12 @@ def _direction_trace(A, source: int, desc, algo: str):
         FLT_MAX, plan_for_monoid)
 
     n = A.nrows
-    lazy = _lazy_frontier(desc.mxv_mode)
-    edge_cap = edge_cap_for(A, desc)
-    tiers = push_tiers(edge_cap, desc.push_tiers)
     kw = dict(switchpoint=desc.switchpoint, mode=desc.mxv_mode,
-              edge_cap=edge_cap, sort_push=desc.sort_push,
-              tiers=desc.push_tiers, lazy=lazy)
+              edge_cap=edge_cap_for(A, desc), sort_push=desc.sort_push)
     if algo == "bfs":
         plan = bfs_pull_plan(A, desc)
         f = _initial_frontier(n, source, A.device,
-                              with_values=not desc.structure_only, lazy=lazy)
+                              with_values=not desc.structure_only)
         v = torch.zeros(n + 1, device=A.device)
         ident = 0.0
 
@@ -2317,7 +2297,7 @@ def _direction_trace(A, source: int, desc, algo: str):
                              struconly=desc.structure_only, **kw)
     else:
         plan = plan_for_monoid(A, transpose=True)
-        f = _sssp_initial_frontier(n, source, A.device, lazy=lazy)
+        f = _sssp_initial_frontier(n, source, A.device)
         v = torch.cat([f.dense, f.dense.new_full((1,), FLT_MAX)])
         ident = FLT_MAX
 
@@ -2326,38 +2306,51 @@ def _direction_trace(A, source: int, desc, algo: str):
     rows, it, succ = [], 1, 1
     while succ > 0 and it <= desc.max_niter:
         # read apart from the iteration, which reads them itself
-        sp = min(LAZY_SPARSE_CAP, f.sind.shape[0])
-        deg_total, nv, _, dense_ok, sparse_ok = _host_state(
-            A.row_ptr, f, ident, sp)
-        from_dense = f.dense_ok is True
+        deg_total, nv, _ = _host_state(A.row_ptr, f, ident)
 
         def run():
             t0 = time.perf_counter()
             out = step(v, f, it)
             return out, int(out[2]), (time.perf_counter() - t0) * 1e3
 
+        before = _push_counters()
         ((v, f, _, pushed), succ, ms), reads = _count_syncs(run)
-        rebuilt = ("sparse" if pushed and not sparse_ok
-                   else "dense" if not pushed and not dense_ok else None)
         rows.append(dict(it=it, push=pushed, snvals=nv, deg_total=deg_total,
-                         tier=pick_tier(tiers, deg_total, nv) if pushed
-                         else None, rebuilt=rebuilt, from_dense=from_dense,
+                         **(_counted_route(before, _push_counters())
+                            if pushed else {}),
                          host_reads=len(reads), read_at=sorted(set(reads)),
                          ms=ms))
         it += 1
     return rows
 
 
+def _push_counters() -> dict:
+    """mxv_dual's five push counters as they stand."""
+    from graphblast_tpu_torch.ops.dispatch import mxv_dual
+
+    return {name: getattr(mxv_dual, name) for name in (
+        "push_edges", "push_lanes", "top_tier_pushes", "bitmap_pushes",
+        "sliced_pushes")}
+
+
+def _counted_route(before: dict, after: dict) -> dict:
+    """What mxv_dual's counters recorded of the one push between two
+    readings of `_push_counters`: its route ("bitmap", "sliced" for a push
+    cut into slices, "uncut" for any other: one slice or the workspace),
+    its edges and lanes, and whether its lanes reached edge_cap."""
+    d = {k: after[k] - before[k] for k in after}
+    route = ("bitmap" if d["bitmap_pushes"] else
+             "sliced" if d["sliced_pushes"] else "uncut")
+    return dict(route=route, edges=d["push_edges"], lanes=d["push_lanes"],
+                at_cap=bool(d["top_tier_pushes"]))
+
+
 def _trace_summary(rows) -> dict:
-    """Pushes, pulls, switches, image rebuilds, the most host reads an
-    iteration, the iterations whose degree total read the sparse image,
-    and the directions as a string (P push, l pull)."""
+    """Pushes, pulls, switches, the most host reads an iteration, and the
+    directions as a string (P push, l pull)."""
     dirs = "".join("P" if r["push"] else "l" for r in rows)
     return dict(pushes=dirs.count("P"), pulls=dirs.count("l"),
                 switches=sum(a != b for a, b in zip(dirs, dirs[1:])),
-                dense_rebuilds=sum(r["rebuilt"] == "dense" for r in rows),
-                sparse_rebuilds=sum(r["rebuilt"] == "sparse" for r in rows),
-                sparse_degs=sum(not r["from_dense"] for r in rows),
                 max_reads=max(r["host_reads"] for r in rows), dirs=dirs)
 
 
@@ -2374,25 +2367,22 @@ def _trace_text(rows) -> str:
     return "; ".join(
         f"it {r['it']}: {'push' if r['push'] else 'pull'}, frontier "
         f"{r['snvals']}, deg_total {r['deg_total']}"
-        + (f", tier {r['tier']}" if r["push"] else "")
-        + (f", {r['rebuilt']} image rebuilt" if r["rebuilt"] else "")
+        + (f", {r['route']} push of {r['lanes']} lanes"
+           + (" (edge_cap)" if r["at_cap"] else "") if r["push"] else "")
         + f", host reads {r['host_reads']} ({', '.join(r['read_at'])}), "
         f"{r['ms']:.6f} ms" for r in rows)
 
 
 def _expected_launches(sums, pull_kernel, push_k6) -> dict:
     """The launches of the runs the trace summaries describe: the pull
-    kernel once a pull, push_k6 K6 a push (or, for push_k6 BITMAP, one
-    bitmap push) and LAZY_DEG_K6 more wherever the degree total read the
-    sparse image (only under the lazy protocol)."""
+    kernel once a pull, and push_k6 K6 a push (or, for push_k6 BITMAP, one
+    bitmap push)."""
     pushes = sum(x["pushes"] for x in sums)
-    out = {pull_kernel: sum(x["pulls"] for x in sums),
-           "gather_boundary": sum(LAZY_DEG_K6 * x["sparse_degs"]
-                                  for x in sums)}
+    out = {pull_kernel: sum(x["pulls"] for x in sums)}
     if push_k6 == BITMAP:
         out[BITMAP] = pushes
     else:
-        out["gather_boundary"] += push_k6 * pushes
+        out["gather_boundary"] = push_k6 * pushes
     return out
 
 
@@ -2400,16 +2390,16 @@ def _push_split(A, golden_hub, reps: int = 50):
     """One BFS push iteration at the hub's level-2 frontier (vxm over the
     CSR, the visited mask complemented), by its steps, each timed alone by
     CUDA events: the expansion, the destination sort, the fill and the
-    compaction (the mask gather included); and mxv_dual whole. Returns the
-    step ms, the workspace and the expansion's edge_idx (the largest
-    gather's indices)."""
+    compaction (the mask gather included), in the lanes mxv_dual's
+    counters give for the same push over the frontier's values (its
+    workspace route); and mxv_dual whole. Returns the step ms, the
+    workspace and the expansion's edge_idx (the largest gather's
+    indices)."""
     import torch
 
     import graphblast_tpu_torch as gt
     from graphblast_tpu_torch.ops import spmspv
-    from graphblast_tpu_torch.ops.dispatch import (
-        DualFrontier, _frontier_degree_total, mxv_dual, pick_tier,
-        push_tiers)
+    from graphblast_tpu_torch.ops.dispatch import DualFrontier, mxv_dual
     from graphblast_tpu_torch.ops.kernels.bitmap_push import (
         spmspv_push_bitmap, spmspv_push_bitmap_plain)
     from graphblast_tpu_torch.ops.gather_dispatch import take
@@ -2421,10 +2411,18 @@ def _push_split(A, golden_hub, reps: int = 50):
         (golden_hub == 2).astype("float32")).cuda(), 0.0)
     v = torch.from_numpy(((golden_hub >= 1) & (golden_hub <= 2)).astype(
         "float32")).cuda()
-    deg_total = int(_frontier_degree_total(A.row_ptr, f, 0.0))
-    tiers = push_tiers(A.nnz_pad)
-    cap = pick_tier(tiers, deg_total, int(f.snvals))
-    fs = f.sind[:cap] if cap < tiers[-1] else f.sind
+    # the valued push takes the workspace route: its counted edges and
+    # lanes size the steps below
+    before = _push_counters()
+    valued = mxv_dual(A, f, sr, 0.0, transpose=True, mask_dense=v,
+                      mask_scmp=True, structure_only=False,
+                      mode=gt.Direction.PUSHONLY)[0]
+    pushed = _counted_route(before, _push_counters())
+    if pushed["route"] != "uncut":
+        raise AssertionError(f"the valued push took {pushed}, not the "
+                             "workspace")
+    deg_total, cap = pushed["edges"], pushed["lanes"]
+    fs = f.sind if pushed["at_cap"] else f.sind[:cap]
     ptr, ind = A.row_ptr, A.col_ind
 
     def expansion():
@@ -2467,6 +2465,7 @@ def _push_split(A, golden_hub, reps: int = 50):
     plain = spmspv_push_bitmap_plain(ptr, ind, f.sind, snv, deg_total, v,
                                      True, n)
     for name, out in (("the sort push's steps, run one by one,", got),
+                      ("the valued push", (valued.dense, valued.sind)),
                       ("the bitmap push", mine),
                       ("the bitmap push's plain version", plain)):
         if not (torch.equal(out[0], want.dense)
@@ -2541,7 +2540,8 @@ def phase_push_bfs(A, sources, goldens, reps: int = 10):
     """PUSHONLY BFS at rmat18 through the entry point from the hub sources:
     levels equal to the golden, one bitmap push an iteration and no other
     kernel; ms/run and GTEPS; the stepped trace of the first source
-    (degree total, tier, host reads); one push iteration at the hub's
+    (degree total, route and lanes, host reads); one push iteration at the
+    hub's
     level-2 frontier, the sort push split into its steps beside the bitmap
     push (P's kernels entry); K6 at the sort push's largest gather."""
     import numpy as np
@@ -2549,7 +2549,6 @@ def phase_push_bfs(A, sources, goldens, reps: int = 10):
     import graphblast_tpu_torch as gt
 
     from graphblast_tpu_torch.algorithms.common import edge_cap_for
-    from graphblast_tpu_torch.ops.dispatch import push_tiers
 
     desc = gt.BFS_TUNED.replace(mxv_mode=gt.Direction.PUSHONLY)
     bfs = gt.algorithms.bfs
@@ -2570,13 +2569,13 @@ def phase_push_bfs(A, sources, goldens, reps: int = 10):
           f"{tail}, {len(sources) * reps} runs; "
           f"{reached_edges / per_s / 1e9:.6f} GTEPS at the median; "
           f"{iters[0]} iterations")
-    tiers = push_tiers(edge_cap_for(A, desc), desc.push_tiers)
-    print(f"[push bfs] stepped trace from {int(sources[0])} (tiers {tiers}): "
+    print(f"[push bfs] stepped trace from {int(sources[0])} (edge_cap "
+          f"{edge_cap_for(A, desc)}): "
           + _trace_text(_direction_trace(A, int(sources[0]), desc, "bfs")))
     split, at, edge_idx, p_row = _push_split(A, goldens[0])
     print(f"[push bfs] one push iteration at the hub's level-2 frontier "
-          f"({at['frontier']} vertices, deg_total {at['deg_total']}, tier "
-          f"{at['cap']}, {at['new']} new): "
+          f"({at['frontier']} vertices, deg_total {at['deg_total']}, sort "
+          f"push workspace {at['cap']} lanes, {at['new']} new): "
           + ", ".join(f"{k} {v:.6f} ms" for k, v in split.items())
           + " (each step alone, CUDA events; mxv_dual takes the bitmap "
           f"push); P bound {p_row['bound_ms']:.6f} ms, plain "
@@ -2588,8 +2587,8 @@ def phase_push_bfs(A, sources, goldens, reps: int = 10):
 @contextlib.contextmanager
 def _recording_slices():
     """Yields a list that gains, for each push inside the block whose
-    frontier passes the second tier and so is cut into slices, its number
-    of slices."""
+    frontier passes `slice_lanes` and so is cut into slices, its number of
+    slices."""
     from graphblast_tpu_torch.ops import dispatch
 
     sliced, inner = [], dispatch.slice_bounds
@@ -2608,7 +2607,7 @@ def _recording_slices():
 
 
 def _sssp_push_k6(iters: int, sliced) -> int:
-    """K6 launches of `iters` eager SSSP push iterations, of which those in
+    """K6 launches of `iters` SSSP push iterations, of which those in
     `sliced` were cut into slices (their slice counts)."""
     return (SSSP_PUSH_K6 * (iters - len(sliced))
             + sum(2 + SSSP_PUSH_K6 * k for k in sliced))
@@ -2697,7 +2696,7 @@ def phase_push_grid(side: int = 512, reps: int = 3):
 
 # ------------------------------------------------- direction optimization
 def phase_pushpull_bfs(A, sources, goldens, pull_s, push_s, reps: int = 10):
-    """The default bfs(A, s) (BFS_TUNED: PUSHPULL, eager) at rmat18 from
+    """The default bfs(A, s) (BFS_TUNED: PUSHPULL) at rmat18 from
     the hub sources: levels equal to the golden; K1 launched once a pull
     iteration and the bitmap push once a push iteration (the directions
     from a stepped replay of each source) and no other kernel; at most 2
@@ -2714,9 +2713,6 @@ def phase_pushpull_bfs(A, sources, goldens, pull_s, push_s, reps: int = 10):
         _check_reads("PUSHPULL BFS", t)
     _reset_counts()
     levels = [gt.algorithms.bfs(A, int(s)).to_numpy() for s in sources]
-    if any(x["sparse_degs"] for x in sums):
-        raise AssertionError("the eager PUSHPULL BFS read a degree total "
-                             "from the sparse image")
     counts = _expect_launches("PUSHPULL BFS", _expected_launches(
         sums, "bitmap_pull", BITMAP))
     _check_levels("PUSHPULL BFS", levels, goldens, sources)
@@ -2755,7 +2751,7 @@ def phase_pushpull_bfs(A, sources, goldens, pull_s, push_s, reps: int = 10):
 
 def phase_pushpull_sssp(A, sources, goldens, pull_s, push_s,
                         reps: int = 10):
-    """The default sssp(A, s) (DEFAULT: PUSHPULL, eager) at rmat18 from the
+    """The default sssp(A, s) (DEFAULT: PUSHPULL) at rmat18 from the
     hub sources: distances equal to the golden; K4 once a pull iteration
     and K6 SSSP_PUSH_K6 times a push iteration, no other kernel; at most 2
     host reads an iteration; ms/run beside phases 7 and 19."""
@@ -2800,81 +2796,76 @@ def phase_pushpull_sssp(A, sources, goldens, pull_s, push_s,
 
 
 def phase_pushpull_grid(G, golden, one_way_s, reps: int = 3):
-    """BFS from vertex 0 on grid_matrix(512) under BFS_TUNED, eager and
-    then with GRB_LAZY_FRONTIER=1: levels equal to the golden in both; the
-    launches the stepped replay's directions give; the push and pull
-    iterations, switches, image rebuilds and host reads an iteration;
-    ms/run and ms an iteration beside phase 20's push-only and
-    pull-only."""
+    """BFS from vertex 0 on grid_matrix(512) under BFS_TUNED: levels equal
+    to the golden; the launches the stepped replay's directions give; the
+    push and pull iterations, switches and host reads an iteration; ms/run
+    and ms an iteration beside phase 20's push-only and pull-only."""
     import graphblast_tpu_torch as gt
 
     iters = int(golden.max())
-    out = {}
-    for name, lazy in (("eager", False), ("lazy", True)):
-        with _lazy_protocol(lazy):
-            rows = _direction_trace(G, 0, gt.BFS_TUNED, "bfs")
-            x = _trace_summary(rows)
-            _check_reads(f"grid PUSHPULL {name}", rows)
-            _reset_counts()
-            levels = gt.algorithms.bfs(G, 0).to_numpy()
-            counts = _expect_launches(
-                f"grid PUSHPULL {name}",
-                _expected_launches([x], "bitmap_pull",
-                                   BFS_PUSH_K6 if lazy else BITMAP))
-            _check_levels(f"grid PUSHPULL {name}", [levels], [golden], [0])
-            per_s, tail = _timed_runs(lambda: gt.algorithms.bfs(G, 0), reps)
-        reads = [r["host_reads"] for r in rows]
-        out[name] = per_s
-        print(f"[grid pushpull] {name}: levels == golden; {x['pushes']} push "
-              f"and {x['pulls']} pull iterations, {x['switches']} switches "
-              f"({x['dense_rebuilds']} dense, {x['sparse_rebuilds']} sparse "
-              f"image rebuilds); launches {counts}; host reads an iteration "
-              f"{min(reads)}-{max(reads)} (mean {sum(reads) / len(reads):.3f}"
-              f"); {per_s * 1e3:.6f} ms/run median, {tail}, {reps} runs; "
-              f"{per_s * 1e3 / iters:.6f} ms an iteration; beside push-only "
-              f"{one_way_s['push'] * 1e3 / iters:.6f} and pull-only "
-              f"{one_way_s['pull'] * 1e3 / iters:.6f} ms an iteration "
-              "(phase 20)")
-    return out
+    rows = _direction_trace(G, 0, gt.BFS_TUNED, "bfs")
+    x = _trace_summary(rows)
+    _check_reads("grid PUSHPULL", rows)
+    _reset_counts()
+    levels = gt.algorithms.bfs(G, 0).to_numpy()
+    counts = _expect_launches("grid PUSHPULL", _expected_launches(
+        [x], "bitmap_pull", BITMAP))
+    _check_levels("grid PUSHPULL", [levels], [golden], [0])
+    per_s, tail = _timed_runs(lambda: gt.algorithms.bfs(G, 0), reps)
+    reads = [r["host_reads"] for r in rows]
+    print(f"[grid pushpull] levels == golden; {x['pushes']} push and "
+          f"{x['pulls']} pull iterations, {x['switches']} switches; "
+          f"launches {counts}; host reads an iteration {min(reads)}-"
+          f"{max(reads)} (mean {sum(reads) / len(reads):.3f}); "
+          f"{per_s * 1e3:.6f} ms/run median, {tail}, {reps} runs; "
+          f"{per_s * 1e3 / iters:.6f} ms an iteration; beside push-only "
+          f"{one_way_s['push'] * 1e3 / iters:.6f} and pull-only "
+          f"{one_way_s['pull'] * 1e3 / iters:.6f} ms an iteration "
+          "(phase 20)")
+    return per_s
 
 
-def phase_lazy_rmat18(A, source: int, bfs_golden, sssp_golden,
-                      reps: int = 10):
-    """BFS and SSSP from the top hub at rmat18 with GRB_LAZY_FRONTIER=1:
-    levels and distances equal to the goldens; the launches the stepped
-    replay gives; directions, switches and the push→pull (dense) and
-    pull→push (sparse) image rebuilds; ms/run."""
-    import numpy as np
-
+def phase_valued_bfs(A, source: int, golden, reps: int = 5):
+    """BFS over the frontier's values (BFS_TUNED with structure_only off)
+    at rmat18 from the top hub, PUSHONLY and PUSHPULL through the entry
+    point: levels equal to the golden; VALUED_BFS_PUSH_K6 K6 launches a
+    push iteration and VALUED_BFS_PULL_K6 a pull iteration (the
+    directions from a stepped replay), no other kernel; each push through
+    the workspace route in lanes that hold its degree total, rounded up to
+    1,024 or at edge_cap, as mxv_dual's counters recorded them; ms/run."""
     import graphblast_tpu_torch as gt
 
-    with _lazy_protocol(True):
-        for algo, fn, golden, pull_kernel, push_k6 in (
-                ("bfs", gt.algorithms.bfs, bfs_golden, "bitmap_pull",
-                 BFS_PUSH_K6),
-                ("sssp", gt.algorithms.sssp, sssp_golden, "monoid_pull",
-                 SSSP_LAZY_PUSH_K6)):
-            rows = _direction_trace(A, source, gt.BFS_TUNED if algo == "bfs"
-                                    else gt.DEFAULT, algo)
-            x = _trace_summary(rows)
-            _check_reads(f"lazy {algo}", rows)
-            _reset_counts()
-            got = fn(A, source).to_numpy()
-            counts = _expect_launches(
-                f"lazy {algo}", _expected_launches([x], pull_kernel, push_k6))
-            if got.shape != golden.shape or not np.array_equal(got, golden):
-                raise AssertionError(f"lazy {algo} from {source}: "
-                                     f"{int((got != golden).sum())} values "
-                                     "!= golden")
-            per_s, tail = _timed_runs(lambda: fn(A, source), reps)
-            print(f"[lazy {algo}] rmat18 from {source}: == golden; "
-                  f"directions {x['dirs']}, {x['switches']} switches, "
-                  f"{x['dense_rebuilds']} push→pull (dense) and "
-                  f"{x['sparse_rebuilds']} pull→push (sparse) image "
-                  f"rebuilds; launches {counts}; at most {x['max_reads']} "
-                  f"host reads an iteration; {per_s * 1e3:.6f} ms/run "
-                  f"median, {tail}, {reps} runs")
-            print(f"[lazy {algo}] stepped trace: " + _trace_text(rows))
+    for name, mode in (("push-only", gt.Direction.PUSHONLY),
+                       ("PUSHPULL", gt.Direction.PUSHPULL)):
+        desc = gt.BFS_TUNED.replace(structure_only=False, mxv_mode=mode)
+        rows = _direction_trace(A, source, desc, "bfs")
+        x = _trace_summary(rows)
+        _check_reads(f"valued BFS {name}", rows)
+        for r in rows:
+            if r["push"] and (r["route"] != "uncut" or r["lanes"] < max(
+                    r["edges"], r["snvals"]) or not (
+                    r["at_cap"] or r["lanes"] % 1024 == 0)):
+                raise AssertionError(
+                    f"valued BFS {name}: iteration {r['it']} pushed "
+                    f"{r['edges']} edges from {r['snvals']} vertices on "
+                    f"the {r['route']} route in {r['lanes']} lanes")
+        _reset_counts()
+        levels = gt.algorithms.bfs(A, source, desc).to_numpy()
+        counts = _expect_launches(f"valued BFS {name}", {
+            "gather_boundary": VALUED_BFS_PUSH_K6 * x["pushes"]
+            + VALUED_BFS_PULL_K6["gather_boundary"] * x["pulls"],
+            "gather_x": VALUED_BFS_PULL_K6["gather_x"] * x["pulls"]})
+        _check_levels(f"valued BFS {name}", [levels], [golden], [source])
+        per_s, tail = _timed_runs(lambda: gt.algorithms.bfs(A, source, desc),
+                                  reps)
+        print(f"[valued bfs] {name} rmat18 from {source}: levels == golden; "
+              f"directions {x['dirs']}; launches {counts} "
+              f"({VALUED_BFS_PUSH_K6} K6 a push, one at the column ids and "
+              "one at the row boundaries a pull); push lanes "
+              f"{[r['lanes'] for r in rows if r['push']]} for degree totals "
+              f"{[r['edges'] for r in rows if r['push']]}; "
+              f"{per_s * 1e3:.6f} ms/run median, {tail}, {reps} runs")
+        print(f"[valued bfs] {name} stepped trace: " + _trace_text(rows))
 
 
 def phase_diameter(A, lo: int = 0, hi: int = 8):
@@ -4805,11 +4796,10 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_pushpull_grid(G, grid_golden, one_way_s)
     del G
-    print(f"[phase] grid BFS PUSHPULL, eager and lazy "
-          f"{time.perf_counter() - t0:.2f} s")
+    print(f"[phase] grid BFS PUSHPULL {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
-    phase_lazy_rmat18(A, int(sources[0]), goldens[0], sssp_goldens[0])
-    print(f"[phase] lazy BFS and SSSP {time.perf_counter() - t0:.2f} s")
+    phase_valued_bfs(A, int(sources[0]), goldens[0])
+    print(f"[phase] valued BFS {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
     phase_diameter(A)
     print(f"[phase] diameter {time.perf_counter() - t0:.2f} s")

@@ -21,8 +21,8 @@ or-pull prefix count K5 and the gather K6, with MIS, graph colouring,
 stepped BFS and CC at n >= 2^24 on it (slice 4); triangle counting, the
 masked mxm and trace_mxm_transpose over the masked-intersection kernels T1
 and T2; the push (SpMSpV) with PUSHONLY BFS and SSSP (slice 11); the
-direction switch PUSHPULL, eager and lazy, so the default bfs and sssp run,
-with diameter, `transpose` and the gbfs, gsssp and gdiameter drivers
+direction switch PUSHPULL, so the default bfs and sssp run, with
+diameter, `transpose` and the gbfs, gsssp and gdiameter drivers
 (`graphblast_tpu_torch.utils`, `graphblast_tpu_torch.examples`; slice 12);
 the GraphBLAS operations surface (mxv/vxm with masks and accumulators,
 eWise, apply, assign, extract, reduce, scale, the unmasked ESC SpGEMM,
@@ -36,7 +36,11 @@ half: the sparse owner-bucketed push and the fused direction-optimized
 BFS, the ring and 2D layouts with their PageRank, the ring-staged TC, MIS
 and IS colouring, the partition cache and the communication accounting
 with its reader examples/comm_report.py. The port now does what the JAX
-package does, but for its TPU-only switches and diagnostics.
+package does, but for its TPU-only switches and diagnostics. The push
+runs on one frontier protocol, both images valid every call, with three
+routes (`ops/dispatch.push_route`): the bitmap push P for BFS, scatter
+pushes over slices of the frontier for SSSP, and a workspace sized from
+the frontier's degree total for every other push.
 """
 
 from .types import (Direction, INDEX_DTYPE, Info, LoadBalanceMode,

@@ -7,27 +7,26 @@ Per iteration, as in the reference:
     succ = reduce(+, f2)                            # convergence scalar
 
 Both modes are a Python loop over device work with one host read of `succ`
-per iteration, and one more where `mxv_dual` chooses a direction or a push
-workspace (PUSHPULL and PUSHONLY). The JAX package's fused mode runs the
+per iteration, and one more where `mxv_dual` chooses a direction and sizes
+the push (PUSHPULL and PUSHONLY). The JAX package's fused mode runs the
 loop on the device with no host sync; `mode="fused"` here keeps its
 semantics (it starts at 1, the loop runs while succ > 0 and it <=
 max_niter). desc.mxv_mode picks the direction: PUSHPULL (BFS_TUNED's)
 switches between push and pull by the frontier's density. As in the JAX
 package, the fused pull goes over the bitmap plan (K1) and the stepped pull
-with no plan, through `spmv_pull` (K5 and K6); the push (`ops/spmspv.py`)
-gathers through K6 in both modes. GRB_LAZY_FRONTIER=1 opts into the lazy
-dual-frontier protocol, as in the JAX package. The stepped mode also
-prints and times each iteration.
+with no plan, through `spmv_pull` (K5 and K6); the push is the bitmap push P
+(`mxv_dual`'s BITMAP route) for the structure-only BFS, and the workspace
+push of `ops/spmspv.py`, gathering through K6, for a BFS over the
+frontier's values. Both images of the frontier stay valid every
+iteration. The stepped mode also prints and times each iteration.
 """
 from __future__ import annotations
-
-import os
 
 import torch
 
 from ..descriptor import BFS_TUNED, Descriptor
 from ..matrix import Matrix
-from ..ops.dispatch import LAZY_SPARSE_CAP, DualFrontier, mxv_dual
+from ..ops.dispatch import DualFrontier, mxv_dual
 from ..ops.kernels.bitmap_pull import plan_for_bitmap
 from ..semiring import LogicalOrAndSemiring
 from ..types import INDEX_DTYPE, Direction
@@ -37,30 +36,18 @@ from .common import (TightTimer, dense_result, edge_cap_for, print_dirinfo,
                      print_iter_row)
 
 
-def _lazy_frontier(mode) -> bool:
-    """Opt-in: the lazy dual-frontier protocol (GRB_LAZY_FRONTIER=1), off
-    under PUSHONLY, whose frontiers may pass the lazy carry. Read at each
-    call; the JAX package reads it when it traces, so the port behaves as
-    JAX does in a fresh process."""
-    return (os.environ.get("GRB_LAZY_FRONTIER", "0") == "1"
-            and mode != Direction.PUSHONLY)
-
-
 def _initial_frontier(n: int, source: int, device, dtype=torch.float32,
-                      with_values: bool = False,
-                      lazy: bool = False) -> DualFrontier:
-    """The source alone. The sparse image has capacity n, or
-    LAZY_SPARSE_CAP for the lazy protocol, as in JAX; `with_values` gives
-    it values (1 at the source), which a push that is not structure-only
-    multiplies."""
-    cap = min(LAZY_SPARSE_CAP, n) if lazy else n
+                      with_values: bool = False) -> DualFrontier:
+    """The source alone, the sparse image of capacity n; `with_values`
+    gives it values (1 at the source), which a push that is not
+    structure-only multiplies."""
     dense = torch.zeros(n, dtype=dtype, device=device)
     dense[source] = 1
-    sind = torch.full((cap,), n, dtype=INDEX_DTYPE, device=device)
+    sind = torch.full((n,), n, dtype=INDEX_DTYPE, device=device)
     sind[0] = source
     sval = None
     if with_values:
-        sval = torch.zeros(cap, dtype=dtype, device=device)
+        sval = torch.zeros(n, dtype=dtype, device=device)
         sval[0] = 1
     return DualFrontier(n, dense, sind, sval,
                         torch.tensor(1, dtype=INDEX_DTYPE, device=device),
@@ -68,33 +55,15 @@ def _initial_frontier(n: int, source: int, device, dtype=torch.float32,
                         torch.tensor(True, device=device))
 
 
-def _sparse_targets(f: DualFrontier, n: int) -> torch.Tensor:
-    """The stored ids of f's sparse image, each pad slot at n: the spare
-    slot of an (n + 1,) buffer."""
-    slot = torch.arange(f.sind.shape[0], dtype=INDEX_DTYPE,
-                        device=f.sind.device)
-    return torch.where(slot < f.snvals, f.sind, n).long()
-
-
 def _assign_levels(v: torch.Tensor, f: DualFrontier, it: int):
     """assign(v, mask=f, it) in place on v, an (n + 1,) buffer whose last
-    slot is spare: from the dense image where it is valid, else by a
-    scatter of the sparse image (the lazy protocol after a push). With a
-    tensor flag both run: the sparse image then holds frontier vertices
-    only, and the dense one is masked by the flag."""
-    n = v.shape[0] - 1
-    if f.dense_ok is not True:
-        v.index_fill_(0, _sparse_targets(f, n), float(it))
-    if f.dense_ok is not False:
-        hit = f.dense != 0
-        if f.dense_ok is not True:
-            hit &= f.dense_ok
-        v[:n].masked_fill_(hit, float(it))
+    slot is spare, from the frontier's dense image."""
+    v[:v.shape[0] - 1].masked_fill_(f.dense != 0, float(it))
 
 
 def _bfs_step(A: Matrix, v: torch.Tensor, f: DualFrontier, it: int, *,
               struconly, switchpoint, mode, edge_cap=None, sort_push=True,
-              tiers=(64, 8), plan=None, lazy=False):
+              plan=None):
     """One BFS iteration: label + masked expand. `v` is the (n + 1,) level
     buffer, updated in place."""
     # assign(v, mask=f1, iter, GrB_ALL), bfs.hpp:64-65
@@ -104,7 +73,7 @@ def _bfs_step(A: Matrix, v: torch.Tensor, f: DualFrontier, it: int, *,
         A, f, LogicalOrAndSemiring, identity=0.0, transpose=True,
         mask_dense=v[:A.nrows], mask_scmp=True, structure_only=struconly,
         edge_cap=edge_cap, sort_push=sort_push, switchpoint=switchpoint,
-        mode=mode, tier_divisors=tiers, pull_plan=plan, lazy=lazy)
+        mode=mode, pull_plan=plan)
     succ = f2.snvals  # struconly reduce == nvals (reduce.hpp:71-75)
     return v, f2, succ, used_push
 
@@ -125,15 +94,14 @@ def _bfs_levels(A: Matrix, source: int, desc: Descriptor, plan,
     mode prints each iteration's row and direction switches as desc asks.
     Under a profiler each iteration is a "gb.bfs.iter" span holding its
     host read of succ, "gb.bfs.read"."""
-    lazy = _lazy_frontier(desc.mxv_mode)
     kw = dict(struconly=desc.structure_only, switchpoint=desc.switchpoint,
               mode=desc.mxv_mode, edge_cap=edge_cap_for(A, desc),
-              sort_push=desc.sort_push, tiers=desc.push_tiers, lazy=lazy)
+              sort_push=desc.sort_push)
     n = A.nrows
     timer = TightTimer() if stepped else None
     v = torch.zeros(n + 1, dtype=torch.float32, device=A.device)
     f = _initial_frontier(n, source, A.device,
-                          with_values=not desc.structure_only, lazy=lazy)
+                          with_values=not desc.structure_only)
     unvisited = n
     prev_push = None
     it, succ = 1, 1

@@ -87,10 +87,11 @@ def _cc_fused(A: Matrix, plan: Optional[MonoidPlan], *, max_niter: int,
                                           schedule_for(A, transpose=False))
     parent = torch.arange(n, dtype=torch.int32, device=A.device)
     mnp = gp = gp_t = parent
-    timer = TightTimer()
+    timer = TightTimer() if timing else None
     it, succ = 1, 1
     while succ > 0 and it <= max_niter:
-        timer.start()
+        if timing:
+            timer.start()
         parent, mnp, gp, gp_t, succ_t = _cc_step(A, parent, mnp, gp, gp_t,
                                                  pull)
         succ = int(succ_t)          # the one host sync of the iteration

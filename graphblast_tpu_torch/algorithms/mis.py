@@ -70,10 +70,11 @@ def _mis_fused(A: Matrix, w0: torch.Tensor, *, max_niter: int,
     csc = csc_int_arrays(A) if csc is None else csc
     v = torch.zeros(n, dtype=torch.int32, device=A.device)
     w = w0
-    timer = TightTimer()
+    timer = TightTimer() if timing else None
     it, succ = 1, 1
     while succ > 0 and it <= max_niter:
-        timer.start()
+        if timing:
+            timer.start()
         v, w, succ_t = _mis_round(A, v, w, csc)
         succ = int(succ_t)          # the one host sync of the round
         if timing:

@@ -13,14 +13,15 @@ productive count is the filtered frontier's nvals; the push takes its
 sparse twin, which filters each destination's candidate. desc.mxv_mode
 picks the direction: PUSHPULL, the default, switches by the frontier's
 density. The vxm pull runs the monoid pull (K4) over A's CSC plan
-(`plan_for_monoid`), on the CPU and CUDA alike; the push (`ops/spmspv.py`)
-runs over A's CSR and gathers through K6. GRB_LAZY_FRONTIER=1 opts into
-the lazy dual-frontier protocol, as in BFS. Both modes are a Python loop
+(`plan_for_monoid`), on the CPU and CUDA alike; the push runs over A's CSR
+as scatter pushes over slices of the frontier (`mxv_dual`'s SLICES route,
+`ops/spmspv.py` `spmspv_push_exact`), gathering through K6. Both images of
+the frontier stay valid every relaxation. Both modes are a Python loop
 over device work with one host read per iteration: `succ`, read with what
-the next `mxv_dual` needs to choose a direction or a push workspace (the
-first iteration's dispatch, and the lazy protocol's, read apart; the JAX
-fused mode is one device loop); "stepped" also prints the reference's
-per-iteration row when desc.timing is set.
+the next `mxv_dual` needs to choose a direction and size the push (the
+first iteration's dispatch reads apart; the JAX fused mode is one device
+loop); "stepped" also prints the reference's per-iteration row when
+desc.timing is set.
 """
 from __future__ import annotations
 
@@ -28,8 +29,7 @@ import torch
 
 from ..descriptor import DEFAULT, Descriptor
 from ..matrix import Matrix
-from ..ops.dispatch import (LAZY_SPARSE_CAP, DualFrontier, frontier_state,
-                            mxv_dual)
+from ..ops.dispatch import DualFrontier, frontier_state, mxv_dual
 from ..ops.gather_dispatch import take
 from ..ops.kernels.monoid_pull import FLT_MAX as MAXF
 from ..ops.kernels.monoid_pull import MonoidPlan, plan_for_monoid
@@ -37,22 +37,18 @@ from ..semiring import MinimumPlusSemiring
 from ..types import INDEX_DTYPE, Direction
 from ..utils.profiling import annotate
 from ..vector import Vector
-from .bfs import _lazy_frontier, _sparse_targets
 from .common import (TightTimer, dense_result, edge_cap_for, print_dirinfo,
                      print_iter_row)
 
 
-def _initial_frontier(n: int, source: int, device,
-                      lazy: bool = False) -> DualFrontier:
+def _initial_frontier(n: int, source: int, device) -> DualFrontier:
     """The source alone, at distance 0: the dense image FLT_MAX elsewhere,
-    the sparse image (capacity n, or LAZY_SPARSE_CAP for the lazy
-    protocol) with values, FLT_MAX in the pads."""
-    cap = min(LAZY_SPARSE_CAP, n) if lazy else n
+    the sparse image (capacity n) with values, FLT_MAX in the pads."""
     dense = torch.full((n,), MAXF, dtype=torch.float32, device=device)
     dense[source] = 0.0
-    sind = torch.full((cap,), n, dtype=INDEX_DTYPE, device=device)
+    sind = torch.full((n,), n, dtype=INDEX_DTYPE, device=device)
     sind[0] = source
-    sval = torch.full((cap,), MAXF, dtype=torch.float32, device=device)
+    sval = torch.full((n,), MAXF, dtype=torch.float32, device=device)
     sval[0] = 0.0
     return DualFrontier(n, dense, sind, sval,
                         torch.tensor(1, dtype=INDEX_DTYPE, device=device),
@@ -60,24 +56,9 @@ def _initial_frontier(n: int, source: int, device,
                         torch.tensor(True, device=device))
 
 
-def _relax(v: torch.Tensor, f2: DualFrontier):
-    """v = min(v, f2) in place on v, an (n + 1,) buffer whose last slot is
-    spare (eWiseAdd MinimumPlus, sssp.hpp:80-82): from the dense image
-    where it is valid, else by a scatter-min of the sparse image (the lazy
-    protocol after a push; exact, min is order-insensitive). With a tensor
-    flag both run, the dense image masked by the flag."""
-    n = v.shape[0] - 1
-    if f2.dense_ok is not True:
-        v.scatter_reduce_(0, _sparse_targets(f2, n), f2.sval, "amin")
-    if f2.dense_ok is not False:
-        dense = (f2.dense if f2.dense_ok is True
-                 else torch.where(f2.dense_ok, f2.dense, MAXF))
-        torch.minimum(v[:n], dense, out=v[:n])
-
-
 def _sssp_step(A: Matrix, v: torch.Tensor, f: DualFrontier,
                plan: MonoidPlan, *, switchpoint, mode, edge_cap=None,
-               sort_push=True, tiers=(64, 8), lazy=False, state=None):
+               sort_push=True, state=None):
     """One relaxation; `v` is the (n + 1,) distance buffer, updated in
     place; `state`, f's `frontier_state` where the caller read it."""
     vn = v[:A.nrows]
@@ -95,50 +76,47 @@ def _sssp_step(A: Matrix, v: torch.Tensor, f: DualFrontier,
     f2, used_push = mxv_dual(
         A, f, MinimumPlusSemiring, identity=MAXF, transpose=True,
         edge_cap=edge_cap, sort_push=sort_push, switchpoint=switchpoint,
-        mode=mode, tier_divisors=tiers, pull_plan=plan,
+        mode=mode, pull_plan=plan,
         postprocess=filter_unproductive, postprocess_sparse=filter_sparse,
-        lazy=lazy, state=state)
-    # filtered entries are FLT_MAX and cannot lower v
-    _relax(v, f2)
+        state=state)
+    # v = min(v, f2), eWiseAdd MinimumPlus (sssp.hpp:80-82): filtered
+    # entries are FLT_MAX and cannot lower v
+    torch.minimum(vn, f2.dense, out=vn)
     return v, f2, f2.snvals, used_push
 
 
 def _sssp_fused(A: Matrix, source: int, plan: MonoidPlan, *, switchpoint,
                 mode, max_niter: int, timing: int = 0,
-                dirinfo: bool = False, edge_cap=None, sort_push=True,
-                tiers=(64, 8)):
+                dirinfo: bool = False, edge_cap=None, sort_push=True):
     """The relaxation loop from `source`: `it` starts at 1 and the loop runs
     while succ > 0 and it <= max_niter. Returns (v, iterations run). Under
     a profiler each relaxation is a "gb.sssp.iter" span holding its host
-    read of succ, "gb.sssp.read". An eager loop that may push reads succ
-    with the next dispatch's state of the new frontier
-    (`frontier_state`), one host read a relaxation but for the first."""
+    read of succ, "gb.sssp.read". A loop that may push reads succ with
+    the next dispatch's state of the new frontier (`frontier_state`), one
+    host read a relaxation but for the first."""
     n = A.nrows
-    lazy = _lazy_frontier(mode)
-    f = _initial_frontier(n, source, A.device, lazy=lazy)
+    f = _initial_frontier(n, source, A.device)
     # v0: FLT_MAX, 0 at the source, and the spare slot
     v = torch.cat([f.dense, f.dense.new_full((1,), MAXF)])
-    timer = TightTimer()
+    printing = bool(timing or dirinfo)
+    timer = TightTimer() if printing else None
     prev_push = None
-    # the lazy protocol's state read gathers the degrees (K6): it stays in
-    # the dispatch, read where it is needed
-    merged = (not lazy and mode != Direction.PULLONLY
-              and A.pull_csr(False)[2] is not None)
+    merged = mode != Direction.PULLONLY and A.pull_csr(False)[2] is not None
     it, succ, state = 1, 1, None
     while succ > 0 and it <= max_niter:
         with annotate("gb.sssp.iter"):
-            timer.start()
+            if printing:
+                timer.start()
             v, f, succ_t, used_push = _sssp_step(
                 A, v, f, plan, switchpoint=switchpoint, mode=mode,
-                edge_cap=edge_cap, sort_push=sort_push, tiers=tiers,
-                lazy=lazy, state=state)
+                edge_cap=edge_cap, sort_push=sort_push, state=state)
             with annotate("gb.sssp.read"):       # the loop's host read
                 if merged:
                     state = frontier_state(A, f, MAXF, transpose=True)
                     succ = state[1]
                 else:
                     succ = int(succ_t)
-            if timing or dirinfo:
+            if printing:
                 ms = timer.stop(v, f.dense)
                 print_dirinfo(succ, n, used_push, prev_push, dirinfo)
                 prev_push = used_push
@@ -164,7 +142,7 @@ def sssp(A: Matrix, source: int, desc: Descriptor = DEFAULT,
                        timing=desc.timing if stepped else 0,
                        dirinfo=desc.dirinfo and stepped,
                        edge_cap=edge_cap_for(A, desc),
-                       sort_push=desc.sort_push, tiers=desc.push_tiers)
+                       sort_push=desc.sort_push)
     return dense_result(A.nrows, v)
 
 

@@ -29,15 +29,15 @@ class Descriptor:
 
     # --- push/pull kernel knobs (reference: descriptor.hpp:50-60) ---
     # earlyexit, opreuse, endbit and fusedmask are accepted for flag parity
-    # with the reference and change nothing here: the bitmap pull counts a
-    # whole row per warp, both frontier images stay live, no radix sort runs
-    # and the mask is always applied in the same pass as the pull.
+    # with the reference and change nothing here: the masked bitmap pull
+    # (K1's masked entry) always stops each open row at its first frontier
+    # neighbour, both frontier images stay live, no radix sort runs and the
+    # mask is always applied in the same pass as the pull.
     earlyexit: bool = False
     opreuse: bool = False
     endbit: bool = False
     fusedmask: bool = True
     sort_push: bool = None         # default from `load_balance`
-    push_tiers: tuple = (64, 8)    # push workspace tier divisors
     load_balance: LoadBalanceMode = None  # default from GRB_LOAD_BALANCE_MODE
 
     # --- algorithm loop controls (reference: descriptor.hpp:207-287) ---

@@ -10,38 +10,32 @@ and the direction heuristic, backend/cuda/vector.hpp:292-323).
     plan (K4, SSSP); with no plan, `spmv_pull` over the pull orientation
     (K5 and K6 for stepped BFS, the row fold S for a min/max semiring, with
     the orientation's cached row schedule); and the `postprocess` epilogue;
-  - PUSHONLY (dispatch.py:432-436): over the push orientation, the
-    bitmap push P (`ops/kernels/bitmap_push.py`) where the push is
-    structure-only under a duplicate-insensitive ⊕ (LogicalOr, Max) in the
-    eager protocol with no postprocess, as BFS's is; else the push of
+  - PUSHONLY (dispatch.py:432-436): over the push orientation, on one of
+    three routes that `push_route` names: the bitmap push P
+    (`ops/kernels/bitmap_push.py`) for a structure-only push under a
+    duplicate-insensitive ⊕ (LogicalOr, Max) with no postprocess, as BFS's
+    is; scatter pushes of one lane an edge over slices of the frontier for
+    a valued Min or Max push, as SSSP's is; else the workspace push of
     `ops/spmspv.py`, with every gather on K6;
   - PUSHPULL (dispatch.py:437-450), the default: the density heuristic's
-    preference, gated on the push workspace, picks one of the two each
-    call.
+    preference, gated on edge_cap, picks one of the two each call.
 A Matrix that lacks one orientation runs the direction it has, as the
 reference's one-sided formats do.
 
-Both images of the frontier stay valid every call (the eager protocol)
-unless the caller passes `lazy=True`, the JAX package's opt-in lazy
-dual-frontier protocol: each direction keeps only its own image, the
-sparse one bounded by LAZY_SPARSE_CAP, and the other is rebuilt at a
-switch.
-
-The push of `ops/spmspv.py` takes a workspace of one of a few fixed sizes
-(tiers: edge_cap/64, edge_cap/8, edge_cap, each rounded up to 1,024), as in
-the JAX package; the bitmap push needs none, and an eager valued Min or Max
-push runs as scatter pushes of one lane an edge over slices of the
-frontier, none past the second tier, into one dense result. JAX
-picks the direction and the tier on the device with conds; here the
-frontier's degree total, its count, the direction preference and the lazy
-flags come to the host in one read a call, and the host picks. Where JAX's
-PUSHONLY truncates a frontier whose degree total exceeds edge_cap, the port
-raises ValueError.
+Both images of the frontier stay valid every call, as in the JAX package's
+default protocol; its opt-in one, which keeps only the image the last
+direction made, is not ported. JAX sizes its push workspace from a few
+fixed tiers and picks the direction and the tier on the device with conds;
+here the frontier's degree total, its count and the direction preference
+come to the host in one read a call, and the host picks the direction
+and sizes the push from the exact degree total (`route_lanes`). Where
+JAX's PUSHONLY truncates a frontier whose degree total exceeds edge_cap,
+the port raises ValueError.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional, Union
+from typing import Callable, Optional
 
 import torch
 
@@ -60,12 +54,8 @@ from .spmspv import (_ORDERED, DUP_INSENSITIVE, frontier_degrees,
                      spmspv_push, spmspv_push_exact, spmspv_push_sparse)
 from .spmv import mask_pass, spmv_pull
 
-# the bound on the sparse image a lazy push leaves behind: lazy consumers
-# (the BFS label assign, the SSSP relax, the degree total) touch only
-# sind[:LAZY_SPARSE_CAP]; a larger push output keeps its dense image
-LAZY_SPARSE_CAP = 8192
-
-Flag = Union[bool, torch.Tensor]
+# the push routes `push_route` names
+BITMAP, SLICES, WORKSPACE = "bitmap", "slices", "workspace"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,12 +65,6 @@ class DualFrontier:
     dense (n,), sind (cap,), sval (cap,) or None, snvals, ratio and
     use_sparse as tensors on the frontier's device. A pull-only loop keeps
     the sparse image stale: only push reads it.
-
-    dense_ok / sparse_ok say which image is valid under the lazy protocol
-    (always True in the eager one): Python bools where the host knows them,
-    0-d bool tensors after a lazy push whose output may pass
-    LAZY_SPARSE_CAP. At least one is True; sparse_ok implies snvals <=
-    LAZY_SPARSE_CAP.
     """
 
     n: int
@@ -90,8 +74,6 @@ class DualFrontier:
     snvals: torch.Tensor
     ratio: torch.Tensor       # previous nnz/n (hysteresis state)
     use_sparse: torch.Tensor  # bool: push preferred
-    dense_ok: Flag = True
-    sparse_ok: Flag = True
 
     @staticmethod
     def from_dense(dense: torch.Tensor, identity,
@@ -162,174 +144,96 @@ def _frontier_degree_total(push_ptr: torch.Tensor, f: DualFrontier,
     return torch.where(f.dense != identity, deg, 0).sum()
 
 
-def _host_state(push_ptr: torch.Tensor, f: DualFrontier, identity,
-                sp: int) -> tuple:
-    """(deg_total, snvals, use_sparse, dense_ok, sparse_ok) as Python
-    values, in one host read: the direction, the push's gate and its tier
-    all follow from them.
-
-    The degree total comes from the dense image where the host knows it is
-    valid, else from sind[:sp] (`frontier_degrees`, two gathers), as JAX's
-    lazy `_deg_total` takes it. With tensor flags (a lazy push's output)
-    that is exact where sparse_ok holds; where it does not, snvals > sp and
-    the lazy gate pulls, so the total is not used."""
-    if f.dense_ok is True:
-        deg_total = _frontier_degree_total(push_ptr, f, identity)
-    else:
-        deg_total = frontier_degrees(push_ptr, f.sind[:sp], f.snvals).sum()
-    parts = [deg_total, f.snvals, f.use_sparse]
-    flags = [flag for flag in (f.dense_ok, f.sparse_ok)
-             if isinstance(flag, torch.Tensor)]
-    vals = torch.stack([t.to(torch.int64) for t in parts + flags])
+def _host_state(push_ptr: torch.Tensor, f: DualFrontier, identity) -> tuple:
+    """(deg_total, snvals, use_sparse) as Python values, in one host read:
+    the direction, the push's gate and its lanes all follow from them."""
+    vals = torch.stack([t.to(torch.int64) for t in (
+        _frontier_degree_total(push_ptr, f, identity), f.snvals,
+        f.use_sparse)])
     with annotate("gb.dispatch.read"):
-        vals = vals.tolist()
-    deg_total, snvals, use_sparse = vals[0], vals[1], bool(vals[2])
-    read = iter(bool(x) for x in vals[3:])
-    dense_ok, sparse_ok = (flag if isinstance(flag, bool) else next(read)
-                           for flag in (f.dense_ok, f.sparse_ok))
-    return deg_total, snvals, use_sparse, dense_ok, sparse_ok
+        deg_total, snvals, use_sparse = vals.tolist()
+    return deg_total, snvals, bool(use_sparse)
 
 
 def frontier_state(A: Matrix, f: DualFrontier, identity,
                    transpose: bool = False) -> tuple:
     """What `mxv_dual(A, f, ..., transpose=transpose)` reads of f before it
-    picks a direction (`_host_state`: the degree total, snvals, the
-    direction preference and the images' flags), in one host read, for a
-    loop that reads f's count anyway: it hands the tuple to mxv_dual as
-    `state`, and the dispatch reads nothing more."""
-    return _host_state(A.pull_csr(not transpose)[2], f, identity,
-                       min(LAZY_SPARSE_CAP, f.sind.shape[0]))
+    picks a direction (`_host_state`: the degree total, snvals and the
+    direction preference), in one host read, for a loop that reads f's
+    count anyway: it hands the tuple to mxv_dual as `state`, and the
+    dispatch reads nothing more."""
+    return _host_state(A.pull_csr(not transpose)[2], f, identity)
 
 
-def push_tiers(edge_cap: int, tier_divisors: tuple = (64, 8)) -> list:
-    """The push workspace sizes, smallest first: edge_cap // div rounded up
-    to 1,024 for each divisor, then edge_cap itself."""
-    tiers = []
-    for div in tier_divisors:
-        c = min(edge_cap, max(round_up(edge_cap // div, 1024), 1024))
-        if c < edge_cap and c not in tiers:
-            tiers.append(c)
-    return tiers + [edge_cap]
+def push_route(semiring: Semiring, structure_only: bool, postprocess,
+               postprocess_sparse) -> str:
+    """The route a push takes. BITMAP, the bitmap push P: structure-only
+    under a ⊕ that ignores duplicates (every edge carries a 1, which marks
+    its destination once), with no postprocess to run on the result.
+    SLICES, scatter pushes over slices of the frontier (`_push_sliced`): a
+    valued push under Min or Max ⊕ (SSSP's MinimumPlus; `_ORDERED`, whose
+    total ignores the order and grouping of its operands); one slice beats
+    the workspace's sort push (SSSP on kron25w on an H100: 210 ms a call
+    against 271), and the sort push's workspace at edge_cap would hold some
+    50 B a lane, at a billion edges more than the card. WORKSPACE, every
+    other push: `_push` in `route_lanes`' workspace."""
+    if (structure_only and semiring.add.name in DUP_INSENSITIVE
+            and postprocess is None and postprocess_sparse is None):
+        return BITMAP
+    if not structure_only and semiring.add.name in _ORDERED:
+        return SLICES
+    return WORKSPACE
 
 
-def pick_tier(tiers: list, deg_total: int, snvals: int) -> int:
-    """The smallest tier that holds the degree total and the frontier's
-    entries, as JAX's `fits` picks; the last tier takes the whole frontier
-    whatever its count. Raises ValueError when the degree total exceeds
-    the last tier, where JAX would drop edges."""
-    for cap in tiers[:-1]:
-        if deg_total <= cap and snvals <= cap:
-            return cap
-    if deg_total > tiers[-1]:
-        raise ValueError(
-            f"the frontier's degree total {deg_total} exceeds the push "
-            f"workspace edge_cap={tiers[-1]}; raise the descriptor's "
-            "memusage or pull")
-    return tiers[-1]
+def _capped_lanes(lanes: int, edge_cap: int) -> int:
+    """`lanes` rounded up to 1,024 (at least 1,024), at most edge_cap."""
+    return min(edge_cap, max(round_up(lanes, 1024), 1024))
 
 
-def _materialize_dense(f: DualFrontier, identity, sp: int) -> torch.Tensor:
-    """The dense image rebuilt from sind[:sp] at a push→pull switch: an
-    identity-filled (n,) with the stored entries scattered in (ones where
-    there are no values), pad slots into a spare slot past the end."""
-    n = f.dense.shape[0]
-    dev = f.dense.device
-    tgt = torch.where(torch.arange(sp, dtype=INDEX_DTYPE, device=dev)
-                      < f.snvals, f.sind[:sp], n).long()
-    vals = (f.sval[:sp].to(f.dense.dtype) if f.sval is not None
-            else torch.ones(sp, dtype=f.dense.dtype, device=dev))
-    out = torch.full((n + 1,), identity, dtype=f.dense.dtype, device=dev)
-    out[tgt] = vals
-    return out[:n]
+def route_lanes(route: str, deg_total: int, snvals: int,
+                edge_cap: int) -> int:
+    """The lanes a push on `route` covers: P's whole blocks of
+    EDGES_PER_BLOCK edges over the degree total; the slices' edges, one
+    lane each; the workspace push's workspace, the degree total or the
+    frontier's count, whichever is more, rounded up to 1,024 and capped at
+    edge_cap (there it takes the whole frontier, whatever its count)."""
+    if route == BITMAP:
+        return push_lanes(deg_total)
+    if route == SLICES:
+        return deg_total
+    return _capped_lanes(max(deg_total, snvals), edge_cap)
 
 
-def _dense_image(f: DualFrontier, identity, sp: int,
-                 dense_ok: Flag) -> torch.Tensor:
-    """f's dense image, rebuilt from the sparse one where `dense_ok` says it
-    is stale (selected on the device for a tensor flag)."""
-    if dense_ok is True:
-        return f.dense
-    built = _materialize_dense(f, identity, sp)
-    return built if dense_ok is False else torch.where(dense_ok, f.dense,
-                                                       built)
+def slice_lanes(edge_cap: int) -> int:
+    """The most edges a slice of `_push_sliced` holds (one vertex alone may
+    hold more): edge_cap / 8, rounded as `_capped_lanes` rounds."""
+    return _capped_lanes(edge_cap // 8, edge_cap)
 
 
-def _sparsify(f: DualFrontier, identity) -> tuple:
-    """The sparse image rebuilt from the dense one at a pull→push switch:
-    the full-n `sparse_from_dense`, cut to the carry's capacity (the lazy
-    gate pushes only a frontier that fits it)."""
-    sind, sval, nv = sparse_from_dense(f.dense, identity,
-                                       with_values=f.sval is not None)
-    k = f.sind.shape[0]
-    return sind[:k], (sval[:k] if sval is not None else None), nv
-
-
-def _takes_bitmap_push(semiring: Semiring, structure_only: bool, lazy: bool,
-                       postprocess, postprocess_sparse) -> bool:
-    """Whether a push is the bitmap push: structure-only under a ⊕ that
-    ignores duplicates (every edge carries a 1, which marks its destination
-    once), in the eager protocol, with no postprocess to run on the
-    result."""
-    return (structure_only and semiring.add.name in DUP_INSENSITIVE
-            and not lazy and postprocess is None
-            and postprocess_sparse is None)
-
-
-def _push(push_csr, fin, deg_total: int, cap: int, whole: bool,
-          semiring: Semiring, identity, n_out: int, *, mask_dense, mask_scmp,
-          structure_only, sort_push, postprocess, postprocess_sparse, lazy,
-          sp, stale_dense):
+def _push(push_csr, fin, cap: int, whole: bool, semiring: Semiring,
+          identity, n_out: int, *, mask_dense, mask_scmp, structure_only,
+          sort_push, postprocess, postprocess_sparse):
     """One push over push_csr, the (ptr, ind, val) of A's CSR for vxm and
     of its CSC for mxv, from the sparse image `fin` = (sind, sval, snvals),
-    in a workspace of `cap` lanes (`pick_tier`'s; `whole` where that is the
-    last tier). Returns (y, sind, sval, nv, dense_ok, sparse_ok).
-
-    Lazy: the sparse image compacts into sp slots and the dense image is
-    the stale one carried in. A push whose degree total is at most sp
-    cannot find more than sp entries, so its flags are known here:
-    (False, True). A larger one may overflow: `spmspv_push_sparse` then
-    builds the dense image from the workspace where nv > sp, chosen on the
-    device, and the flags are the tensors (nv > sp, nv <= sp)."""
+    in a workspace of `cap` lanes (`route_lanes`'; `whole` where that is
+    edge_cap). Returns (y, sind, sval, nv)."""
     push_ptr, push_ind, push_val = push_csr
     f_sind, f_sval, f_snvals = fin
-    # a lower tier holds the whole frontier (snvals <= cap): every stage of
-    # the expansion then scales with the tier, not with n
+    # below edge_cap the workspace holds the whole frontier (snvals <=
+    # cap): every stage of the expansion then scales with it, not with n
     fs = f_sind if whole else f_sind[:cap]
     fv = f_sval[:fs.shape[0]] if f_sval is not None else None
     with_vals = not structure_only
     if sort_push and (postprocess is None or postprocess_sparse is not None):
         # the MERGE push compacts the new frontier inside the workspace
-        small = deg_total <= sp
-        y, sind, sval, nv = spmspv_push_sparse(
+        return spmspv_push_sparse(
             push_ptr, push_ind, push_val, fs, fv, f_snvals, semiring, n_out,
             cap, mask_dense, mask_scmp, structure_only,
-            with_values=with_vals, postprocess_sparse=postprocess_sparse,
-            build_dense=not lazy, out_cap=sp if lazy else None,
-            stale_dense=None if small else stale_dense)
-        if not lazy:
-            return y, sind, sval, nv, True, True
-        if small:
-            return stale_dense, sind, sval, nv, False, True
-        fits = nv <= sp
-        return y, sind, sval, nv, ~fits, fits
+            with_values=with_vals, postprocess_sparse=postprocess_sparse)
     y = spmspv_push(push_ptr, push_ind, push_val, fs, fv, f_snvals,
                     semiring, n_out, cap, mask_dense, mask_scmp,
                     structure_only, sort_push)
-    return _finish_dense(y, identity, postprocess, with_vals, not lazy, fin)
-
-
-def _takes_slices(semiring: Semiring, structure_only: bool,
-                  lazy: bool) -> bool:
-    """Whether a push runs as scatter pushes over slices of the frontier
-    (`_push_sliced`): an eager valued push under Min or Max ⊕ (SSSP's
-    MinimumPlus; `_ORDERED`, whose total ignores the order and grouping of
-    its operands). Its lanes then stay within the second tier, where
-    the sort push's last tier would hold some 50 B a lane, at a billion
-    edges more than the card; below the second tier one scatter slice
-    also beats the sort push (SSSP on kron25w on an H100: 210 ms a call
-    against 271), and one lane an edge (`spmspv_push_exact`) enqueues a
-    third of the workspace push's ops."""
-    return not structure_only and not lazy and semiring.add.name in _ORDERED
+    return _finish_dense(y, identity, postprocess, with_vals, True, fin)
 
 
 def slice_bounds(push_ptr: torch.Tensor, f_sind: torch.Tensor, snvals: int,
@@ -368,24 +272,21 @@ def _push_sliced(push_csr, fin, lanes: int, snvals: int, deg_total: int,
                  semiring: Semiring, identity, n_out: int, *, mask_dense,
                  mask_scmp, postprocess) -> tuple:
     """A push in slices of the frontier (`slice_bounds`), each of at most
-    `lanes` (the second tier's) edges but where one vertex has more, each
+    `lanes` (`slice_lanes`') edges but where one vertex has more, each
     scattered with one lane an edge into one dense result
     (`spmspv_push_exact`; exact: Min and Max ignore the order), then
-    `postprocess` and one re-sparsification. Returns (y, sind, sval, nv,
-    the lanes the slices took: the frontier's edges)."""
+    `postprocess` and one re-sparsification. Returns (y, sind, sval,
+    nv)."""
     push_ptr, push_ind, push_val = push_csr
     f_sind, f_sval, _ = fin
-    y, taken = None, 0
+    y = None
     for start, end, edges in slice_bounds(push_ptr, f_sind, snvals, lanes,
                                           deg_total):
         fv = f_sval[start:end] if f_sval is not None else None
         y = spmspv_push_exact(push_ptr, push_ind, push_val,
                               f_sind[start:end], fv, edges, semiring, n_out,
                               mask_dense, mask_scmp, out=y)
-        taken += edges
-    y, sind, sval, nv, _, _ = _finish_dense(y, identity, postprocess, True,
-                                            True, fin)
-    return y, sind, sval, nv, taken
+    return _finish_dense(y, identity, postprocess, True, True, fin)
 
 
 def _finish_dense(y: torch.Tensor, identity, postprocess, with_vals: bool,
@@ -393,16 +294,16 @@ def _finish_dense(y: torch.Tensor, identity, postprocess, with_vals: bool,
     """The epilogue of a dense-only producer (a pull, the SIMPLE push):
     `postprocess`, then, with `resparsify`, the full-n re-sparsification
     (the reference's streamCompact, vector.hpp:367-425), so that the next
-    push reads a valid sparse image. Without it (lazy callers, pull-only
-    loops) the count is a reduction, the sparse image `carry` = (sind,
-    sval, snvals) stays stale and the flags say so."""
+    push reads a valid sparse image. Without it (pull-only loops) the
+    count is a reduction and the sparse image `carry` = (sind, sval,
+    snvals) stays stale. Returns (y, sind, sval, nv)."""
     if postprocess is not None:
         y = postprocess(y)
     if not resparsify:
         nv = (y != identity).sum().to(INDEX_DTYPE)
-        return y, carry[0], carry[1], nv, True, False
+        return y, carry[0], carry[1], nv
     sind, sval, nv = sparse_from_dense(y, identity, with_values=with_vals)
-    return y, sind, sval, nv, True, True
+    return y, sind, sval, nv
 
 
 def _plan_serves(pull_plan, semiring: Semiring, structure_only: bool,
@@ -480,17 +381,16 @@ def mxv_dual(A: Matrix, f: DualFrontier, semiring: Semiring, identity, *,
              switchpoint: float = 0.01, mode=None,
              postprocess: Optional[Callable] = None,
              postprocess_sparse: Optional[Callable] = None,
-             tier_divisors: tuple = (64, 8), pull_plan=None,
-             lazy: bool = False, state: Optional[tuple] = None):
+             pull_plan=None, state: Optional[tuple] = None):
     """One y = A ⊗ f (or fᵀ ⊗ A when transpose), returning a new
     DualFrontier and whether push ran, a Python bool (reference:
     operations.hpp:108-199 vxm + convert()).
 
     `mode` PULLONLY pulls; PUSHONLY pushes; PUSHPULL (the default) pushes
     when the frontier prefers it (`use_sparse`, the heuristic's last
-    verdict) and its degree total fits edge_cap, else pulls. A Matrix
-    without the push orientation pulls and one without the pull
-    orientation pushes, whatever `mode` says.
+    verdict) and its degree total fits edge_cap (A's nnz_pad by default),
+    else pulls. A Matrix without the push orientation pulls and one
+    without the pull orientation pushes, whatever `mode` says.
 
     Pull: `pull_plan` is None, for `spmv_pull` over the pull orientation's
     arrays (CSC for vxm, CSR for mxv) with any semiring, or a plan of that
@@ -504,31 +404,19 @@ def mxv_dual(A: Matrix, f: DualFrontier, semiring: Semiring, identity, *,
     since the next call may push.
 
     Push reads the frontier's sparse image (which must hold no
-    identity-valued entry, see DualFrontier.from_sparse) and ignores
-    `pull_plan`. A structure-only push under LogicalOr or Max ⊕, eager and
-    with neither postprocess, is the bitmap push (`_takes_bitmap_push`),
-    whatever `sort_push` says: both lowerings give it the same images.
-    Every other push but the one below takes a workspace, the smallest of
-    `push_tiers(edge_cap, tier_divisors)` that holds the frontier (edge_cap
-    defaults to A's nnz_pad). `sort_push` picks the MERGE sort push, which
-    builds the sparse image from its own sort, over the SIMPLE scatter
-    push; a `postprocess` without its sparse twin `postprocess_sparse(keys,
-    vals)` sends the push to the dense route and the full-n
-    re-sparsification. An eager valued push under Min or Max ⊕ takes
-    neither, whatever `sort_push` says (`_takes_slices`, `_push_sliced`):
-    the frontier cut into slices of at most the second tier's lanes in
-    degree total (one slice where it fits), each scattered with one lane an
-    edge into one dense result (exact, as the order does not count), then
-    `postprocess` and one re-sparsification.
-    A degree total past edge_cap pulls under PUSHPULL and raises under
-    PUSHONLY, on either push.
-
-    `lazy=True` is the lazy dual-frontier protocol (see DualFrontier): a
-    push keeps the sparse image only (LAZY_SPARSE_CAP slots) and a pull
-    the dense one only; the missing image is rebuilt at a switch, and a
-    pull-produced frontier switches to push only when it fits the sparse
-    carry. It needs a square operand. A push-only run keeps the eager
-    protocol, as the JAX loops ask for it.
+    identity-valued entry, see DualFrontier.from_sparse), ignores
+    `pull_plan`, and takes the route `push_route` names. BITMAP and SLICES
+    ignore `sort_push`: the bitmap push gives the images every lowering
+    gives, and the slices are scatter pushes of one lane an edge, each of
+    at most `slice_lanes(edge_cap)` edges in degree total (one slice where
+    the frontier fits), into one dense result, then `postprocess` and one
+    re-sparsification. WORKSPACE expands the frontier into
+    `route_lanes(WORKSPACE, ...)` lanes; there `sort_push` picks the MERGE
+    sort push, which builds the sparse image from its own sort, over the
+    SIMPLE scatter push, and a `postprocess` without its sparse twin
+    `postprocess_sparse(keys, vals)` sends it to the dense route and the
+    full-n re-sparsification. A degree total past edge_cap pulls under
+    PUSHPULL and raises ValueError under PUSHONLY.
 
     PUSHPULL and PUSHONLY read the frontier's state on the host once a
     call (`_host_state`), or take it as `state` from a caller that read it
@@ -546,13 +434,6 @@ def mxv_dual(A: Matrix, f: DualFrontier, semiring: Semiring, identity, *,
         mode = Direction.PULLONLY
     if pull_ptr is None:
         mode = Direction.PUSHONLY
-    if lazy and f.dense.shape[0] != n_out:
-        raise ValueError("lazy mxv_dual requires a square operand (the "
-                         "stale-image carry shares one vertex space)")
-    # a frontier past the lazy carry can only be pulled: a push-only run
-    # would truncate it, so it keeps both images valid
-    lazy = lazy and mode != Direction.PUSHONLY
-    sp = min(LAZY_SPARSE_CAP, f.sind.shape[0])
     with_vals = not structure_only
 
     def pull(fd):
@@ -568,85 +449,73 @@ def mxv_dual(A: Matrix, f: DualFrontier, semiring: Semiring, identity, *,
     if mode == Direction.PULLONLY:
         # pull-only loops skip re-sparsifying: only push reads sind/sval
         with annotate("gb.pull"):
-            y, sind, sval, nv, _, _ = _finish_dense(
-                pull(_dense_image(f, identity, sp, f.dense_ok)), identity,
-                postprocess, with_vals, False, carry)
+            y, sind, sval, nv = _finish_dense(pull(f.dense), identity,
+                                              postprocess, with_vals, False,
+                                              carry)
         use_sparse, ratio = update_direction(nv, n_out, f.ratio, False,
                                              switchpoint, mode)
-        return (DualFrontier(n_out, y, sind, sval, nv, ratio, use_sparse,
-                             True, not lazy), False)
+        return DualFrontier(n_out, y, sind, sval, nv, ratio, use_sparse), False
 
-    deg_total, snvals, use_sparse, dense_ok, sparse_ok = (
-        _host_state(push_csr[0], f, identity, sp) if state is None
-        else state)
-    tiers = push_tiers(A.nnz_pad if edge_cap is None else edge_cap,
-                       tier_divisors)
+    deg_total, snvals, use_sparse = (
+        _host_state(push_csr[0], f, identity) if state is None else state)
+    edge_cap = A.nnz_pad if edge_cap is None else edge_cap
     if mode == Direction.PUSHONLY:
+        if deg_total > edge_cap:
+            raise ValueError(
+                f"the frontier's degree total {deg_total} exceeds the push "
+                f"workspace edge_cap={edge_cap}; raise the descriptor's "
+                "memusage or pull")
         use_push = True
     else:
         # JAX's semantics (dispatch.py:440), not a fallback: a frontier
         # whose expansion would not fit the workspace pulls
-        use_push = use_sparse and deg_total <= tiers[-1]
-        if lazy:
-            # a pull-produced frontier switches to push only if it fits
-            # the lazy carry (bigger frontiers are pull's regime)
-            use_push = use_push and (sparse_ok or snvals <= sp)
+        use_push = use_sparse and deg_total <= edge_cap
     if use_push:
-        cap = pick_tier(tiers, deg_total, snvals)
-        bitmap = _takes_bitmap_push(semiring, structure_only, lazy,
-                                    postprocess, postprocess_sparse)
-        sliced = not bitmap and _takes_slices(semiring, structure_only, lazy)
+        route = push_route(semiring, structure_only, postprocess,
+                           postprocess_sparse)
+        lanes = route_lanes(route, deg_total, snvals, edge_cap)
+        most = slice_lanes(edge_cap)
         # host ints the read above brought: counting adds no sync
         mxv_dual.push_edges += deg_total
-        mxv_dual.bitmap_pushes += bitmap
-        if not sliced:      # the slices count their own lanes below
-            lanes = push_lanes(deg_total) if bitmap else cap
-            mxv_dual.push_lanes += lanes
-            mxv_dual.top_tier_pushes += lanes >= tiers[-1]
+        mxv_dual.push_lanes += lanes
+        mxv_dual.top_tier_pushes += lanes >= edge_cap
+        mxv_dual.bitmap_pushes += route == BITMAP
+        mxv_dual.sliced_pushes += route == SLICES and deg_total > most
         with annotate("gb.push"):
-            fin = carry if sparse_ok else _sparsify(f, identity)
-            if bitmap:
+            if route == BITMAP:
                 y, sind, sval, nv = spmspv_push_bitmap(
-                    push_csr[0], push_csr[1], fin[0], snvals, deg_total,
+                    push_csr[0], push_csr[1], f.sind, snvals, deg_total,
                     mask_dense, mask_scmp, n_out,
-                    torch.float32 if fin[1] is None else fin[1].dtype)
-                dense_ok = sparse_ok = True
-            elif sliced:
-                most = tiers[-2] if len(tiers) > 1 else cap
-                y, sind, sval, nv, taken = _push_sliced(
-                    push_csr, fin, most, snvals, deg_total, semiring,
+                    torch.float32 if f.sval is None else f.sval.dtype)
+            elif route == SLICES:
+                y, sind, sval, nv = _push_sliced(
+                    push_csr, carry, most, snvals, deg_total, semiring,
                     identity, n_out, mask_dense=mask_dense,
                     mask_scmp=mask_scmp, postprocess=postprocess)
-                mxv_dual.push_lanes += taken
-                mxv_dual.sliced_pushes += deg_total > most
-                dense_ok = sparse_ok = True
             else:
-                y, sind, sval, nv, dense_ok, sparse_ok = _push(
-                    push_csr, fin, deg_total, cap, cap == tiers[-1],
-                    semiring, identity, n_out, mask_dense=mask_dense,
+                y, sind, sval, nv = _push(
+                    push_csr, carry, lanes, lanes == edge_cap, semiring,
+                    identity, n_out, mask_dense=mask_dense,
                     mask_scmp=mask_scmp, structure_only=structure_only,
                     sort_push=sort_push, postprocess=postprocess,
-                    postprocess_sparse=postprocess_sparse, lazy=lazy, sp=sp,
-                    stale_dense=f.dense)
+                    postprocess_sparse=postprocess_sparse)
     else:
         with annotate("gb.pull"):
-            y, sind, sval, nv, dense_ok, sparse_ok = _finish_dense(
-                pull(_dense_image(f, identity, sp, dense_ok)), identity,
-                postprocess, with_vals, not lazy, carry)
+            y, sind, sval, nv = _finish_dense(pull(f.dense), identity,
+                                              postprocess, with_vals, True,
+                                              carry)
     # hysteresis compares with the direction this call ran
     # (dispatch.py:448), not with the preference it was given
     use_sparse, ratio = update_direction(nv, n_out, f.ratio, use_push,
                                          switchpoint, mode)
-    return (DualFrontier(n_out, y, sind, sval, nv, ratio, use_sparse,
-                         dense_ok, sparse_ok), use_push)
+    return DualFrontier(n_out, y, sind, sval, nv, ratio, use_sparse), use_push
 
 
 # the push's counters, read as the kernels' .launches are: the frontier's
-# degree total summed over the pushes, the lanes each covered (its tier's
-# workspace, the bitmap push's blocks, or a push in slices' edges, one
-# lane each), the pushes whose one workspace reached edge_cap, the pushes
-# that took the bitmap push, and the pushes in slices whose degree total
-# passed the second tier (cut into more than one slice, but for a lone hub)
+# degree total summed over the pushes, the lanes each covered
+# (`route_lanes`), the pushes whose lanes reached edge_cap, the pushes that
+# took the bitmap push, and the pushes in slices whose degree total passed
+# `slice_lanes` (cut into more than one slice, but for a lone hub)
 mxv_dual.push_edges = 0
 mxv_dual.push_lanes = 0
 mxv_dual.top_tier_pushes = 0

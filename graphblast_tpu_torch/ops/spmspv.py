@@ -30,18 +30,21 @@ Where the port departs from the JAX lowering:
     or fault on an out-of-range id;
   - the structure-only bitmap push has one lowering, a scatter of ones:
     `GRB_PUSH_BITMAP_SORT` picks between two TPU lowerings and is not
-    ported. `mxv_dual` sends an eager structure-only LogicalOr or Max push
-    to the hand kernel P instead (`ops/kernels/bitmap_push.py`), which
-    marks a bitmap and needs neither a workspace nor a sort, and an eager
-    valued Min or Max push to `spmspv_push_exact` here, a SIMPLE push of
-    one lane an edge, over slices of the frontier
-    (`dispatch._push_sliced`); `spmspv_push` serves every other push and
-    the operations API.
+    ported. `mxv_dual` sends a structure-only LogicalOr or Max push to the
+    hand kernel P instead (`ops/kernels/bitmap_push.py`), which marks a
+    bitmap and needs neither a workspace nor a sort, and a valued Min or
+    Max push to `spmspv_push_exact` here, a SIMPLE push of one lane an
+    edge, over slices of the frontier (`dispatch._push_sliced`);
+    `spmspv_push` and `spmspv_push_sparse` serve every other push and the
+    operations API;
+  - `spmspv_push_sparse` always builds both images whole: the JAX
+    package's `build_dense`, `out_cap` and `stale_dense`, which serve its
+    opt-in one-image frontier protocol, are not ported.
 
 ⊗ is applied as mul(matrix_entry, frontier_entry) for mxv and vxm alike;
 swap_mul=True flips it. The frontier is padded (ind, val, nvals) tensors;
 the expanded edge workspace has `edge_cap` lanes, which the caller sizes to
-the frontier's degree total (dispatch.mxv_dual picks the tier).
+the frontier's degree total (`dispatch.route_lanes`).
 """
 from __future__ import annotations
 
@@ -321,33 +324,26 @@ def _merge_reduce(tgt: torch.Tensor, mv: torch.Tensor, semiring: Semiring,
 
 def compact_heads(keys: torch.Tensor, seg_val: torch.Tensor,
                   keep: torch.Tensor, n_out: int, ident,
-                  with_values: bool = True, out_cap: Optional[int] = None,
-                  build_dense: bool = True):
+                  with_values: bool = True):
     """The kept segment heads compacted to the front of the images: (y,
-    sind, sval or None, nv). sind and sval have out_cap slots (default
-    n_out) and keep the first out_cap heads; y is (n_out,), or None
-    without build_dense. sind pads with n_out, sval and y with the
-    identity; dropped lanes and heads past out_cap write a spare slot. One
-    write per kept segment."""
+    sind, sval or None, nv), y and sind (n_out,) and sval (n_out,) with
+    values. sind pads with n_out, sval and y with the identity; dropped
+    lanes write a spare slot. One write per kept segment."""
     dev = keys.device
-    cap = n_out if out_cap is None else min(out_cap, n_out)
     nv = keep.sum().to(INDEX_DTYPE)
     pos = torch.cumsum(keep, 0, dtype=INDEX_DTYPE) - 1
-    spos = torch.where(keep & (pos < cap), pos, cap).long()
-    sind = torch.full((cap + 1,), n_out, dtype=INDEX_DTYPE, device=dev)
+    spos = torch.where(keep, pos, n_out).long()
+    sind = torch.full((n_out + 1,), n_out, dtype=INDEX_DTYPE, device=dev)
     sind[spos] = keys.to(INDEX_DTYPE)
     sval = None
     if with_values:
-        sval = torch.full((cap + 1,), ident, dtype=seg_val.dtype,
+        sval = torch.full((n_out + 1,), ident, dtype=seg_val.dtype,
                           device=dev)
         sval[spos] = seg_val
-        sval = sval[:cap]
-    y = None
-    if build_dense:
-        y = torch.full((n_out + 1,), ident, dtype=seg_val.dtype, device=dev)
-        y[torch.where(keep, keys, n_out).long()] = seg_val
-        y = y[:n_out]
-    return y, sind[:cap], sval, nv
+        sval = sval[:n_out]
+    y = torch.full((n_out + 1,), ident, dtype=seg_val.dtype, device=dev)
+    y[torch.where(keep, keys, n_out).long()] = seg_val
+    return y[:n_out], sind[:n_out], sval, nv
 
 
 def spmspv_push_sparse(ptr: torch.Tensor, ind: torch.Tensor,
@@ -357,10 +353,7 @@ def spmspv_push_sparse(ptr: torch.Tensor, ind: torch.Tensor,
                        mask_dense: Optional[torch.Tensor] = None,
                        mask_scmp: bool = False, structure_only: bool = False,
                        swap_mul: bool = False, out_dtype=None,
-                       with_values: bool = True, postprocess_sparse=None,
-                       build_dense: bool = True,
-                       out_cap: Optional[int] = None,
-                       stale_dense: Optional[torch.Tensor] = None):
+                       with_values: bool = True, postprocess_sparse=None):
     """MERGE push with both output images: (y_dense, sind, sval, nv).
 
     The destination sort already orders the expanded edges, so the new
@@ -369,14 +362,6 @@ def spmspv_push_sparse(ptr: torch.Tensor, ind: torch.Tensor,
     ⊕-total is the identity is dropped: the dense image holds the identity
     there and the sparse image no entry. sind is (n_out,), valid entries
     ascending at the front, pad n_out: the sparse_from_dense layout.
-
-    The lazy dual-frontier protocol (dispatch.mxv_dual(lazy=True)) passes
-    build_dense=False, out_cap=LAZY_SPARSE_CAP and the stale dense image it
-    carries: the sparse images then have min(out_cap, n_out) slots (heads
-    past them are dropped, so nv may exceed the slots), and y is
-    `stale_dense` unless nv > out_cap, where it is built from the
-    workspace as the eager push builds it (chosen on the device), or None
-    without `stale_dense`.
 
     `postprocess_sparse(keys, vals) -> vals` filters each segment's total
     before the keep decision and must map the identity to itself (SSSP's
@@ -396,10 +381,4 @@ def spmspv_push_sparse(ptr: torch.Tensor, ind: torch.Tensor,
     keep = heads & (keys < n_out) & (seg_val != ident)
     if mask_dense is not None:
         keep &= mask_pass(take(mask_dense, key_ids, sorted=True), mask_scmp)
-    built = build_dense or stale_dense is not None
-    y, sind, sval, nv = compact_heads(keys, seg_val, keep, n_out, ident,
-                                      with_values, out_cap, built)
-    if not build_dense and stale_dense is not None:
-        cap = n_out if out_cap is None else min(out_cap, n_out)
-        y = torch.where(nv <= cap, stale_dense.to(out_dtype), y)
-    return y, sind, sval, nv
+    return compact_heads(keys, seg_val, keep, n_out, ident, with_values)

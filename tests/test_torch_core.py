@@ -63,7 +63,7 @@ def test_descriptor_matches_jax():
         jd, td = getattr(jgb, name), getattr(tgb, name)
         for field in ("mask_scmp", "structure_only", "switchpoint",
                       "memusage", "earlyexit", "opreuse", "sort_push",
-                      "push_tiers", "max_niter", "timing", "seed"):
+                      "max_niter", "timing", "seed"):
             assert getattr(td, field) == getattr(jd, field), (name, field)
         assert td.mxv_mode.name == jd.mxv_mode.name == "PUSHPULL"
         assert td.load_balance.name == jd.load_balance.name

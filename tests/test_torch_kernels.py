@@ -410,7 +410,7 @@ A = grid_matrix(6, device="cpu")
 desc = gt.BFS_TUNED.replace(mxv_mode=gt.Direction.PULLONLY)
 v = gt.algorithms.bfs(A, 0, desc).to_numpy()
 assert np.array_equal(v, gt.algorithms.bfs_cpu(A, 0)), v
-p = gt.algorithms.pr(A, eps=1e-9).to_numpy()
+p = gt.algorithms.pr(A, eps=1e-6).to_numpy()
 assert np.allclose(p, gt.algorithms.pr_cpu(A, eps=1e-12), rtol=1e-3), p
 d = gt.algorithms.sssp(A, 0, gt.DEFAULT.replace(mxv_mode=gt.Direction.PULLONLY))
 assert np.array_equal(d.to_numpy(), gt.algorithms.sssp_cpu(A, 0)), d
@@ -421,13 +421,10 @@ v = gt.algorithms.bfs(A, 0, push).to_numpy()
 assert np.array_equal(v, gt.algorithms.bfs_cpu(A, 0)), v
 d = gt.algorithms.sssp(A, 0, gt.DEFAULT.replace(mxv_mode=gt.Direction.PUSHONLY))
 assert np.array_equal(d.to_numpy(), gt.algorithms.sssp_cpu(A, 0)), d
-import os
-for lazy in ("0", "1"):
-    os.environ["GRB_LAZY_FRONTIER"] = lazy
-    v = gt.algorithms.bfs(A, 0).to_numpy()
-    assert np.array_equal(v, gt.algorithms.bfs_cpu(A, 0)), v
-    d = gt.algorithms.sssp(A, 0).to_numpy()
-    assert np.array_equal(d, gt.algorithms.sssp_cpu(A, 0)), d
+v = gt.algorithms.bfs(A, 0).to_numpy()
+assert np.array_equal(v, gt.algorithms.bfs_cpu(A, 0)), v
+d = gt.algorithms.sssp(A, 0).to_numpy()
+assert np.array_equal(d, gt.algorithms.sssp_cpu(A, 0)), d
 assert gt.diameter(A, 0, 3) == (10, 0)
 from graphblast_tpu_torch.examples import gbfs
 assert gbfs.main(["rmat:6:4", "--device", "cpu", "--niter", "1"]) == 0
@@ -439,9 +436,9 @@ print("ok")
 
 def test_port_never_imports_jax():
     """Every port module, chip_smoke.py, a BFS, a PageRank, an SSSP and a CC
-    run, a push-only and a default (PUSHPULL, eager and lazy) BFS and
-    SSSP, diameter and the gbfs driver, with jax and graphblast_tpu blocked
-    in a fresh interpreter."""
+    run, a push-only and a default (PUSHPULL) BFS and SSSP, diameter and
+    the gbfs driver, with jax and graphblast_tpu blocked in a fresh
+    interpreter."""
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c",
                           _BLOCKED.format(mods=PORT_MODULES)],

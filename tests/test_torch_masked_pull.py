@@ -155,8 +155,7 @@ def _recording(monkeypatch):
 
 
 def _images(f):
-    return (f.dense, f.sind, f.sval, f.snvals, f.ratio, f.use_sparse,
-            f.dense_ok, f.sparse_ok)
+    return (f.dense, f.sind, f.sval, f.snvals, f.ratio, f.use_sparse)
 
 
 @pytest.mark.parametrize("mode", ["PULLONLY", "PUSHPULL"])

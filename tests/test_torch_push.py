@@ -605,9 +605,10 @@ DUAL_CASES = [
 def test_mxv_dual_pushonly_matches_jax(graphs, case, sr_name, struc, masked,
                                        post, transpose, tier, sort_push):
     """mxv_dual PUSHONLY against JAX's on a directed graph (nnz_pad 25,600,
-    tiers 1,024, 4,096 and 25,600): dense, sind[:nv], sval[:nv], snvals and
-    use_sparse, with a frontier that lands in each tier. SSSP's case
-    carries the postprocess and its sparse twin."""
+    JAX's tiers 1,024, 4,096 and 25,600): dense, sind[:nv], sval[:nv],
+    snvals and use_sparse, with a frontier that lands in each of JAX's
+    tiers; the port's lanes follow its route (`_lanes_by_hand`). SSSP's
+    case carries the postprocess and its sparse twin."""
     J, T = graphs["directed"]
     rng = np.random.default_rng(20 + tier)
     bounds = [(0, 1024), (1024, 4096), (4096, 8000)][tier]
@@ -640,8 +641,10 @@ def test_mxv_dual_pushonly_matches_jax(graphs, case, sr_name, struc, masked,
     jf, jpushed = jdisp.mxv_dual(
         J, jdisp.DualFrontier.from_dense(jnp.asarray(x), ident), jsr, ident,
         mode=jgb.Direction.PUSHONLY, **jkw)
+    lanes = tdisp.mxv_dual.push_lanes
     tf, tpushed = tdisp.mxv_dual(T, _dual(x, ident), tsr, ident,
                                  mode=tgb.Direction.PUSHONLY, **tkw)
+    lanes = tdisp.mxv_dual.push_lanes - lanes
     assert bool(jpushed) and tpushed is True
     exact = sr_name != "PlusMultipliesSemiring"
     _compare_sparse((tf.dense, tf.sind, tf.sval, tf.snvals),
@@ -649,17 +652,107 @@ def test_mxv_dual_pushonly_matches_jax(graphs, case, sr_name, struc, masked,
     assert bool(tf.use_sparse) == bool(jf.use_sparse)
     deg_total = int(tdisp._frontier_degree_total(
         T.row_ptr if transpose else T.col_ptr, _dual(x, ident), ident))
-    tiers = tdisp.push_tiers(T.nnz_pad)
-    assert tiers == [1024, 4096, 25600]
+    assert lanes == _lanes_by_hand(case, deg_total, len(ids), T.nnz_pad)
     if transpose:   # the CSR's degrees chose the frontier
-        assert tdisp.pick_tier(tiers, deg_total, len(ids)) == tiers[tier]
+        assert bounds[0] < deg_total <= bounds[1]
+
+
+def _lanes_by_hand(case, deg_total, snvals, edge_cap):
+    """The lanes of one push of a DUAL_CASES case: BFS's bitmap push covers
+    whole blocks of 4,096 edges, SSSP's slices one lane an edge, and the
+    PlusMultiplies push a workspace of max(deg_total, snvals) rounded up to
+    1,024 (at least 1,024), at most edge_cap."""
+    if case == "bfs":
+        return -(-deg_total // 4096) * 4096
+    if case == "sssp":
+        return deg_total
+    return min(edge_cap, max(-(-max(deg_total, snvals) // 1024) * 1024,
+                             1024))
+
+
+def _sparse_rows(n=3000, hot=200, m=1000, seed=9):
+    """(JAX Matrix, port Matrix): edges only out of the first `hot` of n
+    vertices, so most vertices have degree 0."""
+    rng = np.random.default_rng(seed)
+    key = np.unique(rng.integers(0, hot, m).astype(np.int64) * n
+                    + rng.integers(0, n, m))
+    J = jgb.Matrix.from_coo(key // n, key % n,
+                            (rng.random(len(key)) * 4 + 0.5).astype(
+                                np.float32), n, n)
+    return J, _carry(J)
+
+
+def _odd_to_zero(y):
+    """A postprocess: y with its odd slots set to 0, in either package."""
+    odd = np.arange(y.shape[0]) % 2 == 1
+    if isinstance(y, torch.Tensor):
+        return y.masked_fill(torch.from_numpy(odd), 0.0)
+    return jnp.where(jnp.asarray(odd), 0.0, y)
+
+
+# the pushes the workspace route takes: (semiring, structure_only,
+# postprocess)
+WORKSPACE_PUSHES = {
+    "plus": ("PlusMultipliesSemiring", False, None),
+    "or_valued": ("LogicalOrAndSemiring", False, None),
+    "or_postprocess": ("LogicalOrAndSemiring", True, _odd_to_zero)}
+
+
+@pytest.mark.parametrize("sort_push", [True, False])
+@pytest.mark.parametrize("push", list(WORKSPACE_PUSHES))
+def test_workspace_push_rounds_to_1024_lanes_and_stops_at_edge_cap(
+        graphs, push, sort_push):
+    """The workspace route (a valued PlusMultiplies push, a valued
+    LogicalOrAnd one as a BFS over the frontier's values pushes, and a
+    structure-only LogicalOrAnd one with a postprocess): its lanes are the
+    degree total rounded up to 1,024, or the frontier's count where that
+    is more (a frontier of degree-0 vertices), and edge_cap where the
+    rounding would pass it; only a push at edge_cap counts as a top-tier
+    push, and none as a bitmap or sliced push. Each result equals JAX's."""
+    sr, struc, post = WORKSPACE_PUSHES[push]
+    J, T = graphs["directed"]
+    rng = np.random.default_rng(33)
+    ids = _tier_frontier(T, 1500, 3000, rng)
+    deg_total = int(np.diff(T.host_csr()[0])[ids].sum())
+    assert deg_total % 1024 < 1000
+    rounded = -(-deg_total // 1024) * 1024
+    SJ, ST = _sparse_rows()
+    idle = np.sort(rng.choice(np.arange(200, ST.nrows), 1400, replace=False))
+    front = np.concatenate([np.arange(50), idle])
+    assert int(np.diff(ST.host_csr()[0])[front].sum()) < 1024
+    for (JM, TM), front, edge_cap, want, top in (
+            ((J, T), ids, None, rounded, 0),
+            ((J, T), ids, deg_total + 10, deg_total + 10, 1),
+            ((J, T), ids, rounded, rounded, 1),
+            ((SJ, ST), front, 4096, 2048, 0)):
+        x = np.zeros(TM.nrows, np.float32)
+        x[front] = rng.random(len(front)) * 3 + 0.5
+        v = ((rng.random(TM.nrows) < 0.5) * rng.random(TM.nrows)).astype(
+            np.float32)
+        kw = dict(transpose=True, mask_scmp=True, sort_push=sort_push,
+                  edge_cap=edge_cap, structure_only=struc, postprocess=post)
+        counters = ("push_lanes", "top_tier_pushes", "bitmap_pushes",
+                    "sliced_pushes")
+        before = [getattr(tdisp.mxv_dual, c) for c in counters]
+        tf, _ = tdisp.mxv_dual(TM, _dual(x, 0.0), getattr(tgb, sr), 0.0,
+                               mode=tgb.Direction.PUSHONLY,
+                               mask_dense=_t(v), **kw)
+        assert [getattr(tdisp.mxv_dual, c) - b
+                for c, b in zip(counters, before)] == [want, top, 0, 0]
+        jf, _ = jdisp.mxv_dual(
+            JM, jdisp.DualFrontier.from_dense(jnp.asarray(x), 0.0),
+            getattr(jgb, sr), 0.0, mode=jgb.Direction.PUSHONLY,
+            mask_dense=jnp.asarray(v), **kw)
+        _compare_sparse((tf.dense, tf.sind, tf.sval, tf.snvals),
+                        (jf.dense, jf.sind, jf.sval, jf.snvals), TM.nrows,
+                        exact=False)
 
 
 def test_mxv_dual_push_is_the_same_in_every_tier(graphs):
-    """One frontier pushed in each tier, forced by edge_cap and
-    tier_divisors, gives one result, equal to JAX's with the same
-    arguments; a degree total past edge_cap raises, where JAX would
-    truncate."""
+    """One frontier pushed by JAX in each of its tiers, forced by edge_cap
+    and tier_divisors, and by the port at the same edge_cap, gives one
+    result, equal to JAX's; a degree total past edge_cap raises, where JAX
+    would truncate."""
     J, T = graphs["directed"]
     rng = np.random.default_rng(30)
     ids = _tier_frontier(T, 0, 1000, rng)
@@ -667,17 +760,15 @@ def test_mxv_dual_push_is_the_same_in_every_tier(graphs):
     x[ids] = 1.0
     deg_total = int(np.diff(T.host_csr()[0])[ids].sum())
     runs = []
-    for edge_cap, divs, cap in ((None, (64, 8), 1024), (None, (8,), 4096),
-                                (None, (), 25600), (deg_total, (), deg_total)):
-        tiers = tdisp.push_tiers(edge_cap or T.nnz_pad, divs)
-        assert tdisp.pick_tier(tiers, deg_total, len(ids)) == cap
-        kw = dict(transpose=True, structure_only=True, edge_cap=edge_cap,
-                  tier_divisors=divs)
+    for edge_cap, divs in ((None, (64, 8)), (None, (8,)), (None, ()),
+                           (deg_total, ())):
+        kw = dict(transpose=True, structure_only=True, edge_cap=edge_cap)
         tf, _ = tdisp.mxv_dual(T, _dual(x, 0.0), tgb.LogicalOrAndSemiring,
                                0.0, mode=tgb.Direction.PUSHONLY, **kw)
         jf, _ = jdisp.mxv_dual(
             J, jdisp.DualFrontier.from_dense(jnp.asarray(x), 0.0),
-            jgb.LogicalOrAndSemiring, 0.0, mode=jgb.Direction.PUSHONLY, **kw)
+            jgb.LogicalOrAndSemiring, 0.0, mode=jgb.Direction.PUSHONLY,
+            tier_divisors=divs, **kw)
         _compare_sparse((tf.dense, tf.sind, tf.sval, tf.snvals),
                         (jf.dense, jf.sind, jf.sval, jf.snvals), T.nrows,
                         exact=True)
@@ -688,8 +779,7 @@ def test_mxv_dual_push_is_the_same_in_every_tier(graphs):
     with pytest.raises(ValueError, match="degree total"):
         tdisp.mxv_dual(T, _dual(x, 0.0), tgb.LogicalOrAndSemiring, 0.0,
                        transpose=True, structure_only=True,
-                       edge_cap=deg_total - 1, tier_divisors=(),
-                       mode=tgb.Direction.PUSHONLY)
+                       edge_cap=deg_total - 1, mode=tgb.Direction.PUSHONLY)
 
 
 # ------------------------------------------------------- the bitmap push
@@ -761,16 +851,15 @@ def test_bitmap_push_equals_the_sort_push(graphs, name, kind, mask_kind,
 def test_bfs_on_the_bitmap_push_matches_jax_under_tier_sets(graphs, name,
                                                             mode, tiers):
     """PUSHONLY and PUSHPULL structure-only BFS, whose pushes are bitmap
-    pushes, equal the JAX bfs (its tier-sized sort push) under the same
-    tier divisors and bfs_cpu, from the hub and from vertex 0."""
+    pushes, equal the JAX bfs (its tier-sized sort push) under each of
+    JAX's tier sets and bfs_cpu, from the hub and from vertex 0."""
     from graphblast_tpu.algorithms import bfs as jbfs
     from graphblast_tpu_torch.algorithms import bfs, bfs_cpu
 
     J, T = graphs[name]
     jdesc = jgb.BFS_TUNED.replace(mxv_mode=getattr(jgb.Direction, mode),
                                   push_tiers=tiers)
-    tdesc = tgb.BFS_TUNED.replace(mxv_mode=getattr(tgb.Direction, mode),
-                                  push_tiers=tiers)
+    tdesc = tgb.BFS_TUNED.replace(mxv_mode=getattr(tgb.Direction, mode))
     before = tdisp.mxv_dual.bitmap_pushes
     for s in (_hub(T), 0):
         want = np.asarray(jbfs(J, s, jdesc).to_numpy())

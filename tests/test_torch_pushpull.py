@@ -1,5 +1,5 @@
-"""The port's direction switch (PUSHPULL `mxv_dual`, eager and lazy), the
-default BFS and SSSP that run it, and `diameter`, against the JAX package.
+"""The port's direction switch (PUSHPULL `mxv_dual`), the default BFS and
+SSSP that run it, and `diameter`, against the JAX package.
 
 The same inputs, made with NumPy from a seed, go to both packages; the
 port runs on CPU tensors, so its kernels take their plain versions, and
@@ -9,10 +9,10 @@ and directions are integers or bools, SSSP distances are float32 minima of
 sums of small integers, which are exact in any order, and the MinimumPlus
 products of the mxv_dual ladder are float32 sums of one term each.
 
-JAX reads GRB_LAZY_FRONTIER when it traces, and its jit cache keys do not
-hold it (ROADMAP, "Caveats"). So the lazy BFS and SSSP are held to the
-goldens and the port's eager results, and the lazy `mxv_dual` and
-`spmspv_push_sparse` to JAX's, called with lazy=True outside jit.
+The port keeps both frontier images valid every call: the JAX package's
+opt-in one-image protocol (GRB_LAZY_FRONTIER=1) is not ported, and the
+variable changes nothing here. So `mxv_dual` is held to JAX's in its
+default protocol.
 """
 import dataclasses
 import os
@@ -28,11 +28,9 @@ from graphblast_tpu.algorithms import bfs as jax_bfs
 from graphblast_tpu.algorithms import diameter as jax_diameter
 from graphblast_tpu.algorithms import sssp as jax_sssp
 from graphblast_tpu.ops import dispatch as jdisp
-from graphblast_tpu.ops import spmspv as jpush
 from graphblast_tpu_torch.algorithms import (bfs, bfs_cpu, diameter, sssp,
                                              sssp_cpu)
 from graphblast_tpu_torch.ops import dispatch as tdisp
-from graphblast_tpu_torch.ops import spmspv as tpush
 
 DATA = os.path.join(os.path.dirname(__file__), "..", "data", "small")
 MAXF = float(np.finfo(np.float32).max)
@@ -200,13 +198,13 @@ def test_mxv_dual_pushpull_pulls_past_edge_cap(graphs, transpose):
     x[np.random.default_rng(5).choice(n, 40, replace=False)] = 1.0
     ptr = (T.row_ptr if transpose else T.col_ptr).numpy()
     deg_total = int(np.diff(ptr)[x != 0].sum())
-    kw = dict(transpose=transpose, structure_only=True, tier_divisors=())
+    kw = dict(transpose=transpose, structure_only=True)
     for edge_cap, push in ((deg_total - 1, False), (deg_total, True)):
         jf, j_push = jdisp.mxv_dual(
             J, jdisp.DualFrontier.from_dense(jnp.asarray(x), 0.0,
                                              prefer_sparse=True),
             jgb.LogicalOrAndSemiring, 0.0, edge_cap=edge_cap,
-            mode=jgb.Direction.PUSHPULL, **kw)
+            mode=jgb.Direction.PUSHPULL, tier_divisors=(), **kw)
         tf, t_push = tdisp.mxv_dual(
             T, tdisp.DualFrontier.from_dense(_t(x), 0.0, prefer_sparse=True),
             tgb.LogicalOrAndSemiring, 0.0, edge_cap=edge_cap,
@@ -220,181 +218,59 @@ def test_mxv_dual_pushpull_pulls_past_edge_cap(graphs, transpose):
                        **kw)
 
 
-# ------------------------------------------------------------ lazy protocol
-def _lazy_start(pkg, x, ident, sp, with_values):
-    """A frontier in the lazy layout: the sparse image cut to sp slots."""
-    n = x.shape[0]
-    ids = np.flatnonzero(x != ident)[:sp]
-    sind = np.full(sp, n, np.int32)
-    sind[:len(ids)] = ids
-    sval = np.full(sp, ident, np.float32)
-    sval[:len(ids)] = x[ids]
-    if pkg == "jax":
-        return jdisp.DualFrontier(
-            n, jnp.asarray(x), jnp.asarray(sind),
-            jnp.asarray(sval) if with_values else None,
-            jnp.asarray(len(ids), jnp.int32),
-            jnp.asarray(len(ids) / n, jnp.float32), jnp.asarray(True))
-    return tdisp.DualFrontier(
-        n, _t(x), _t(sind), _t(sval) if with_values else None,
-        torch.tensor(len(ids), dtype=torch.int32),
-        torch.tensor(len(ids) / n, dtype=torch.float32), torch.tensor(True))
-
-
-def _live_set(f, ident, sp):
-    """The frontier's (ids, values) from whichever image its flags say is
-    valid (the dense one when both are)."""
-    if bool(f.dense_ok):
-        d = np.asarray(f.dense) if not isinstance(f.dense, torch.Tensor) \
-            else f.dense.numpy()
-        ids = np.flatnonzero(d != ident)
-        return ids, d[ids]
-    k = int(f.snvals)
-    assert k <= sp
-    sind = np.asarray(f.sind) if not isinstance(f.sind, torch.Tensor) \
-        else f.sind.numpy()
-    sval = (None if f.sval is None else
-            np.asarray(f.sval) if not isinstance(f.sval, torch.Tensor)
-            else f.sval.numpy())
-    return sind[:k], (np.ones(k, np.float32) if sval is None else sval[:k])
-
-
-LAZY_CASES = [
+# ------------------------------------------------------- chains of calls
+CHAIN_CASES = [
     # (graph, semiring, structure_only, chains of (source, switchpoint))
     ("rmat10", "LogicalOrAndSemiring", True, ((1, 0.015), (1, 0.002))),
     ("directed_int", "MinimumPlusSemiring", False, ((1, 0.015), (2, 0.015))),
 ]
 
 
-def _lazy_chain(J, T, jsr, tsr, struc, source, switchpoint, sp):
-    """One chain of lazy PUSHPULL mxv_dual calls from `source`, in both
+def _chain(J, T, jsr, tsr, struc, source, switchpoint):
+    """One chain of PUSHPULL mxv_dual calls from `source`, in both
     packages, each call fed the last one's output, BFS-like: the mask is
     the vertices seen so far, complemented (SSSP's filter against the best
     values seen, for MinimumPlus). Checks each step against JAX and
-    returns [(used_push, the flags it started from, the new count)]."""
+    returns the directions it ran."""
     n = T.nrows
     ident = float(tsr.identity(torch.float32))
     x = np.full(n, ident, np.float32)
     x[source] = 1.0 if struc else 0.0
-    jf = _lazy_start("jax", x, ident, sp, not struc)
-    tf = _lazy_start("torch", x, ident, sp, not struc)
+    jf = jdisp.DualFrontier.from_dense(jnp.asarray(x), ident,
+                                       prefer_sparse=True)
+    tf = tdisp.DualFrontier.from_dense(_t(x), ident, prefer_sparse=True)
     seen = np.full(n, 0.0 if struc else MAXF, np.float32)
-    trail = []
+    pushes = []
     for _ in range(16):
-        ids, vals = _live_set(tf, ident, sp)
+        d = tf.dense.numpy()
+        ids = np.flatnonzero(d != ident)
         if len(ids) == 0:
             break
-        if struc:
-            seen[ids] = 1.0
-        else:
-            seen[ids] = np.minimum(seen[ids], vals)
-        v = seen.copy()
-        kw = dict(transpose=True, switchpoint=switchpoint,
-                  structure_only=struc, lazy=True)
-        if struc:
-            jkw = dict(kw, mask_dense=jnp.asarray(v), mask_scmp=True)
-            tkw = dict(kw, mask_dense=_t(v), mask_scmp=True)
-        else:
-            jkw = dict(kw, postprocess=lambda y: jnp.where(
-                y < jnp.asarray(v), y, MAXF),
-                postprocess_sparse=lambda k, z: jnp.where(
-                    z < jnp.asarray(v)[k], z, MAXF))
-            tkw = dict(kw, postprocess=lambda y: torch.where(
-                y < _t(v), y, MAXF),
-                postprocess_sparse=lambda k, z: torch.where(
-                    z < _t(v)[k.long()], z, MAXF))
-        was = (bool(tf.dense_ok), bool(tf.sparse_ok))
+        seen[ids] = 1.0 if struc else np.minimum(seen[ids], d[ids])
+        jkw, tkw = _ladder_kwargs(struc, struc, not struc, seen.copy(),
+                                  seen.copy(), True)
         jf, j_push = jdisp.mxv_dual(J, jf, jsr, ident,
-                                    mode=jgb.Direction.PUSHPULL, **jkw)
+                                    switchpoint=switchpoint, **jkw)
         tf, t_push = tdisp.mxv_dual(T, tf, tsr, ident,
-                                    mode=tgb.Direction.PUSHPULL, **tkw)
+                                    switchpoint=switchpoint, **tkw)
         assert t_push is bool(j_push)
-        assert int(tf.snvals) == int(jf.snvals)
-        assert bool(tf.use_sparse) == bool(jf.use_sparse)
-        assert float(tf.ratio) == float(jf.ratio)
-        assert bool(tf.dense_ok) == bool(jf.dense_ok)
-        assert bool(tf.sparse_ok) == bool(jf.sparse_ok)
-        assert bool(tf.dense_ok) or bool(tf.sparse_ok)
-        for a, b in zip(_live_set(tf, ident, sp), _live_set(jf, ident, sp)):
-            np.testing.assert_array_equal(a, b)
-        trail.append((t_push, was, int(tf.snvals)))
-    return trail
+        _same_frontier(tf, jf, n)
+        pushes.append(t_push)
+    return pushes
 
 
-@pytest.mark.parametrize("name,sr_name,struc,chains", LAZY_CASES,
-                         ids=[c[0] for c in LAZY_CASES])
-def test_mxv_dual_lazy_chain_matches_jax(graphs, monkeypatch, name, sr_name,
-                                         struc, chains):
-    """Chains of lazy PUSHPULL mxv_dual calls (`_lazy_chain`), with
-    LAZY_SPARSE_CAP set to 64 in both packages so that these graphs pass
-    it: used_push, the count, use_sparse, ratio and both flags equal JAX's
-    at every step, and so does the frontier read from whichever image the
-    flags call valid. Between them the chains run a push whose output
-    passes the carry, a pull from a stale dense image (push→pull rebuild)
-    and a push from a stale sparse one (pull→push rebuild)."""
-    sp = 64
-    monkeypatch.setattr(jdisp, "LAZY_SPARSE_CAP", sp)
-    monkeypatch.setattr(tdisp, "LAZY_SPARSE_CAP", sp)
+@pytest.mark.parametrize("name,sr_name,struc,chains", CHAIN_CASES,
+                         ids=[c[0] for c in CHAIN_CASES])
+def test_mxv_dual_chain_matches_jax(graphs, name, sr_name, struc, chains):
+    """Chains of PUSHPULL mxv_dual calls (`_chain`), each fed the last
+    one's output with its hysteresis state: used_push, the dense and
+    sparse images, the count, use_sparse and ratio equal JAX's at every
+    step, and the chains run both directions and switch between them."""
     J, T = graphs[name]
     jsr, tsr = getattr(jgb.semiring, sr_name), getattr(tgb.semiring, sr_name)
-    trail = [step for source, switchpoint in chains
-             for step in _lazy_chain(J, T, jsr, tsr, struc, source,
-                                     switchpoint, sp)]
-    pushes = [p for p, _, _ in trail]
+    pushes = [p for source, switchpoint in chains
+              for p in _chain(J, T, jsr, tsr, struc, source, switchpoint)]
     assert True in pushes and False in pushes
-    assert any(p and nv > sp for p, _, nv in trail)
-    assert any(not p and not was[0] for p, was, _ in trail)
-    assert any(p and not was[1] for p, was, _ in trail)
-
-
-@pytest.mark.parametrize("out_cap", [16, 4096])
-@pytest.mark.parametrize("sr_name,struc,masked", [
-    ("LogicalOrAndSemiring", True, True),
-    ("MinimumPlusSemiring", False, False)])
-def test_spmspv_push_sparse_lazy_outputs_match_jax(graphs, sr_name, struc,
-                                                   masked, out_cap):
-    """spmspv_push_sparse with build_dense=False, out_cap and a stale dense
-    image, called directly in both packages: the sparse images have
-    min(out_cap, n) slots holding the first heads, nv counts them all, and
-    y is the stale image unless nv > out_cap, where it is the eager push's
-    dense image; with no stale image, y is None. Equal to JAX's."""
-    J, T = graphs["directed_int"]
-    n = T.nrows
-    rng = np.random.default_rng(8)
-    ids = np.sort(rng.choice(n, 25, replace=False))
-    ind = np.full(n, n, np.int32)
-    ind[:25] = ids
-    val = np.zeros(n, np.float32)
-    val[:25] = rng.integers(0, 4, 25)
-    mask = (rng.random(n) < 0.4).astype(np.float32)
-    stale = rng.random(n).astype(np.float32)
-    jsr, tsr = getattr(jgb.semiring, sr_name), getattr(tgb.semiring, sr_name)
-    args = (n, 4096)
-    jkw = dict(mask_dense=jnp.asarray(mask) if masked else None,
-               mask_scmp=True, structure_only=struc, with_values=not struc,
-               build_dense=False, out_cap=out_cap)
-    tkw = dict(jkw, mask_dense=_t(mask) if masked else None)
-    for with_stale in (True, False):
-        jy, js, jv, jn = jpush.spmspv_push_sparse(
-            J.row_ptr, J.col_ind, J.val, jnp.asarray(ind),
-            None if struc else jnp.asarray(val), 25, jsr, *args,
-            stale_dense=jnp.asarray(stale) if with_stale else None, **jkw)
-        ty, ts, tv, tn = tpush.spmspv_push_sparse(
-            T.row_ptr, T.col_ind, T.val, _t(ind),
-            None if struc else _t(val), 25, tsr, *args,
-            stale_dense=_t(stale) if with_stale else None, **tkw)
-        assert int(tn) == int(jn) > 16
-        assert ts.shape[0] == min(out_cap, n)
-        np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
-        if struc:
-            assert tv is None and jv is None
-        else:
-            np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
-        if with_stale:
-            np.testing.assert_array_equal(ty.numpy(), np.asarray(jy))
-            assert np.array_equal(ty.numpy(), stale) == (int(tn) <= out_cap)
-        else:
-            assert ty is None and jy is None
 
 
 # --------------------------------------------------------- BFS and SSSP
@@ -466,29 +342,28 @@ def test_dirinfo_announces_each_switch(graphs, capsys):
                for r in out) == switches
 
 
-# ------------------------------------------------------------------ lazy
+# -------------------------------------------------------- switchpoints
 def _rmat14():
     from graphblast_tpu_torch.io.rmat import rmat_matrix
 
     return rmat_matrix(14, 16, seed=42, device="cpu")
 
 
-LAZY_GRAPHS = [
-    # (graph, switchpoint): the grids of tests/test_ops.py's lazy test, and
-    # RMAT 14 at switchpoint 0.5, where the hub's second push finds 8,640
-    # vertices (past LAZY_SPARSE_CAP) and the run switches both ways
+SWITCH_GRAPHS = [
+    # (graph, switchpoint): the grids of tests/test_ops.py's direction
+    # tests, and RMAT 14 at switchpoint 0.5, where the hub's second push
+    # finds 8,640 vertices and the run switches both ways
     ("grid17", 0.01), ("grid13", 0.01), ("rmat10", 0.01), ("rmat14", 0.5),
 ]
 
 
-@pytest.mark.parametrize("name,switchpoint", LAZY_GRAPHS,
-                         ids=[g[0] for g in LAZY_GRAPHS])
-def test_lazy_bfs_and_sssp_equal_goldens_and_eager(graphs, monkeypatch,
-                                                   capsys, name,
-                                                   switchpoint):
-    """GRB_LAZY_FRONTIER=1: BFS and SSSP, fused and stepped, equal the
-    goldens and the port's eager results; on RMAT 14 the stepped BFS
-    switches push→pull and pull→push."""
+@pytest.mark.parametrize("name,switchpoint", SWITCH_GRAPHS,
+                         ids=[g[0] for g in SWITCH_GRAPHS])
+def test_bfs_and_sssp_equal_goldens_at_switchpoints(graphs, capsys, name,
+                                                    switchpoint):
+    """BFS and SSSP under PUSHPULL at the graph's switchpoint, fused and
+    stepped, from the hub: equal to the goldens; on RMAT 14 the stepped
+    BFS switches push→pull and pull→push."""
     from graphblast_tpu_torch.io.rmat import grid_matrix
 
     T = {"grid17": lambda: grid_matrix(17, device="cpu"),
@@ -497,33 +372,47 @@ def test_lazy_bfs_and_sssp_equal_goldens_and_eager(graphs, monkeypatch,
     s = _hub(T)
     bdesc = tgb.BFS_TUNED.replace(switchpoint=switchpoint, timing=1)
     sdesc = tgb.DEFAULT.replace(switchpoint=switchpoint, timing=1)
-    eager = (bfs(T, s, bdesc).to_numpy(), sssp(T, s, sdesc).to_numpy())
-    monkeypatch.setenv("GRB_LAZY_FRONTIER", "1")
+    golden = (bfs_cpu(T, s), sssp_cpu(T, s))
     for mode in ("fused", "stepped"):
         capsys.readouterr()
         lv = bfs(T, s, bdesc, mode=mode).to_numpy()
         dirs = _directions(capsys.readouterr().out)
-        ds = sssp(T, s, sdesc, mode=mode).to_numpy()
-        np.testing.assert_array_equal(lv, bfs_cpu(T, s))
-        np.testing.assert_array_equal(lv, eager[0])
-        np.testing.assert_array_equal(ds, sssp_cpu(T, s))
-        np.testing.assert_array_equal(ds, eager[1])
+        np.testing.assert_array_equal(lv, golden[0])
+        np.testing.assert_array_equal(sssp(T, s, sdesc, mode=mode).to_numpy(),
+                                      golden[1])
+    assert set(dirs) == {"push", "pull"}
     if name == "rmat14":
         # the stepped BFS switches both ways
         pairs = set(zip(dirs, dirs[1:]))
         assert {("push", "pull"), ("pull", "push")} <= pairs, dirs
 
 
-def test_lazy_frontier_is_read_at_each_call(monkeypatch):
-    """GRB_LAZY_FRONTIER is read when bfs runs, and never under PUSHONLY."""
-    from graphblast_tpu_torch.algorithms.bfs import _lazy_frontier
+def test_lazy_frontier_variable_changes_nothing(graphs, monkeypatch):
+    """GRB_LAZY_FRONTIER=1, which opts the JAX package into its one-image
+    frontier protocol, changes neither the port's BFS and SSSP results nor
+    its push counters: the port reads no such variable."""
+    _, T = graphs["rmat10"]
+    s = _hub(T)
+    counters = ("push_edges", "push_lanes", "top_tier_pushes",
+                "bitmap_pushes", "sliced_pushes")
+
+    def run():
+        before = [getattr(tdisp.mxv_dual, c) for c in counters]
+        out = [bfs(T, s).to_numpy(), sssp(T, s).to_numpy(),
+               bfs(T, s, mode="stepped").to_numpy(),
+               bfs(T, s, tgb.BFS_TUNED.replace(
+                   structure_only=False)).to_numpy()]
+        return out, [getattr(tdisp.mxv_dual, c) - b
+                     for c, b in zip(counters, before)]
 
     monkeypatch.delenv("GRB_LAZY_FRONTIER", raising=False)
-    assert not _lazy_frontier(tgb.Direction.PUSHPULL)
+    want, want_counts = run()
     monkeypatch.setenv("GRB_LAZY_FRONTIER", "1")
-    assert _lazy_frontier(tgb.Direction.PUSHPULL)
-    assert _lazy_frontier(tgb.Direction.PULLONLY)
-    assert not _lazy_frontier(tgb.Direction.PUSHONLY)
+    got, got_counts = run()
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+    assert got_counts == want_counts
+    assert want_counts[0] > 0 and want_counts[3] > 0
 
 
 # -------------------------------------------------------------- diameter

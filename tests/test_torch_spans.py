@@ -7,8 +7,8 @@ the profiler makes a device-side copy on a card). The BFS loop records
 "gb.bfs.iter" an iteration, holding its "gb.bfs.read" and one "gb.push" or
 "gb.pull"; PageRank "gb.pr.iter" holding "gb.pr.read". The push's counters
 on `mxv_dual` equal a plain reckoning from the levels of the same run (the
-bitmap push's lanes) or from each call's frontier (the tiers of a valued
-push).
+bitmap push's lanes) or from each call's frontier (the slices and the
+workspace of a valued push).
 """
 import importlib
 import json
@@ -149,7 +149,6 @@ def test_push_counters_match_a_plain_reckoning(rmat10):
     A = rmat10
     desc = gt.BFS_TUNED.replace(mxv_mode=gt.Direction.PUSHONLY)
     deg = np.diff(A.row_ptr.numpy().astype(np.int64))[:A.nrows]
-    tiers = dispatch.push_tiers(A.nnz_pad, desc.push_tiers)
     before = [getattr(dispatch.mxv_dual, c) for c in COUNTERS]
     want, blocks = [0, 0, 0, 0], set()
     for source in range(0, A.nrows, 64):
@@ -160,7 +159,7 @@ def test_push_counters_match_a_plain_reckoning(rmat10):
             blocks.add(lanes // EDGES_PER_BLOCK)
             want[0] += total
             want[1] += lanes
-            want[2] += lanes >= tiers[-1]
+            want[2] += lanes >= A.nnz_pad     # edge_cap
             want[3] += 1
     got = [getattr(dispatch.mxv_dual, c) - b
            for c, b in zip(COUNTERS, before)]
@@ -170,48 +169,65 @@ def test_push_counters_match_a_plain_reckoning(rmat10):
 
 def test_push_counters_reckon_the_tiers_of_a_valued_push(monkeypatch,
                                                          rmat10):
-    """PUSHONLY SSSP pushes values under MinimumPlus, so its pushes run as
-    scatter pushes of one lane an edge over slices of at most the second
-    tier's lanes: Σ frontier degree, and as many lanes, reckoned from each
-    call's frontier; a push counts as sliced where its degree total passes
-    the second tier, none as a last-tier push, and none as a bitmap push.
-    The roots give frontiers of every tier's size."""
+    """Valued pushes, reckoned from each call's frontier. PUSHONLY SSSP
+    pushes values under MinimumPlus, so its pushes run as scatter pushes of
+    one lane an edge over slices of at most edge_cap / 8 edges (rounded up
+    to 1,024): Σ frontier degree, and as many lanes; a push counts as
+    sliced where its degree total passes that. PUSHONLY BFS over the
+    frontier's values takes the workspace push: its lanes are the degree
+    total or the frontier's count, whichever is more, rounded up to 1,024
+    and at most edge_cap. A push counts as a top-tier push where its lanes
+    reach edge_cap, and none as a bitmap push. The roots give frontiers on
+    both sides of the slices' bound and workspaces of several sizes."""
     A = rmat10
-    desc = gt.DEFAULT.replace(mxv_mode=gt.Direction.PUSHONLY)
+    edge_cap = A.nnz_pad
     deg = np.diff(A.row_ptr.numpy().astype(np.int64))[:A.nrows]
-    tiers = dispatch.push_tiers(A.nnz_pad, desc.push_tiers)
-    assert len(tiers) == 3
-    want, caps, sliced = [0, 0, 0, 0], set(), [0]
-    inner = sssp_mod.mxv_dual
+    slice_max = min(edge_cap, max(-(-(edge_cap // 8) // 1024) * 1024, 1024))
+    want, sizes, sliced = [0, 0, 0, 0], set(), [0, 0]
 
-    def recording(M, f, *args, **kw):
-        front = f.dense.numpy() != kw["identity"]
-        total = int(deg[front].sum())
-        caps.add(dispatch.pick_tier(tiers, total, int(front.sum())))
-        want[0] += total
-        want[1] += total
-        sliced[0] += total > tiers[-2]
-        return inner(M, f, *args, **kw)
+    def recording(mod, valued_bfs):
+        inner = mod.mxv_dual
 
-    monkeypatch.setattr(sssp_mod, "mxv_dual", recording)
+        def call(M, f, *args, **kw):
+            front = f.dense.numpy() != kw["identity"]
+            total = int(deg[front].sum())
+            if valued_bfs:
+                lanes = min(edge_cap, max(-(-max(total, int(front.sum()))
+                                            // 1024) * 1024, 1024))
+                sizes.add(lanes)
+            else:
+                lanes = total
+                sliced[total > slice_max] += 1
+            want[0] += total
+            want[1] += lanes
+            want[2] += lanes >= edge_cap
+            return inner(M, f, *args, **kw)
+
+        monkeypatch.setattr(mod, "mxv_dual", call)
+
+    recording(sssp_mod, False)
+    recording(bfs_mod, True)
     before = [getattr(dispatch.mxv_dual, c) for c in COUNTERS]
     sliced_before = dispatch.mxv_dual.sliced_pushes
     hub = int(np.argmax(deg))
     for source in [hub] + list(range(0, A.nrows, 128)):
-        gt.algorithms.sssp(A, source, desc)
+        gt.algorithms.sssp(A, source, gt.DEFAULT.replace(
+            mxv_mode=gt.Direction.PUSHONLY))
+        gt.algorithms.bfs(A, source, gt.BFS_TUNED.replace(
+            structure_only=False, mxv_mode=gt.Direction.PUSHONLY))
     got = [getattr(dispatch.mxv_dual, c) - b
            for c, b in zip(COUNTERS, before)]
-    assert caps == set(tiers)
+    assert len(sizes) > 2 and sliced[0] > 0
     assert got == want
-    assert dispatch.mxv_dual.sliced_pushes - sliced_before == sliced[0] > 0
+    assert dispatch.mxv_dual.sliced_pushes - sliced_before == sliced[1] > 0
 
 
-@pytest.mark.parametrize("case", ["bfs", "bfs_values", "bfs_lazy", "sssp"])
+@pytest.mark.parametrize("case", ["bfs", "bfs_values", "sssp"])
 def test_bitmap_pushes_count_the_structure_only_pushes(monkeypatch, rmat10,
                                                        case):
     """mxv_dual.bitmap_pushes counts every push of a structure-only BFS,
-    PUSHONLY and PUSHPULL, and no push of BFS over the frontier's values,
-    of the lazy protocol (GRB_LAZY_FRONTIER=1) or of SSSP."""
+    PUSHONLY and PUSHPULL, and no push of BFS over the frontier's values
+    or of SSSP."""
     A = rmat10
     hub = int(np.argmax(np.diff(A.row_ptr.numpy())[:A.nrows]))
     mod = sssp_mod if case == "sssp" else bfs_mod
@@ -224,8 +240,6 @@ def test_bitmap_pushes_count_the_structure_only_pushes(monkeypatch, rmat10,
         return out
 
     monkeypatch.setattr(mod, "mxv_dual", recording)
-    if case == "bfs_lazy":
-        monkeypatch.setenv("GRB_LAZY_FRONTIER", "1")
     before = dispatch.mxv_dual.bitmap_pushes
     if case == "sssp":
         gt.algorithms.sssp(A, hub)
@@ -237,13 +251,10 @@ def test_bitmap_pushes_count_the_structure_only_pushes(monkeypatch, rmat10,
         levels = gt.algorithms.bfs(A, hub, desc)
         np.testing.assert_array_equal(levels.to_numpy(),
                                       gt.algorithms.bfs_cpu(A, hub))
-        pushpull = sum(pushes)
-        assert 0 < pushpull < len(pushes)
+        assert 0 < sum(pushes) < len(pushes)
         gt.algorithms.bfs(A, hub, desc.replace(
             mxv_mode=gt.Direction.PUSHONLY))
-        # PUSHONLY runs the eager protocol, GRB_LAZY_FRONTIER or not
-        want = {"bfs": sum(pushes), "bfs_values": 0,
-                "bfs_lazy": sum(pushes) - pushpull}[case]
+        want = sum(pushes) if case == "bfs" else 0
     assert sum(pushes) > 0
     assert dispatch.mxv_dual.bitmap_pushes - before == want
 

@@ -2,7 +2,7 @@
 plain reference, on the CPU with no JAX: the weight draw of the `kron25w`
 configuration (`gbench/weighted.py`), `sssp()` in every direction against
 `gbench/reference/sssp.py` at 2^10 vertices, the scatter push over slices
-of the frontier that `mxv_dual` runs for an eager valued Min or Max push,
+of the frontier that `mxv_dual` runs for a valued Min or Max push,
 against the MERGE sort push in one workspace, its push of one lane an edge
 against the SIMPLE push in a workspace, and the SSSP loop's spans.
 
@@ -131,20 +131,17 @@ def _frontier(n, share, seed, semiring):
 
 def _sort_push(A, f, semiring, ident, mask=None, postprocess=None,
                postprocess_sparse=None):
-    """The push mxv_dual(A, f, transpose=True) would run by the MERGE sort
-    push in one workspace of edge_cap lanes (`dispatch._push`, as the
-    other valued pushes take it): (dense, sind, sval, nv)."""
+    """The push mxv_dual(A, f, transpose=True) would run on its workspace
+    route (`dispatch._push`, as the other valued pushes take it) by the
+    MERGE sort push, in one workspace of nnz_pad lanes: (dense, sind, sval,
+    nv)."""
     push_csr = A.pull_csr(False)[2:]
-    cap = dispatch.push_tiers(A.nnz_pad, ())[-1]
     fin = (f.sind, f.sval, f.snvals)
-    deg = torch.diff(push_csr[0][:A.nrows + 1].long())
-    total = int(deg[f.sind[:int(f.snvals)].long()].sum())
-    y, sind, sval, nv, _, _ = dispatch._push(
-        push_csr, fin, total, cap, True, semiring, ident, A.nrows,
+    y, sind, sval, nv = dispatch._push(
+        push_csr, fin, A.nnz_pad, True, semiring, ident, A.nrows,
         mask_dense=mask, mask_scmp=False, structure_only=False,
         sort_push=True, postprocess=postprocess,
-        postprocess_sparse=postprocess_sparse, lazy=False,
-        sp=dispatch.LAZY_SPARSE_CAP, stale_dense=f.dense)
+        postprocess_sparse=postprocess_sparse)
     return y, sind, sval, int(nv)
 
 
@@ -163,24 +160,25 @@ def _equal_images(got, want):
 @pytest.mark.parametrize("share,seed", [(0.3, 1), (0.6, 2), (1.0, 3)])
 def test_sliced_push_equals_the_whole_push(rmat10_valued, semiring, masked,
                                            share, seed):
-    """mxv_dual's scatter push in slices (tiers (64, 8): the frontier
-    passes the second tier) and in one slice (one tier, edge_cap) against
-    the MERGE sort push in one workspace: the same images, exactly."""
+    """mxv_dual's scatter push in slices (edge_cap nnz_pad: the frontier
+    passes `slice_lanes`) and in one slice (edge_cap 8 · nnz_pad, whose
+    slices hold nnz_pad edges) against the MERGE sort push in one
+    workspace: the same images, exactly."""
     A = rmat10_valued
     f, ident = _frontier(A.nrows, share, seed, semiring)
     mask = None
     if masked:
         mask = torch.rand(A.nrows, generator=torch.Generator().manual_seed(
             seed + 7)) < 0.7
-    tiers = dispatch.push_tiers(A.nnz_pad, (64, 8))
     deg = torch.diff(A.row_ptr[:A.nrows + 1].long())
-    assert int(deg[f.dense != ident].sum()) > tiers[-2]
+    assert int(deg[f.dense != ident].sum()) > dispatch.slice_lanes(A.nnz_pad)
+    assert dispatch.slice_lanes(8 * A.nnz_pad) == A.nnz_pad
     kw = dict(identity=ident, transpose=True, mask_dense=mask,
               mode=gt.Direction.PUSHONLY)
     before = mxv_dual.sliced_pushes
-    sliced, _ = mxv_dual(A, f, semiring, tier_divisors=(64, 8), **kw)
+    sliced, _ = mxv_dual(A, f, semiring, edge_cap=A.nnz_pad, **kw)
     assert mxv_dual.sliced_pushes == before + 1
-    one, _ = mxv_dual(A, f, semiring, tier_divisors=(), **kw)
+    one, _ = mxv_dual(A, f, semiring, edge_cap=8 * A.nnz_pad, **kw)
     assert mxv_dual.sliced_pushes == before + 1
     want = _sort_push(A, f, semiring, ident, mask)
     _equal_images(sliced, want)
@@ -198,8 +196,7 @@ def test_sliced_push_runs_the_filter_once(rmat10_valued):
               postprocess=lambda y: torch.where(y < v, y, ident),
               postprocess_sparse=lambda k, y: torch.where(y < v[k.long()], y,
                                                           ident))
-    sliced, _ = mxv_dual(A, f, MinimumPlusSemiring, tier_divisors=(64, 8),
-                         **kw)
+    sliced, _ = mxv_dual(A, f, MinimumPlusSemiring, **kw)
     post = {k: kw[k] for k in ("postprocess", "postprocess_sparse")}
     _equal_images(sliced, _sort_push(A, f, MinimumPlusSemiring, ident,
                                      **post))
@@ -312,8 +309,8 @@ def test_sliced_push_equals_the_whole_push_on_the_card(semiring):
     f = DualFrontier.from_dense(f.dense.cuda(), ident, prefer_sparse=True)
     kw = dict(identity=ident, transpose=True, mode=gt.Direction.PUSHONLY)
     before = mxv_dual.sliced_pushes
-    sliced, _ = mxv_dual(A, f, semiring, tier_divisors=(64, 8), **kw)
-    one, _ = mxv_dual(A, f, semiring, tier_divisors=(), **kw)
+    sliced, _ = mxv_dual(A, f, semiring, **kw)
+    one, _ = mxv_dual(A, f, semiring, edge_cap=8 * A.nnz_pad, **kw)
     assert mxv_dual.sliced_pushes == before + 1
     want = _sort_push(A, f, semiring, ident)
     _equal_images(sliced, want)
