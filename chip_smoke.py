@@ -58,11 +58,20 @@ Phases, each of which fails the run on error (each prints its seconds):
      of shape (n_out,). Prints the CSC's and the CSR's row schedules (the
      Matrix's cached ones); times the kernel, one warp a row and the plain
      version with CUDA events, computes the bound, and times the longest
-     row alone;
+     row alone. Then K4's masked entry (SSSP's pull) over the weighted
+     CSC, at each step of a pull-only relaxation from its longest row and
+     at the MinimumPlus x under the last step's distances v: torch.equal
+     to its plain version with the bound and to a second launch, equal to
+     the unmasked K4 after SSSP's filter where(y < v, y, FLT_MAX), one
+     launch counted in spmv_monoid.launches and .masked_launches; timed
+     beside the unmasked K4 with its least bytes (the open rows' ids and
+     pointers, x and the weight at their frontier columns, the bound, y
+     and the frontier's bitmap);
   7. SSSP main path: graphblast_tpu_torch.algorithms.sssp pull-only from
      the 8 highest-degree sources; distances must equal the port's NumPy
-     golden exactly, K4 must have launched once per iteration, no other
-     kernel at all, and SSSP's plan must read the cached CSC schedule.
+     golden exactly, K4 must have launched once per iteration, each launch
+     through the masked entry, no other kernel at all, and SSSP's plan
+     must read the cached CSC schedule.
      Prints ms/run (median and tail over 80 synchronized runs), the
      iterations, GTEPS over reached edges and K4's share;
   8. CC main path: graphblast_tpu_torch.algorithms.cc; labels must equal
@@ -182,7 +191,8 @@ Phases, each of which fails the run on error (each prints its seconds):
      beside phases 3 and 18; the top hub's stepped trace (direction,
      frontier, degree total, push route and lanes, host reads, ms);
   22. PUSHPULL SSSP: the default sssp(A, s) (DEFAULT) the same way: K4 once
-     a pull iteration and K6 6 times a push iteration; ms/run beside
+     a pull iteration, each through the masked entry, and K6 6 times a
+     push iteration; ms/run beside
      phases 7 and 19;
   23. PUSHPULL BFS from vertex 0 on phase 20's grid: levels equal to the
      golden; push and pull iterations, switches and host reads an
@@ -527,19 +537,23 @@ def _reset_counts():
             fn.routes = dict.fromkeys(fn.routes, 0)
     _wrappers()["gather"].sorted_launches = 0
     _wrappers()["masked_intersect_fold"].ordered_launches = 0
+    _wrappers()["monoid_pull"].masked_launches = 0
 
 
 def _read_counts() -> dict:
     """Launches by kernel since _reset_counts(), K6's by call-site class:
     gather_x at the column ids, gather_boundary at the ascending segment
     tails and row boundaries (`take(..., sorted=True)`); T2's ordered fold
-    (the comparison and multiplies ⊕) apart from its schedule-walked one."""
+    (the comparison and multiplies ⊕) apart from its schedule-walked one;
+    K4's masked launches (SSSP's pulls) again apart, each also counted in
+    monoid_pull."""
     counts = {name: fn.launches for name, fn in _wrappers().items()}
     gather = counts.pop("gather")
     counts["gather_boundary"] = _wrappers()["gather"].sorted_launches
     counts["gather_x"] = gather - counts["gather_boundary"]
     counts["masked_intersect_fold_ordered"] = _wrappers()[
         "masked_intersect_fold"].ordered_launches
+    counts["monoid_pull_masked"] = _wrappers()["monoid_pull"].masked_launches
     return counts
 
 
@@ -1085,12 +1099,115 @@ def phase_monoid_pull(A):
               f"{100 * row_ms / ms:.1f}% of the whole call")
         rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                           bound_ms=bound_ms, library_ms=None)
+    rows["min_plus_masked"] = _masked_min_plus(csc, torch.from_numpy(
+        x_sssp).cuda())
     return rows
+
+
+def _monoid_least_bytes(plan, x, b) -> int:
+    """The least bytes of K4's masked MinimumPlus pull over `plan` at x
+    under the bound b: 4 B an id of each open row and 8 B more (x and the
+    weight) at each of its frontier columns, 4 B each row pointer that
+    bounds an open row, 8 B a row (the bound read, y written) and the
+    frontier's bitmap (n_in / 8 B)."""
+    import torch
+
+    from graphblast_tpu_torch.ops.kernels.monoid_pull import (
+        FLT_MAX, pull_threshold)
+
+    ptr = plan.ptr.long()
+    length = ptr[1:] - ptr[:-1]
+    nnz = int(ptr[-1])
+    rows = torch.repeat_interleave(torch.arange(plan.n_out, device="cuda"),
+                                   length, output_size=nnz)
+    opened = ~(b <= pull_threshold(plan, x))
+    on = (x != FLT_MAX)[plan.ind[:nnz].long()] & opened[rows]
+    bounds = torch.zeros(plan.n_out + 1, dtype=torch.bool, device="cuda")
+    bounds[:-1] |= opened
+    bounds[1:] |= opened
+    return (4 * int(length[opened].sum()) + 8 * int(on.sum())
+            + 4 * int(bounds.sum()) + 8 * plan.n_out + (plan.n_in + 7) // 8)
+
+
+def _masked_min_plus(plan, x_sssp):
+    """K4's masked entry (SSSP's pull, `spmv_monoid(..., bound=)`) over
+    the weighted CSC: at each step of a pull-only relaxation from the
+    CSC's longest row (its frontier, under its distances v), then at
+    x_sssp under the last step's v. Each must be torch.equal to its plain
+    version given the bound and to a second launch, equal to the unmasked
+    K4 after SSSP's filter where(y < v, y, FLT_MAX), and count one launch
+    in spmv_monoid.launches and .masked_launches; each is timed (the pull
+    as the path calls it: the bitmap pack, the threshold and the launch)
+    beside the unmasked K4 and its plain version, with its least bytes.
+    Returns x_sssp's row of the kernels line."""
+    import torch
+
+    import graphblast_tpu_torch as gt
+    from graphblast_tpu_torch.ops.kernels.monoid_pull import (
+        FLT_MAX, pull_threshold, spmv_monoid, spmv_monoid_plain)
+
+    sr = gt.MinimumPlusSemiring
+
+    def check(tag, x, b):
+        launches = spmv_monoid.launches
+        masked = spmv_monoid.masked_launches
+        y = spmv_monoid(plan, x, sr, bound=b)
+        y_again = spmv_monoid(plan, x, sr, bound=b)
+        counted = (spmv_monoid.launches - launches,
+                   spmv_monoid.masked_launches - masked)
+        y_plain = spmv_monoid_plain(plan, x, sr, b)
+        y_full = spmv_monoid(plan, x, sr)
+        torch.cuda.synchronize()
+        if counted != (2, 2):
+            raise AssertionError(f"K4 masked {tag}: counted {counted}, not "
+                                 "2 launches, both masked")
+        err = float((y - y_plain).abs().max())
+        if not (torch.equal(y, y_plain) and torch.equal(y, y_again)):
+            raise AssertionError(f"K4 masked {tag}: differs from its plain "
+                                 f"version (max diff {err}) or a second "
+                                 "launch")
+        if not torch.equal(torch.where(y < b, y, FLT_MAX),
+                           torch.where(y_full < b, y_full, FLT_MAX)):
+            raise AssertionError(f"K4 masked {tag}: differs from the "
+                                 "unmasked K4 after the filter")
+        ms = _event_ms(lambda: spmv_monoid(plan, x, sr, bound=b), 200)
+        full_ms = _event_ms(lambda: spmv_monoid(plan, x, sr), 200)
+        plain_ms = _event_ms(lambda: spmv_monoid_plain(plan, x, sr, b), 20)
+        least = _monoid_least_bytes(plan, x, b)
+        least_ms = least / HBM_BYTES_PER_S * 1e3
+        closed = int((b <= pull_threshold(plan, x)).sum())
+        print(f"[K4 masked] {tag}: frontier {int((x != FLT_MAX).sum())}, "
+              f"{closed} rows closed, {int((y < b).sum())} rows lowered; "
+              f"equal to plain, a second launch and the filtered unmasked "
+              f"K4; masked {ms:.6f} ms, unmasked {full_ms:.6f} ms "
+              f"({full_ms / ms:.2f}x), plain {plain_ms:.6f} ms; least bytes "
+              f"{least} -> {least_ms:.6f} ms ({100 * least_ms / ms:.2f}% of "
+              "its roofline)")
+        return y, full_ms, dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                bound_ms=least_ms, library_ms=None)
+
+    n = plan.n_out
+    v = torch.full((n,), FLT_MAX, device="cuda")
+    v[int(torch.argmax(plan.ptr[1:] - plan.ptr[:-1]))] = 0.0
+    f, masked_ms, full_ms, pulls = v.clone(), 0.0, 0.0, 0
+    while pulls < 12 and bool((f != FLT_MAX).any()):
+        pulls += 1
+        y, step_full_ms, row = check(f"relaxation {pulls}", f, v)
+        masked_ms += row["ms"]
+        full_ms += step_full_ms
+        f = torch.where(y < v, y, FLT_MAX)
+        v = torch.minimum(v, f)
+    print(f"[K4 masked] the relaxation's {pulls} pulls: masked "
+          f"{masked_ms:.6f} ms, unmasked {full_ms:.6f} ms "
+          f"({full_ms / masked_ms:.2f}x)")
+    return check("x_sssp", x_sssp, v)[2]
 
 
 def phase_sssp(A, sources, k4_ms: float, reps: int = 10):
     """Pull-only SSSP through the entry point from the hub sources, against
-    the port's golden, one K4 launch per iteration; then timed."""
+    the port's golden, one K4 launch per iteration, each through the masked
+    entry; then timed. Returns (masked launches, unmasked MinimumPlus
+    launches, goldens, s/run)."""
     import numpy as np
 
     import graphblast_tpu_torch as gt
@@ -1115,11 +1232,13 @@ def phase_sssp(A, sources, k4_ms: float, reps: int = 10):
         bad = int((d != want).sum())
         if bad:
             raise AssertionError(f"SSSP from {s}: {bad} distances != golden")
-    launches = _expect_launches("SSSP", {"monoid_pull": sum(iters)}, counts)[
-        "monoid_pull"]
+    counts = _expect_launches("SSSP", {"monoid_pull": sum(iters),
+                                       "monoid_pull_masked": sum(iters)},
+                              counts)
+    launches = counts["monoid_pull_masked"]
     _expect_shared_schedule("SSSP", plan, A, "csc")
     print(f"[sssp] {len(sources)} sources: distances == NumPy golden; "
-          f"iterations {iters}; K4 launches {launches}")
+          f"iterations {iters}; K4 launches {launches}, all masked")
     srcs = iter([int(s) for s in sources] * reps)
     per_s, tail = _timed_runs(
         lambda: gt.algorithms.sssp(A, next(srcs), desc),
@@ -1135,9 +1254,9 @@ def phase_sssp(A, sources, k4_ms: float, reps: int = 10):
           f"{reached_edges / per_s / 1e9:.6f} GTEPS at the median; "
           f"{iters[0]} iterations")
     print(f"[sssp] K4 time per run ({iters[0]} launches x {k4_ms:.6f} ms, "
-          f"min_plus above) = {k4:.6f} ms, {100 * k4 / (per_s * 1e3):.2f}% "
-          "of the median run")
-    return launches, goldens, per_s
+          f"min_plus_masked at x_sssp above) = {k4:.6f} ms, "
+          f"{100 * k4 / (per_s * 1e3):.2f}% of the median run")
+    return launches, counts["monoid_pull"] - launches, goldens, per_s
 
 
 def phase_cc(A, k4_ms: float, reps: int = 40):
@@ -2753,8 +2872,9 @@ def phase_pushpull_sssp(A, sources, goldens, pull_s, push_s,
                         reps: int = 10):
     """The default sssp(A, s) (DEFAULT: PUSHPULL) at rmat18 from the
     hub sources: distances equal to the golden; K4 once a pull iteration
-    and K6 SSSP_PUSH_K6 times a push iteration, no other kernel; at most 2
-    host reads an iteration; ms/run beside phases 7 and 19."""
+    (its masked entry) and K6 SSSP_PUSH_K6 times a push iteration, no
+    other kernel; at most 2 host reads an iteration; ms/run beside phases
+    7 and 19."""
     import numpy as np
 
     import graphblast_tpu_torch as gt
@@ -2767,8 +2887,9 @@ def phase_pushpull_sssp(A, sources, goldens, pull_s, push_s,
         _check_reads("PUSHPULL SSSP", t)
     _reset_counts()
     dists = [gt.algorithms.sssp(A, int(s)).to_numpy() for s in sources]
-    counts = _expect_launches("PUSHPULL SSSP", _expected_launches(
-        sums, "monoid_pull", SSSP_PUSH_K6))
+    expected = _expected_launches(sums, "monoid_pull", SSSP_PUSH_K6)
+    expected["monoid_pull_masked"] = expected["monoid_pull"]
+    counts = _expect_launches("PUSHPULL SSSP", expected)
     for s, d, want in zip(sources, dists, goldens):
         if d.shape != (A.nrows,) or not np.isfinite(d).all():
             raise AssertionError(f"PUSHPULL SSSP from {s}: bad distances")
@@ -4737,8 +4858,8 @@ def main() -> int:
     k4 = phase_monoid_pull(A)
     print(f"[phase] K4 vs plain at rmat18 {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
-    sssp_launches, sssp_goldens, sssp_per_s = phase_sssp(
-        A, sources, k4["min_plus"]["ms"])
+    sssp_launches, unbound_launches, sssp_goldens, sssp_per_s = phase_sssp(
+        A, sources, k4["min_plus_masked"]["ms"])
     print(f"[phase] SSSP {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
     cc_launches, cc_golden, cc_per_s = phase_cc(
@@ -4876,8 +4997,11 @@ def main() -> int:
             "source": "graphblast_tpu_torch/csrc/value_pull.cu",
             "replaces": replaces, "launches": pr_launches,
             "bound_by": "bytes", **row})
-    # one kernel, two call sites of the main paths: SSSP's and CC's
-    for name, launches in (("min_plus", sssp_launches),
+    # one kernel, two call sites of the main paths: SSSP's, through the
+    # masked entry, and CC's; launches: each row's on its path (SSSP's
+    # MinimumPlus pulls unbound are those that missed the masked entry)
+    for name, launches in (("min_plus", unbound_launches),
+                           ("min_plus_masked", sssp_launches),
                            ("min_select_second", cc_launches)):
         kernels.append({
             "name": f"monoid_pull_{name}", "route": "cuda",

@@ -9,11 +9,15 @@ Per iteration, as in the reference:
     succ = nvals(f2)                             # productive count
 
 The filter is `mxv_dual`'s postprocess, as in the JAX package, so the
-productive count is the filtered frontier's nvals; the push takes its
-sparse twin, which filters each destination's candidate. desc.mxv_mode
+productive count is the filtered frontier's nvals: the loop hands
+`mxv_dual` the distances as its `bound`, which writes FLT_MAX at every
+candidate that does not lower them, on either route. desc.mxv_mode
 picks the direction: PUSHPULL, the default, switches by the frontier's
 density. The vxm pull runs the monoid pull (K4) over A's CSC plan
-(`plan_for_monoid`), on the CPU and CUDA alike; the push runs over A's CSR
+(`plan_for_monoid`), on the CPU and CUDA alike, through its masked entry,
+which the bound lets skip the rows no candidate can lower (v <= min f +
+the least weight) and read x and the weight only at the frontier's
+columns; the push runs over A's CSR
 as scatter pushes over slices of the frontier (`mxv_dual`'s SLICES route,
 `ops/spmspv.py` `spmspv_push_exact`), gathering through K6. Both images of
 the frontier stay valid every relaxation. Both modes are a Python loop
@@ -30,7 +34,6 @@ import torch
 from ..descriptor import DEFAULT, Descriptor
 from ..matrix import Matrix
 from ..ops.dispatch import DualFrontier, frontier_state, mxv_dual
-from ..ops.gather_dispatch import take
 from ..ops.kernels.monoid_pull import FLT_MAX as MAXF
 from ..ops.kernels.monoid_pull import MonoidPlan, plan_for_monoid
 from ..semiring import MinimumPlusSemiring
@@ -62,23 +65,12 @@ def _sssp_step(A: Matrix, v: torch.Tensor, f: DualFrontier,
     """One relaxation; `v` is the (n + 1,) distance buffer, updated in
     place; `state`, f's `frontier_state` where the caller read it."""
     vn = v[:A.nrows]
-
-    def filter_unproductive(y):
-        # eWiseAdd(m, CustomLessPlus, f2, v) + the scmp-masked assign of
-        # FLT_MAX (sssp.hpp:76-88) in one where
-        return torch.where(y < vn, y, MAXF)
-
-    def filter_sparse(keys, vals):
-        # the push's twin: v at the sorted candidate keys (one ascending
-        # gather), non-improving candidates to the FLT_MAX identity
-        return torch.where(vals < take(vn, keys, sorted=True), vals, MAXF)
-
+    # the bound is eWiseAdd(m, CustomLessPlus, f2, v) + the scmp-masked
+    # assign of FLT_MAX (sssp.hpp:76-88) in one where
     f2, used_push = mxv_dual(
         A, f, MinimumPlusSemiring, identity=MAXF, transpose=True,
         edge_cap=edge_cap, sort_push=sort_push, switchpoint=switchpoint,
-        mode=mode, pull_plan=plan,
-        postprocess=filter_unproductive, postprocess_sparse=filter_sparse,
-        state=state)
+        mode=mode, pull_plan=plan, bound=vn, state=state)
     # v = min(v, f2), eWiseAdd MinimumPlus (sssp.hpp:80-82): filtered
     # entries are FLT_MAX and cannot lower v
     torch.minimum(vn, f2.dense, out=vn)

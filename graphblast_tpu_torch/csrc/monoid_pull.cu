@@ -34,6 +34,28 @@
 // bound for MinimumPlus: lanes idle on short rows and the hub row (25,077
 // edges) as 784 strided steps on one warp (PERF.md).
 //
+// The masked entry (gb_monoid_pull_masked, MinimumPlus only) serves SSSP's
+// pull, whose caller keeps y[i] only where y[i] < bound[i] (the distances
+// v) and writes the identity FLT_MAX elsewhere. It skips two kinds of work
+// that filter would discard, and is exact against the unmasked entry
+// followed by it:
+//   - columns off the frontier: x[j] = FLT_MAX there, and clamp(w +
+//     FLT_MAX) = FLT_MAX, the identity, for every weight w of the plan
+//     (the wrapper takes this entry only where fl(FLT_MAX + w_min) rounds
+//     to FLT_MAX or above, w_min the plan's least weight). Each edge tests
+//     bit j of a packed frontier bitmap (x[j] != FLT_MAX, packed by the
+//     wrapper as bitmap_pull's pack_bitmap packs K1's frontier) first,
+//     and reads neither x[j] nor val[e] where it is clear;
+//   - settled rows: t = fl(min x + w_min), a float32 device scalar. fl is
+//     monotone, so every fl(w + x[j]) of any row is at least t, and a row
+//     with bound[i] <= t can give no candidate under its bound (with t =
+//     +inf every candidate clamps to FLT_MAX, the identity). Such a row is
+//     closed (row_schedule.cuh's row_open hook) and written FLT_MAX with
+//     no read of its ptr or ind.
+// Its bytes: 4 B of bound and perm and of y for every row, ptr and the
+// ids of the open rows, the bitmap (n_in / 8 B, in L2 at 4 MB for 2^25
+// columns), and x and val only at the open rows' frontier columns.
+//
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //             -Xcompiler -fPIC (graphblast_tpu_torch/ops/kernels/_build.py)
 #include <cfloat>
@@ -72,6 +94,25 @@ struct MonoidFold {
   }
   static __device__ __forceinline__ float combine(float a, float b) {
     return kAdd == kMin ? fminf(a, b) : fmaxf(a, b);
+  }
+};
+
+// the masked entry's policy: MonoidFold's MinimumPlus (its identity
+// FLT_MAX) over the frontier's columns (bit j of `words` set), in the rows
+// that `bound` leaves open
+struct MonoidFoldMasked : MonoidFold<kMin, kPlus> {
+  const uint32_t* __restrict__ words;
+  const float* __restrict__ bound;
+  const float* __restrict__ t;
+
+  __device__ __forceinline__ float fetch(int j, long long e) const {
+    const uint32_t c = (uint32_t)j;
+    if (!((__ldg(words + (c >> 5)) >> (c & 31u)) & 1u)) return FLT_MAX;
+    return MonoidFold<kMin, kPlus>::fetch(j, e);
+  }
+  // closed where bound[row] <= t; a NaN on either side leaves it open
+  __device__ __forceinline__ bool row_open(int row) const {
+    return !(__ldg(bound + row) <= __ldg(t));
   }
 };
 
@@ -119,6 +160,25 @@ int gb_monoid_pull(const void* ptr, const void* ind, const void* val,
     err = launch<kMax, kMul>(p, i, v, xs, ys, pm, cb, s, ident, st);
   else
     return (int)cudaErrorInvalidValue;
+  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
+}
+
+// The masked entry: y = the MinimumPlus pull, with y[i] = FLT_MAX at every
+// row whose bound[i] <= *t (t a device scalar) and the edges whose bit is
+// clear in `words` (ceil(n_in / 32) words) taken as FLT_MAX. bound has
+// n_out entries. Other arguments as gb_monoid_pull's.
+int gb_monoid_pull_masked(const void* ptr, const void* ind, const void* val,
+                          const void* x, const void* words,
+                          const void* bound, const void* t, void* y,
+                          const void* perm, const void* chunk_beg,
+                          const int* meta, void* stream) {
+  const cudaError_t err = row_schedule::launch(
+      MonoidFoldMasked{{(const float*)val, (const float*)x, FLT_MAX},
+                       (const uint32_t*)words, (const float*)bound,
+                       (const float*)t},
+      (const int32_t*)ptr, (const int32_t*)ind, (float*)y,
+      (const int32_t*)perm, (const int32_t*)chunk_beg,
+      row_schedule::sched_of(meta), (cudaStream_t)stream);
   return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }
 

@@ -339,12 +339,14 @@ def _plan_serves(pull_plan, semiring: Semiring, structure_only: bool,
 
 def _pull(A: Matrix, fd: torch.Tensor, semiring: Semiring, n_out: int,
           pull_csr, transpose: bool, *, mask_dense, mask_scmp,
-          structure_only, pull_plan) -> torch.Tensor:
+          structure_only, pull_plan, bound) -> torch.Tensor:
     """y = the pull of the dense frontier `fd` over pull_csr, the (ptr, ind,
     val) of A's CSR for mxv and of its CSC for vxm, under the mask: through
     `pull_plan`'s kernel, or `spmv_pull` without a plan. A BitmapPlan
     under a float32 mask takes K1's masked entry, which applies the mask
-    itself and stops each open row at its first frontier neighbour."""
+    itself and stops each open row at its first frontier neighbour; a
+    MonoidPlan under MinimumPlus with a `bound` takes K4's masked entry
+    (`spmv_monoid`'s `bound`)."""
     pull_ptr, pull_ind, pull_val = pull_csr
     if pull_plan is None:   # the mask is applied below, for every route
         # only the min/max row fold reads a schedule
@@ -353,7 +355,7 @@ def _pull(A: Matrix, fd: torch.Tensor, semiring: Semiring, n_out: int,
         y = spmv_pull(pull_ptr, pull_ind, pull_val, fd, semiring, n_out,
                       structure_only=structure_only, sched=sched)
     elif isinstance(pull_plan, MonoidPlan):
-        y = spmv_monoid(pull_plan, fd, semiring)
+        y = spmv_monoid(pull_plan, fd, semiring, bound=bound)
     else:
         if isinstance(pull_plan, BitmapPlan):
             # the bitmap plan ignores edge values
@@ -381,7 +383,8 @@ def mxv_dual(A: Matrix, f: DualFrontier, semiring: Semiring, identity, *,
              switchpoint: float = 0.01, mode=None,
              postprocess: Optional[Callable] = None,
              postprocess_sparse: Optional[Callable] = None,
-             pull_plan=None, state: Optional[tuple] = None):
+             pull_plan=None, bound: Optional[torch.Tensor] = None,
+             state: Optional[tuple] = None):
     """One y = A ⊗ f (or fᵀ ⊗ A when transpose), returning a new
     DualFrontier and whether push ran, a Python bool (reference:
     operations.hpp:108-199 vxm + convert()).
@@ -399,9 +402,15 @@ def mxv_dual(A: Matrix, f: DualFrontier, semiring: Semiring, identity, *,
     or a MonoidPlan for a min/max semiring of SEMIRING_MAP over a float32
     frontier; a plan that does not serve the pull is passed over for
     `spmv_pull`, as in the JAX package. `postprocess(y)` runs after the
-    mask and before the count of non-identity entries. PULLONLY keeps the
-    sparse image stale (only push reads it); a PUSHPULL pull rebuilds it,
-    since the next call may push.
+    mask and before the count of non-identity entries. `bound`, a
+    float32 (n_out,) tensor, is such a postprocess, given as data: every
+    route writes the identity at each y[i] >= bound[i] (SSSP's filter
+    against its distances), and the call takes no other postprocess. A
+    MinimumPlus pull over a MonoidPlan then takes K4's masked entry, which
+    skips the rows and the columns off the frontier that the filter
+    would empty (`spmv_monoid`'s `bound`).
+    PULLONLY keeps the sparse image stale (only push reads it); a PUSHPULL
+    pull rebuilds it, since the next call may push.
 
     Push reads the frontier's sparse image (which must hold no
     identity-valued entry, see DualFrontier.from_sparse), ignores
@@ -427,6 +436,13 @@ def mxv_dual(A: Matrix, f: DualFrontier, semiring: Semiring, identity, *,
     `.push_lanes`, `.top_tier_pushes`, `.bitmap_pushes` and
     `.sliced_pushes`."""
     mode = mode if mode is not None else Direction.PUSHPULL
+    if bound is not None:
+        if postprocess is not None or postprocess_sparse is not None:
+            raise ValueError("a bound is the call's postprocess; give no "
+                             "other")
+
+        def postprocess(y):
+            return torch.where(y < bound, y, identity)
     n_out, _, pull_ptr, pull_ind, pull_val = A.pull_csr(transpose)
     # push expands the input's adjacency: the other orientation
     push_csr = A.pull_csr(not transpose)[2:]
@@ -439,7 +455,8 @@ def mxv_dual(A: Matrix, f: DualFrontier, semiring: Semiring, identity, *,
     def pull(fd):
         return _pull(A, fd, semiring, n_out, (pull_ptr, pull_ind, pull_val),
                      transpose, mask_dense=mask_dense, mask_scmp=mask_scmp,
-                     structure_only=structure_only, pull_plan=pull_plan)
+                     structure_only=structure_only, pull_plan=pull_plan,
+                     bound=bound)
 
     if mode != Direction.PUSHONLY and not _plan_serves(
             pull_plan, semiring, structure_only, f.dense.dtype, n_out,

@@ -42,7 +42,8 @@ def test_cell_is_declared_with_its_metrics():
                       "pulls_per_call.sssp", "pull_roofline_share.sssp",
                       "push_ms_per_call.sssp",
                       "top_tier_pushes_per_call.sssp",
-                      "device_idle_share.sssp"}
+                      "device_idle_share.sssp",
+                      "masked_pulls_per_call.sssp"}
     # the same graph, roots and root rule as kron25-bfs
     _, kron, bfs = harness.resolve(bench, "kron25-bfs")
     for key in ("graph_seed", "scale", "edge_factor", "A", "B", "C"):
@@ -68,9 +69,11 @@ def test_cell_runs_correct_on_the_cpu(tiny_root, trace_on):
     # readers stay out; the plain K4 counts no launch
     assert set(got) == {"build_s", "plan_s", "iters_per_call.sssp",
                         "pulls_per_call.sssp",
-                        "top_tier_pushes_per_call.sssp"}
+                        "top_tier_pushes_per_call.sssp",
+                        "masked_pulls_per_call.sssp"}
     assert got["iters_per_call.sssp"]["value"] > 1
     assert got["pulls_per_call.sssp"]["value"] == 0
+    assert got["masked_pulls_per_call.sssp"]["value"] == 0
 
 
 def test_traced_iterations_equal_the_loops_own_count(tiny_root, monkeypatch):

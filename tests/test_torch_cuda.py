@@ -23,6 +23,7 @@ from graphblast_tpu_torch.ops.kernels import orpull as ko
 from graphblast_tpu_torch.ops.kernels import row_schedule as rs
 from graphblast_tpu_torch.ops.kernels import value_pull as vp
 
+import test_torch_masked_monoid as monoid_cases
 import test_torch_masked_pull as masked_cases
 from test_torch_intersect_replay import (ORDERED_DTYPES, ROUTINGS,
                                          SEMIRING_DTYPES, _ids_bound,
@@ -488,6 +489,138 @@ def test_masked_bitmap_pull_mixes_closed_and_open_short_rows(cuda):
         y = _masked_launch(plan, bp.pack_bitmap(f), mask, scmp).cpu()
         want = (levels == 0) if scmp else (levels != 0)
         np.testing.assert_array_equal(y.numpy(), want.astype(np.int32))
+
+
+def _masked_monoid(plan, x, b):
+    """K4's masked launch: y, and the launches it added to
+    spmv_monoid.launches and .masked_launches."""
+    launches = mp.spmv_monoid.launches
+    masked = mp.spmv_monoid.masked_launches
+    y = mp.spmv_monoid(plan, x, tgb.MinimumPlusSemiring, bound=b)
+    torch.cuda.synchronize()
+    return y, (mp.spmv_monoid.launches - launches,
+               mp.spmv_monoid.masked_launches - masked)
+
+
+@pytest.mark.parametrize("csr", list(monoid_cases.CSRS))
+@pytest.mark.parametrize("weights", list(monoid_cases.WEIGHTS))
+@pytest.mark.parametrize("front", monoid_cases.FRONTIERS)
+def test_masked_monoid_pull_matches_plain_on_the_card(cuda, csr, weights,
+                                                      front):
+    """K4's masked entry over every bin of the row schedule (a row past
+    LONG_ROW included): torch.equal to its plain version and to a second
+    launch, equal to the unmasked K4 after SSSP's filter and at every open
+    row, one launch counted in both counters; an unmasked launch counts in
+    `.launches` alone."""
+    n, ptr, cols, vals = monoid_cases.case(csr, weights)
+    plan = monoid_cases.build(n, ptr, cols, vals, cuda)
+    x = torch.from_numpy(monoid_cases.frontier(front, n, cols)).to(cuda)
+    b = torch.from_numpy(monoid_cases.bound(n)).to(cuda)
+    y, counted = _masked_monoid(plan, x, b)
+    assert counted == (1, 1)
+    masked = mp.spmv_monoid.masked_launches
+    y_plain = mp.spmv_monoid(plan, x, tgb.MinimumPlusSemiring)
+    torch.cuda.synchronize()
+    assert mp.spmv_monoid.masked_launches == masked
+    monoid_cases.check_masked(plan, x, b, y, y_plain)
+    assert torch.equal(y, mp.spmv_monoid_plain(plan, x,
+                                               tgb.MinimumPlusSemiring, b))
+    assert torch.equal(y, _masked_monoid(plan, x, b)[0])
+
+
+@pytest.mark.parametrize("closed_long", [False, True])
+def test_masked_monoid_pull_on_long_rows_on_the_card(cuda, closed_long):
+    """Long rows of 3T + 777 and 3T + 1 edges (clusters of 8 blocks)
+    beside short and medium ones, whole frontier: with closed_long every
+    long row's bound lies under t, so its cluster leaves at the bound and
+    reads FLT_MAX; else the long rows are open and equal the unmasked
+    K4."""
+    ptr, ind, length, rng = _long_row_csr(cuda, 300, 5000, 9000,
+                                          3 * rs.LONG_ROW + 777, _hub_rows,
+                                          41)
+    n_in = 5000
+    val = torch.from_numpy(rng.integers(1, 256, ind.shape[0]).astype(
+        np.float32)).to(cuda)
+    plan = mp.build_plan_monoid(ptr, ind, val, 300, n_in)
+    assert plan.sched.bin_rows[0] > 0
+    x = torch.from_numpy(rng.integers(300, 600, n_in).astype(
+        np.float32)).to(cuda)
+    long_rows = torch.from_numpy(length > rs.LONG_ROW).to(cuda)
+    b = torch.where(long_rows, 0.0 if closed_long else monoid_cases.MAXF,
+                    torch.from_numpy(monoid_cases.bound(300)).to(cuda))
+    y, counted = _masked_monoid(plan, x, b)
+    assert counted == (1, 1)
+    y_plain = mp.spmv_monoid(plan, x, tgb.MinimumPlusSemiring)
+    monoid_cases.check_masked(plan, x, b, y, y_plain)
+    if closed_long:
+        assert bool((y[long_rows] == monoid_cases.MAXF).all())
+    else:
+        assert torch.equal(y[long_rows], y_plain[long_rows])
+        assert bool((y[long_rows] < monoid_cases.MAXF).all())
+
+
+@pytest.mark.parametrize("b_kind", ["closed", "t_inf"])
+def test_masked_monoid_pull_edge_cases_on_the_card(cuda, b_kind):
+    """Every row closed (a bound at t everywhere), and t overflowing to
+    +inf (weights and distances of 3e38): FLT_MAX everywhere, as the
+    plain version and the filtered unmasked K4 give."""
+    n, ptr, cols, vals = monoid_cases.case("every_bin", "int")
+    x = monoid_cases.frontier("whole", n, cols)
+    if b_kind == "t_inf":
+        vals = np.full(len(vals), 3e38, np.float32)
+        x = np.full(n, 3e38, np.float32)
+    plan = monoid_cases.build(n, ptr, cols, vals, cuda)
+    x = torch.from_numpy(x).to(cuda)
+    t = mp.pull_threshold(plan, x)
+    b = (t.expand(n).contiguous() if b_kind == "closed"
+         else torch.full((n,), monoid_cases.MAXF, device=cuda))
+    if b_kind == "t_inf":
+        assert float(t) == float("inf")
+    y, _ = _masked_monoid(plan, x, b)
+    assert bool((y == monoid_cases.MAXF).all())
+    monoid_cases.check_masked(plan, x, b, y, mp.spmv_monoid(
+        plan, x, tgb.MinimumPlusSemiring))
+    assert torch.equal(y, mp.spmv_monoid_plain(plan, x,
+                                               tgb.MinimumPlusSemiring, b))
+
+
+@pytest.mark.parametrize("mode", ["PULLONLY", "PUSHPULL"])
+def test_sssp_takes_the_masked_pull_on_the_card(cuda, monkeypatch, mode):
+    """SSSP at RMAT scale 12 with integer weights in [1, 255] from the hub
+    and another vertex: every K4 launch masked, the distances equal to the
+    port's golden and to a run with the masked entry turned off (whose
+    launches count in .launches alone); CC's K4 launches are never
+    masked."""
+    from graphblast_tpu_torch.io.rmat import rmat_matrix
+
+    U = rmat_matrix(12, 16, seed=42, device="cpu")
+    ptr, cols, _ = U.host_csr()
+    n = U.nrows
+    rows = np.repeat(np.arange(n), np.diff(ptr))
+    lo, hi = np.minimum(rows, cols), np.maximum(rows, cols)
+    w = ((lo * 7919 + hi * 104729) % 255 + 1).astype(np.float32)
+    A = tgb.Matrix.from_coo(rows, cols, w, n, n, device=cuda)
+    H = tgb.Matrix.from_coo(rows, cols, w, n, n, device="cpu")
+    desc = tgb.DEFAULT.replace(mxv_mode=getattr(tgb.Direction, mode))
+    deg = np.diff(ptr)
+    for s in (int(np.argmax(deg)), int(np.flatnonzero(deg)[7])):
+        launches = mp.spmv_monoid.launches
+        masked = mp.spmv_monoid.masked_launches
+        got = tgb.algorithms.sssp(A, s, desc).to_numpy()
+        pulls = mp.spmv_monoid.launches - launches
+        assert mp.spmv_monoid.masked_launches - masked == pulls > 0
+        np.testing.assert_array_equal(got, tgb.algorithms.sssp_cpu(H, s))
+        with monkeypatch.context() as m:
+            m.setattr(mp, "takes_bound", lambda *a: False)
+            masked = mp.spmv_monoid.masked_launches
+            off = tgb.algorithms.sssp(A, s, desc).to_numpy()
+            assert mp.spmv_monoid.masked_launches == masked
+        np.testing.assert_array_equal(got, off)
+    masked = mp.spmv_monoid.masked_launches
+    launches = mp.spmv_monoid.launches
+    tgb.algorithms.cc(A)
+    assert mp.spmv_monoid.launches > launches
+    assert mp.spmv_monoid.masked_launches == masked
 
 
 @pytest.mark.parametrize("build", ["monoid", "bitmap"])
